@@ -1,0 +1,777 @@
+// Lease-plane window kernels for Hopper (sm_90a): T ticks of the vectorized
+// PaxosLease plane in one launch, one thread per cell.
+//
+// Replaces the TPU kernels of src/repro/lease_array/kernel.py:
+//   lease_window_delayed_pallas (pallas_call at kernel.py:536; body
+//     _delayed_window_kernel :313, quiescence test _quiescent :268)
+//     -> lease_window_delayed below;
+//   lease_window_sync_pallas (pallas_call at kernel.py:447; body
+//     _sync_window_kernel :237) -> lease_window_sync below.
+// Their per-tick bodies are netplane.delayed_tick_math and
+// ref.sync_tick_math; the plain PyTorch versions of both live beside the
+// wrappers (kernel.py in this package) and every result here is held
+// bit-exact against them.
+//
+// What bounds it on this card. Cells are independent and the tick math
+// never reduces across N, so there is no data reuse between cells to win:
+// per cell-tick the kernel must read the attempts/releases(/extends)
+// streams and write the owner and count rows (20 B with extends) — at
+// 3.35 TB/s that is ~6 ps per cell-tick. The tick itself is a few hundred
+// int32 selects, compares and shifts per cell (the A-loops below, times a
+// handful of phases), which at the H100's int32 issue rate costs more than
+// the bytes whenever every window really ticks. So a window that ticks is
+// bound by integer operations, a quiescent window by bytes.
+//
+// What the design does about it:
+//   * one thread per cell, the cell's 8 [A, N] columns and 8 [1, N] rows
+//     held in registers (A is a compile-time constant, so every A-loop
+//     unrolls) for all T ticks; state touches device memory once at the
+//     start and once at the end;
+//   * neighbouring threads own neighbouring cells, so every [A, N] and
+//     [T, N] access is coalesced; the ragged edge is masked here, the host
+//     pads nothing;
+//   * per window of `tw` ticks the block stages the cell-independent
+//     columns (acc_up, clocks, the [P, A] link matrices, fault columns) in
+//     shared memory; a proposer-indexed read is a bounds-checked shared
+//     load, which gives 0 for ids outside [0, P) exactly like the plain
+//     version's select loop;
+//   * quiescence skip (delayed kernel): a block-wide vote
+//     (__syncthreads_and) proves that no cell of the block can change in the
+//     window — no traffic, no open round, no scheduled event or fault, every
+//     lease live through the window's last local-clock reading — and then
+//     writes the owner/count rows without running the tick math;
+//   * packed (deadline << 15 | ballot) words are built with unsigned shifts
+//     (no signed-shift UB); the host checks the pack budget first.
+// No TMA, no warp specialisation: the kernel streams a few int32 rows per
+// tick, which plain coalesced loads serve.
+
+#include <cuda_runtime.h>
+
+// The acceptor count is a compile-time constant (every A-loop unrolls and
+// the cell's columns stay in registers): the library is built once per A,
+// 1..15 (netplane.MAX_VOTE_ACCEPTORS), with -DLEASE_ACCEPTORS=A.
+#ifndef LEASE_ACCEPTORS
+#error "build with -DLEASE_ACCEPTORS=<acceptor count, 1..15>"
+#endif
+static_assert(LEASE_ACCEPTORS >= 1 && LEASE_ACCEPTORS <= 15,
+              "vote bitmasks hold at most 15 acceptors");
+
+namespace {
+
+constexpr int kA = LEASE_ACCEPTORS;
+
+constexpr int kBlock = 128;
+constexpr int kPackShift = 15;
+constexpr int kPackMask = (1 << kPackShift) - 1;
+constexpr int kNoProposer = -1;
+constexpr int kRestartShift = 2;
+constexpr int kIdle = 0, kPreparing = 1, kProposing = 2;
+
+__device__ __forceinline__ int shl15(int x) {
+  return static_cast<int>(static_cast<unsigned>(x) << kPackShift);
+}
+
+__device__ __forceinline__ int pack(int q4, int ballot) {
+  return static_cast<int>((static_cast<unsigned>(q4) << kPackShift) |
+                          static_cast<unsigned>(ballot));
+}
+
+// ballot % P with Python's sign convention (ballots are >= 0 in every legal
+// state, where C's % agrees); a mask when P is a power of two.
+__device__ __forceinline__ int ballot_proposer(int b, int P) {
+  if ((P & (P - 1)) == 0) return b & (P - 1);
+  int r = b % P;
+  return r < 0 ? r + P : r;
+}
+
+// row[id] for id in [0, P), else 0 (state.clock_select / legs_select).
+__device__ __forceinline__ int pick(const int* row, int id, int P) {
+  return static_cast<unsigned>(id) < static_cast<unsigned>(P) ? row[id] : 0;
+}
+
+// the link entry of proposer `p` towards acceptor `a` (0 = delay 0, kept)
+__device__ __forceinline__ int leg(const int* link, int p, int a, int A,
+                                   int P) {
+  return static_cast<unsigned>(p) < static_cast<unsigned>(P) ? link[p * A + a]
+                                                             : 0;
+}
+
+__device__ __forceinline__ bool due(int slot, int live_min) {
+  return slot > 0 && slot < live_min;
+}
+
+template <int A>
+__device__ __forceinline__ int votes(int bits) {
+  return __popc(static_cast<unsigned>(bits) & ((1u << A) - 1u));
+}
+
+struct Params {
+  int N, T, P, t0, tw;
+  int majority, lease_q4, round_q4, guard_q4;
+  int skip_stable;
+};
+
+// ---------------------------------------------------------------- delayed
+struct DelayedArgs {
+  const int* in[16];  // PackedLeaseState (4) then NetPlaneState (12) fields
+  int* out[16];
+  const int* att;     // [T, N]
+  const int* rel;     // [T, N]
+  const int* ext;     // [T, N] or null
+  const int* up;      // [T, A]
+  const int* pclk;    // [T, P]
+  const int* aclk;    // [T, A]
+  const int* link;    // [T, P, A]
+  const int* stale;   // [T, A] or null (with equiv)
+  const int* equiv;   // [T, A] or null
+  const int* arst;    // [T, A] or null (the four restart columns together)
+  const int* deaf;    // [T, A]
+  const int* prst;    // [T, P]
+  const int* prc;     // [T, P]
+  int* owners;        // [T, N]
+  int* counts;        // [T, N]
+  unsigned long long* ticked;  // cell-ticks that ran the tick math, or null
+};
+
+template <int A>
+struct Cell {
+  int promised[A], acc_lease[A];
+  int preq[A], presp[A], presp_pay[A], poreq[A], poresp[A], rel[A];
+  int own_id, ownp;
+  int rnd_ballot, rnd_phase, rnd_expiry, rnd_deadline, open_bits, acc_bits;
+};
+
+// Shared-memory columns of one tick (null where the plane is absent).
+struct TickCols {
+  const int *up, *pclk, *aclk, *link, *stale, *equiv, *arst, *deaf, *prst,
+      *prc;
+};
+
+// One tick of netplane.delayed_tick_math for one cell, phase for phase.
+// Returns the §4 owner count; the owner row is s.own_id afterwards.
+template <int A, bool EXT, bool CORRUPT, bool RESTART>
+__device__ __forceinline__ int delayed_tick(Cell<A>& s, int t, int att,
+                                            int rel, int ext,
+                                            const TickCols& k,
+                                            const Params& p) {
+  const int P = p.P;
+  const int t4 = 4 * t;
+  const int live_min = shl15(t4 + 1);
+  bool up[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) up[a] = k.up[a] > 0;
+
+  // 1. expiry, each node on its own local clock
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+    if (!(s.acc_lease[a] >= shl15(k.aclk[a] + 1))) s.acc_lease[a] = 0;
+  {
+    const int own_clk = pick(k.pclk, s.own_id, P);
+    if (!(s.ownp >= shl15(own_clk + 1))) {
+      s.ownp = 0;
+      s.own_id = kNoProposer;
+    }
+  }
+
+  // 1.5 crash/restart: a diskless acceptor comes back blank and deaf; a
+  // restarted proposer drops its belief
+  if (RESTART) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      if (k.arst[a] > 0) {
+        s.promised[a] = 0;
+        s.acc_lease[a] = 0;
+        s.presp[a] = 0;
+        s.presp_pay[a] = kNoProposer;
+        s.poresp[a] = 0;
+      }
+      up[a] = up[a] && !(k.deaf[a] > 0);
+    }
+    if (pick(k.prst, s.own_id, P) > 0) {
+      s.ownp = 0;
+      s.own_id = kNoProposer;
+    }
+  }
+
+  // 2. release (§7): stop believing now, then the discards ride the net
+  const bool has_rel = rel >= 0;
+  const bool rel_owner = has_rel && s.own_id == rel;
+  const int rel_ballot = rel_owner ? (s.ownp & kPackMask) : 0;
+  if (rel_owner) {
+    s.ownp = 0;
+    s.own_id = kNoProposer;
+  }
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const int v = leg(k.link, rel, a, A, P);
+    if (rel_ballot > 0 && !(v & 1)) s.rel[a] = pack(t4 + 4 * (v >> 1), rel_ballot);
+    if (due(s.rel[a], live_min)) {
+      if (up[a] && (s.acc_lease[a] & kPackMask) == (s.rel[a] & kPackMask))
+        s.acc_lease[a] = 0;
+      s.rel[a] = 0;
+    }
+  }
+
+  // 3. round lifecycle: release / restart kills, abandon timer, new attempt
+  int rnd_prop = ballot_proposer(s.rnd_ballot, P);
+  bool rel_kills = s.rnd_ballot > 0 && has_rel && rnd_prop == rel;
+  if (RESTART)
+    rel_kills = rel_kills || (s.rnd_ballot > 0 && pick(k.prst, rnd_prop, P) > 0);
+  int rnd_clk = pick(k.pclk, rnd_prop, P);
+  const bool timed_out = s.rnd_ballot > 0 && rnd_clk >= s.rnd_deadline;
+  int a_id = att;
+  if (EXT && a_id < 0 && ext >= 0 && s.own_id == ext && s.ownp > 0)
+    a_id = ext;  // §6 extend by the live owner; attempts take precedence
+  const bool has_att = a_id >= 0;
+  const int att_clk = pick(k.pclk, a_id, P);
+  int new_ballot = 0;
+  if (has_att) {
+    if (RESTART) {
+      const int upper = ((t + 1) << kRestartShift) | pick(k.prc, a_id, P);
+      new_ballot = upper * P + a_id;
+    } else {
+      new_ballot = (t + 1) * P + a_id;
+    }
+  }
+  const bool keep = s.rnd_ballot > 0 && !timed_out && !rel_kills && !has_att;
+  s.rnd_ballot = has_att ? new_ballot : (keep ? s.rnd_ballot : 0);
+  s.rnd_phase = has_att ? kPreparing : (keep ? s.rnd_phase : kIdle);
+  s.rnd_expiry = keep ? s.rnd_expiry : 0;
+  s.rnd_deadline = has_att ? att_clk + p.round_q4 : (keep ? s.rnd_deadline : 0);
+  if (has_att || !keep) {
+    s.open_bits = 0;
+    s.acc_bits = 0;
+  }
+
+  // 4a/4b. prepare requests out, due ones delivered at acceptors (§3.2)
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    if (has_att) {
+      const int v = leg(k.link, a_id, a, A, P);
+      if (!(v & 1)) s.preq[a] = pack(t4 + 4 * (v >> 1), new_ballot);
+    }
+    const bool preq_due = due(s.preq[a], live_min);
+    const int preq_b = s.preq[a] & kPackMask;
+    const bool stale_a = CORRUPT && k.stale[a] > 0;
+    const bool grant = preq_due && up[a] && (preq_b >= s.promised[a] || stale_a);
+    if (grant) s.promised[a] = CORRUPT ? max(s.promised[a], preq_b) : preq_b;
+    // the grant travels back on the requester's link
+    const int v = leg(k.link, ballot_proposer(preq_b, P), a, A, P);
+    if (grant && !(v & 1)) {
+      const int acc_b = s.acc_lease[a] & kPackMask;
+      int acc_prop = acc_b > 0 ? ballot_proposer(acc_b, P) : kNoProposer;
+      if (CORRUPT && k.equiv[a] > 0) acc_prop = kNoProposer;
+      s.presp[a] = pack(t4 + 4 * (v >> 1), preq_b);
+      s.presp_pay[a] = acc_prop;
+    }
+    if (preq_due) s.preq[a] = 0;
+  }
+
+  // 4c. prepare responses at the proposer (§3.3): a majority of opens
+  // starts OUR timer first, then broadcasts the proposal
+  rnd_prop = ballot_proposer(s.rnd_ballot, P);
+  rnd_clk = pick(k.pclk, rnd_prop, P);
+  {
+    const bool prop_owns = s.own_id == rnd_prop && s.ownp > 0;
+    bool presp_due[A];
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      presp_due[a] = due(s.presp[a], live_min);
+      const bool match = presp_due[a] &&
+                         (s.presp[a] & kPackMask) == s.rnd_ballot &&
+                         s.rnd_phase == kPreparing;
+      const bool open = match && (s.presp_pay[a] == kNoProposer ||
+                                  (s.presp_pay[a] == rnd_prop && prop_owns));
+      if (open) s.open_bits |= 1 << a;
+    }
+    const bool to_propose = s.rnd_ballot > 0 && s.rnd_phase == kPreparing &&
+                            votes<A>(s.open_bits) >= p.majority;
+    if (to_propose) {
+      s.rnd_phase = kProposing;
+      s.rnd_expiry = rnd_clk + p.guard_q4;
+    }
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      if (to_propose) {
+        const int v = leg(k.link, rnd_prop, a, A, P);
+        if (!(v & 1)) s.poreq[a] = pack(t4 + 4 * (v >> 1), s.rnd_ballot);
+      }
+      if (presp_due[a]) {
+        s.presp[a] = 0;
+        s.presp_pay[a] = kNoProposer;
+      }
+    }
+  }
+
+  // 4d. propose requests at acceptors (§3.4): accept restarts the
+  // acceptor's full-length timer on ITS clock
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const bool poreq_due = due(s.poreq[a], live_min);
+    const int poreq_b = s.poreq[a] & kPackMask;
+    const bool stale_a = CORRUPT && k.stale[a] > 0;
+    const bool accept = poreq_due && up[a] && (poreq_b >= s.promised[a] || stale_a);
+    if (accept) s.acc_lease[a] = pack(k.aclk[a] + p.lease_q4, poreq_b);
+    const int v = leg(k.link, ballot_proposer(poreq_b, P), a, A, P);
+    if (accept && !(v & 1)) s.poresp[a] = pack(t4 + 4 * (v >> 1), poreq_b);
+    if (poreq_due) s.poreq[a] = 0;
+  }
+
+  // 4e. propose responses at the proposer (§3.5): a majority of accepts
+  // inside our own guarded timer wins
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const bool poresp_due = due(s.poresp[a], live_min);
+    if (poresp_due && (s.poresp[a] & kPackMask) == s.rnd_ballot &&
+        s.rnd_phase == kProposing)
+      s.acc_bits |= 1 << a;
+    if (poresp_due) s.poresp[a] = 0;
+  }
+  const bool win = s.rnd_ballot > 0 && s.rnd_phase == kProposing &&
+                   votes<A>(s.acc_bits) >= p.majority &&
+                   s.rnd_expiry > rnd_clk;
+  // a win that would overwrite a live OTHER belief is the §4 alarm
+  const bool viol = win && s.ownp > 0 && s.own_id != rnd_prop;
+  if (win) {
+    s.own_id = rnd_prop;
+    s.ownp = pack(s.rnd_expiry, s.rnd_ballot);
+    s.rnd_ballot = 0;
+    s.rnd_phase = kIdle;
+    s.rnd_expiry = 0;
+    s.rnd_deadline = 0;
+    s.open_bits = 0;
+    s.acc_bits = 0;
+  }
+  return (s.ownp > 0 ? 1 : 0) + (viol ? 1 : 0);
+}
+
+// Can this cell change during the window? (the per-cell half of the
+// quiescence vote; the block-uniform fault columns are checked while they
+// are staged). Stricter than the reference's _quiescent: idle round rows
+// must be all zero too, so the skip is exact on every input state.
+template <int A, bool EXT>
+__device__ __forceinline__ bool cell_quiet(const Cell<A>& s,
+                                           const DelayedArgs& g, int n,
+                                           int t_first, int nt,
+                                           const int* pclk_end,
+                                           const int* aclk_end,
+                                           const Params& p) {
+  const size_t N = static_cast<size_t>(p.N);
+  for (int tau = 0; tau < nt; ++tau) {
+    const size_t i = static_cast<size_t>(t_first + tau) * N + n;
+    if (__ldg(g.att + i) >= 0 || __ldg(g.rel + i) >= 0) return false;
+    if (EXT && __ldg(g.ext + i) >= 0) return false;
+  }
+  if (s.rnd_ballot | s.rnd_phase | s.rnd_expiry | s.rnd_deadline |
+      s.open_bits | s.acc_bits)
+    return false;
+  bool quiet = true;
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    quiet = quiet && !(s.preq[a] | s.presp[a] | s.poreq[a] | s.poresp[a] |
+                       s.rel[a]);
+    // clocks only advance: the window's last reading is its worst case
+    quiet = quiet && (s.acc_lease[a] == 0 ||
+                      s.acc_lease[a] >= shl15(aclk_end[a] + 1));
+  }
+  const int own_clk = pick(pclk_end, s.own_id, p.P);
+  quiet = quiet && (s.ownp == 0 ? s.own_id < 0 : s.ownp >= shl15(own_clk + 1));
+  return quiet;
+}
+
+// Copy `rows` ints per tick for ticks [w0, w0 + nt) into shared memory;
+// returns whether this thread copied a nonzero entry.
+__device__ __forceinline__ bool stage(int* dst, const int* src, int w0,
+                                      int nt, int rows) {
+  bool nonzero = false;
+  const int count = nt * rows;
+  const int* base = src + static_cast<size_t>(w0) * rows;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const int v = __ldg(base + i);
+    dst[i] = v;
+    nonzero = nonzero || v != 0;
+  }
+  return nonzero;
+}
+
+template <int A, bool EXT, bool CORRUPT, bool RESTART>
+__global__ void __launch_bounds__(kBlock)
+    delayed_window_kernel(DelayedArgs g, Params p) {
+  extern __shared__ int smem[];
+  const int P = p.P, tw = p.tw;
+  const size_t N = static_cast<size_t>(p.N);
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = n < p.N;
+
+  // shared-memory columns for one window, tick-major inside each group
+  int* s_up = smem;
+  int* s_pclk = s_up + tw * A;
+  int* s_aclk = s_pclk + tw * P;
+  int* s_link = s_aclk + tw * A;
+  int* s_stale = s_link + tw * P * A;
+  int* s_equiv = s_stale + (CORRUPT ? tw * A : 0);
+  int* s_arst = s_equiv + (CORRUPT ? tw * A : 0);
+  int* s_deaf = s_arst + (RESTART ? tw * A : 0);
+  int* s_prst = s_deaf + (RESTART ? tw * A : 0);
+  int* s_prc = s_prst + (RESTART ? tw * P : 0);
+
+  Cell<A> s = {};
+  if (live) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const size_t i = static_cast<size_t>(a) * N + n;
+      s.promised[a] = g.in[0][i];
+      s.acc_lease[a] = g.in[1][i];
+      s.preq[a] = g.in[4][i];
+      s.presp[a] = g.in[5][i];
+      s.presp_pay[a] = g.in[6][i];
+      s.poreq[a] = g.in[7][i];
+      s.poresp[a] = g.in[8][i];
+      s.rel[a] = g.in[9][i];
+    }
+    s.own_id = g.in[2][n];
+    s.ownp = g.in[3][n];
+    s.rnd_ballot = g.in[10][n];
+    s.rnd_phase = g.in[11][n];
+    s.rnd_expiry = g.in[12][n];
+    s.rnd_deadline = g.in[13][n];
+    s.open_bits = g.in[14][n];
+    s.acc_bits = g.in[15][n];
+  }
+
+  for (int w0 = 0; w0 < p.T; w0 += tw) {
+    const int nt = min(tw, p.T - w0);
+    __syncthreads();  // every thread is done with the previous window
+    stage(s_up, g.up, w0, nt, A);
+    stage(s_pclk, g.pclk, w0, nt, P);
+    stage(s_aclk, g.aclk, w0, nt, A);
+    stage(s_link, g.link, w0, nt, P * A);
+    bool faulty = false;  // a fault scheduled in this window
+    if (CORRUPT) {
+      faulty = stage(s_stale, g.stale, w0, nt, A) || faulty;
+      faulty = stage(s_equiv, g.equiv, w0, nt, A) || faulty;
+    }
+    if (RESTART) {
+      faulty = stage(s_arst, g.arst, w0, nt, A) || faulty;
+      stage(s_deaf, g.deaf, w0, nt, A);
+      faulty = stage(s_prst, g.prst, w0, nt, P) || faulty;
+      stage(s_prc, g.prc, w0, nt, P);
+    }
+    __syncthreads();
+
+    bool skip = false;
+    if (p.skip_stable) {
+      const bool quiet =
+          !faulty && (!live || cell_quiet<A, EXT>(s, g, n, w0, nt,
+                                             s_pclk + (nt - 1) * P,
+                                             s_aclk + (nt - 1) * A, p));
+      skip = __syncthreads_and(quiet) != 0;
+    }
+
+    if (skip) {
+      // the window is pure owner sampling: state untouched, every tick
+      // reads the same row
+      if (live) {
+        const int cnt = s.ownp > 0 ? 1 : 0;
+        for (int tau = 0; tau < nt; ++tau) {
+          const size_t i = static_cast<size_t>(w0 + tau) * N + n;
+          g.owners[i] = s.own_id;
+          g.counts[i] = cnt;
+        }
+      }
+      continue;
+    }
+    if (g.ticked != nullptr && threadIdx.x == 0) {
+      const int first = blockIdx.x * blockDim.x;
+      const int in_block = min(static_cast<int>(blockDim.x), p.N - first);
+      atomicAdd(g.ticked, static_cast<unsigned long long>(in_block) * nt);
+    }
+    if (!live) continue;
+    for (int tau = 0; tau < nt; ++tau) {
+      const size_t i = static_cast<size_t>(w0 + tau) * N + n;
+      TickCols k;
+      k.up = s_up + tau * A;
+      k.pclk = s_pclk + tau * P;
+      k.aclk = s_aclk + tau * A;
+      k.link = s_link + tau * P * A;
+      k.stale = s_stale + tau * A;
+      k.equiv = s_equiv + tau * A;
+      k.arst = s_arst + tau * A;
+      k.deaf = s_deaf + tau * A;
+      k.prst = s_prst + tau * P;
+      k.prc = s_prc + tau * P;
+      const int ext = EXT ? __ldg(g.ext + i) : kNoProposer;
+      const int cnt = delayed_tick<A, EXT, CORRUPT, RESTART>(
+          s, p.t0 + w0 + tau, __ldg(g.att + i), __ldg(g.rel + i), ext, k, p);
+      g.owners[i] = s.own_id;
+      g.counts[i] = cnt;
+    }
+  }
+
+  if (live) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const size_t i = static_cast<size_t>(a) * N + n;
+      g.out[0][i] = s.promised[a];
+      g.out[1][i] = s.acc_lease[a];
+      g.out[4][i] = s.preq[a];
+      g.out[5][i] = s.presp[a];
+      g.out[6][i] = s.presp_pay[a];
+      g.out[7][i] = s.poreq[a];
+      g.out[8][i] = s.poresp[a];
+      g.out[9][i] = s.rel[a];
+    }
+    g.out[2][n] = s.own_id;
+    g.out[3][n] = s.ownp;
+    g.out[10][n] = s.rnd_ballot;
+    g.out[11][n] = s.rnd_phase;
+    g.out[12][n] = s.rnd_expiry;
+    g.out[13][n] = s.rnd_deadline;
+    g.out[14][n] = s.open_bits;
+    g.out[15][n] = s.acc_bits;
+  }
+}
+
+// ------------------------------------------------------------------- sync
+struct SyncArgs {
+  const int* in[4];  // PackedLeaseState fields
+  int* out[4];
+  const int* att;    // [T, N]
+  const int* rel;    // [T, N]
+  const int* up;     // [T, A]
+  const int* pclk;   // [T, P]
+  const int* aclk;   // [T, A]
+  int* owners;       // [T, N]
+  int* counts;       // [T, N]
+};
+
+// One tick of ref.sync_tick_math for one cell; returns the §4 owner count.
+template <int A>
+__device__ __forceinline__ int sync_tick(int (&promised)[A],
+                                         int (&acc_lease)[A], int& own_id,
+                                         int& ownp, int t, int att, int rel,
+                                         const int* up, const int* pclk,
+                                         const int* aclk, const Params& p) {
+  const int P = p.P;
+  // 1. expiry
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+    if (!(acc_lease[a] >= shl15(aclk[a] + 1))) acc_lease[a] = 0;
+  if (!(ownp >= shl15(pick(pclk, own_id, P) + 1))) {
+    ownp = 0;
+    own_id = kNoProposer;
+  }
+  // 2. release (§7)
+  const bool rel_owner = rel >= 0 && own_id == rel;
+  const int rel_ballot = rel_owner ? (ownp & kPackMask) : 0;
+  if (rel_owner) {
+    ownp = 0;
+    own_id = kNoProposer;
+  }
+  // 3. prepare (§3.2)
+  const bool has_att = att >= 0;
+  const int ballot = has_att ? (t + 1) * P + att : 0;
+  const bool att_owns = has_att && own_id == att;
+  bool grant[A];
+  int opens = 0;
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    int acc_b = acc_lease[a] & kPackMask;
+    if (up[a] > 0 && rel_ballot > 0 && acc_b == rel_ballot) {
+      acc_lease[a] = 0;
+      acc_b = 0;
+    }
+    grant[a] = up[a] > 0 && has_att && ballot >= promised[a];
+    opens += grant[a] && (acc_b == 0 ||
+                          (ballot_proposer(acc_b, P) == att && att_owns));
+  }
+  const bool won = opens >= p.majority;
+  // 4. propose (§3.4) + proposer update
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    if (grant[a]) promised[a] = ballot;
+    if (grant[a] && won) acc_lease[a] = pack(aclk[a] + p.lease_q4, ballot);
+  }
+  const bool viol = won && ownp > 0 && own_id != att;
+  if (won) {
+    ownp = pack(pick(pclk, att, P) + p.guard_q4, ballot);
+    own_id = att;
+  }
+  return (ownp > 0 ? 1 : 0) + (viol ? 1 : 0);
+}
+
+template <int A>
+__global__ void __launch_bounds__(kBlock)
+    sync_window_kernel(SyncArgs g, Params p) {
+  extern __shared__ int smem[];
+  const int P = p.P, tw = p.tw;
+  const size_t N = static_cast<size_t>(p.N);
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = n < p.N;
+  int* s_up = smem;
+  int* s_pclk = s_up + tw * A;
+  int* s_aclk = s_pclk + tw * P;
+
+  int promised[A] = {}, acc_lease[A] = {}, own_id = kNoProposer, ownp = 0;
+  if (live) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      promised[a] = g.in[0][static_cast<size_t>(a) * N + n];
+      acc_lease[a] = g.in[1][static_cast<size_t>(a) * N + n];
+    }
+    own_id = g.in[2][n];
+    ownp = g.in[3][n];
+  }
+  for (int w0 = 0; w0 < p.T; w0 += tw) {
+    const int nt = min(tw, p.T - w0);
+    __syncthreads();
+    stage(s_up, g.up, w0, nt, A);
+    stage(s_pclk, g.pclk, w0, nt, P);
+    stage(s_aclk, g.aclk, w0, nt, A);
+    __syncthreads();
+    if (!live) continue;
+    for (int tau = 0; tau < nt; ++tau) {
+      const size_t i = static_cast<size_t>(w0 + tau) * N + n;
+      const int cnt = sync_tick<A>(promised, acc_lease, own_id, ownp,
+                                   p.t0 + w0 + tau, __ldg(g.att + i),
+                                   __ldg(g.rel + i), s_up + tau * A,
+                                   s_pclk + tau * P, s_aclk + tau * A, p);
+      g.owners[i] = own_id;
+      g.counts[i] = cnt;
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      g.out[0][static_cast<size_t>(a) * N + n] = promised[a];
+      g.out[1][static_cast<size_t>(a) * N + n] = acc_lease[a];
+    }
+    g.out[2][n] = own_id;
+    g.out[3][n] = ownp;
+  }
+}
+
+// ------------------------------------------------------------- launchers
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int A, bool EXT, bool CORRUPT, bool RESTART>
+cudaError_t launch_delayed(const DelayedArgs& g, const Params& p,
+                           cudaStream_t stream) {
+  const size_t per_tick = 2 * A + p.P + p.P * A + (CORRUPT ? 2 * A : 0) +
+                          (RESTART ? 2 * A + 2 * p.P : 0);
+  const size_t bytes = per_tick * p.tw * sizeof(int);
+  auto kernel = delayed_window_kernel<A, EXT, CORRUPT, RESTART>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = (p.N + kBlock - 1) / kBlock;
+  kernel<<<blocks, kBlock, bytes, stream>>>(g, p);
+  return cudaGetLastError();
+}
+
+// the optional planes become template flags: a launch without them runs
+// no code for them
+template <int A>
+cudaError_t launch_delayed(const DelayedArgs& g, const Params& p,
+                           cudaStream_t stream) {
+  const int variant = (g.ext != nullptr ? 1 : 0) |
+                      (g.stale != nullptr ? 2 : 0) |
+                      (g.arst != nullptr ? 4 : 0);
+  switch (variant) {
+    case 0: return launch_delayed<A, false, false, false>(g, p, stream);
+    case 1: return launch_delayed<A, true, false, false>(g, p, stream);
+    case 2: return launch_delayed<A, false, true, false>(g, p, stream);
+    case 3: return launch_delayed<A, true, true, false>(g, p, stream);
+    case 4: return launch_delayed<A, false, false, true>(g, p, stream);
+    case 5: return launch_delayed<A, true, false, true>(g, p, stream);
+    case 6: return launch_delayed<A, false, true, true>(g, p, stream);
+    default: return launch_delayed<A, true, true, true>(g, p, stream);
+  }
+}
+
+template <int A>
+cudaError_t launch_sync(const SyncArgs& g, const Params& p,
+                        cudaStream_t stream) {
+  const size_t bytes = (2 * A + p.P) * static_cast<size_t>(p.tw) * sizeof(int);
+  auto kernel = sync_window_kernel<A>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = (p.N + kBlock - 1) / kBlock;
+  kernel<<<blocks, kBlock, bytes, stream>>>(g, p);
+  return cudaGetLastError();
+}
+
+Params params_from(const int* ints) {
+  Params p;
+  p.N = ints[0];
+  p.T = ints[1];
+  p.P = ints[3];
+  p.t0 = ints[4];
+  p.tw = ints[5];
+  p.majority = ints[6];
+  p.lease_q4 = ints[7];
+  p.round_q4 = ints[8];
+  p.guard_q4 = ints[9];
+  p.skip_stable = ints[10];
+  return p;
+}
+
+}  // namespace
+
+// C entry points (bound with ctypes). `ptrs` is a host array of device
+// pointers in the order documented in kernel.py; `ints` holds
+// (N, T, A, P, t0, tw, majority, lease_q4, round_q4, guard_q4, skip_stable),
+// A equal to this library's LEASE_ACCEPTORS. Each returns
+// cudaGetLastError() after its launch (0 = launched).
+extern "C" int lease_window_delayed(const void* const* ptrs, const int* ints,
+                                    void* stream) {
+  DelayedArgs g;
+  for (int i = 0; i < 16; ++i) {
+    g.in[i] = static_cast<const int*>(ptrs[i]);
+    g.out[i] = static_cast<int*>(const_cast<void*>(ptrs[16 + i]));
+  }
+  g.att = static_cast<const int*>(ptrs[32]);
+  g.rel = static_cast<const int*>(ptrs[33]);
+  g.ext = static_cast<const int*>(ptrs[34]);
+  g.up = static_cast<const int*>(ptrs[35]);
+  g.pclk = static_cast<const int*>(ptrs[36]);
+  g.aclk = static_cast<const int*>(ptrs[37]);
+  g.link = static_cast<const int*>(ptrs[38]);
+  g.stale = static_cast<const int*>(ptrs[39]);
+  g.equiv = static_cast<const int*>(ptrs[40]);
+  g.arst = static_cast<const int*>(ptrs[41]);
+  g.deaf = static_cast<const int*>(ptrs[42]);
+  g.prst = static_cast<const int*>(ptrs[43]);
+  g.prc = static_cast<const int*>(ptrs[44]);
+  g.owners = static_cast<int*>(const_cast<void*>(ptrs[45]));
+  g.counts = static_cast<int*>(const_cast<void*>(ptrs[46]));
+  g.ticked = static_cast<unsigned long long*>(const_cast<void*>(ptrs[47]));
+  const Params p = params_from(ints);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ints[2] != kA) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_delayed<kA>(g, p, st));
+}
+
+extern "C" int lease_window_sync(const void* const* ptrs, const int* ints,
+                                 void* stream) {
+  SyncArgs g;
+  for (int i = 0; i < 4; ++i) {
+    g.in[i] = static_cast<const int*>(ptrs[i]);
+    g.out[i] = static_cast<int*>(const_cast<void*>(ptrs[4 + i]));
+  }
+  g.att = static_cast<const int*>(ptrs[8]);
+  g.rel = static_cast<const int*>(ptrs[9]);
+  g.up = static_cast<const int*>(ptrs[10]);
+  g.pclk = static_cast<const int*>(ptrs[11]);
+  g.aclk = static_cast<const int*>(ptrs[12]);
+  g.owners = static_cast<int*>(const_cast<void*>(ptrs[13]));
+  g.counts = static_cast<int*>(const_cast<void*>(ptrs[14]));
+  const Params p = params_from(ints);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ints[2] != kA) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_sync<kA>(g, p, st));
+}

@@ -1,0 +1,429 @@
+"""Public entry points of the lease plane: backend dispatch between the
+plain PyTorch window loops and the CUDA window kernels.
+
+The bulk path is :func:`lease_window_scan`: a whole ``[T, …]`` scenario in
+ONE dispatch. Both backends run the same packed tick math
+(``ref.sync_tick_math`` / ``netplane.delayed_tick_math``) and agree
+bit-for-bit:
+
+  - ``"torch"`` — the plain version (``kernel.lease_window_*_torch``): a
+                  Python loop over ticks of tensor ops, on any device; the
+                  CPU path and the yardstick the kernels are held against;
+  - ``"cuda"``  — the hand-written window kernels (``kernel.lease_window_*``,
+                  ``csrc/lease_window.cu``); CUDA tensors only.
+
+With ``backend=None`` the state's device decides: ``"cuda"`` on a CUDA
+device, ``"torch"`` on the CPU.
+
+One step: :func:`lease_plane_tick` advances every cell one tick of either
+network model through the same dispatch. Its per-tick inputs are a
+:class:`~repro_torch.lease_array.scenario.TickInputs` bundle.
+
+Absent means honest: an optional plane (corruption, restart, extends) that
+sits entirely at its default is stripped before dispatch, and a stripped
+plane adds no work to either backend. A restart history (``rst0``) keeps
+restart mode on even when a dispatch's restart planes are quiet, so the
+ballot encoding never switches mid-trace.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .kernel import (
+    lease_window_delayed,
+    lease_window_delayed_torch,
+    lease_window_sync,
+    lease_window_sync_torch,
+)
+from .netplane import NetPlaneState, pack_link
+from .scenario import (
+    CORRUPTION_PLANES,
+    EXTEND_PLANES,
+    PLANES,
+    RESTART_PLANES,
+    TickInputs,
+)
+from .state import (
+    I32,
+    QUARTERS,
+    LeaseArrayState,
+    PackedLeaseState,
+    check_pack_budget,
+    pack_state,
+    rate1_clock,
+    unpack_state,
+)
+
+BACKENDS = ("torch", "cuda")
+
+
+def default_backend(device) -> str:
+    """The kernels on a CUDA device, the plain version elsewhere."""
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _as_i32(x, device) -> torch.Tensor:
+    """A plane (numpy array, tensor or scalar list) as a contiguous int32
+    tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=I32).contiguous()
+    a = np.asarray(x)
+    if a.dtype != np.int32 or not a.flags.c_contiguous or not a.flags.writeable:
+        a = np.array(a, dtype=np.int32, order="C")
+    return torch.from_numpy(a).to(device)
+
+
+def _all_equal(v, value: int) -> bool:
+    if isinstance(v, torch.Tensor):
+        return bool((v == value).all())
+    return bool((np.asarray(v) == value).all())
+
+
+def _local_clock_planes(t0: int, T: int, clk0, planes: dict, n_proposers: int,
+                        n_acceptors: int, device):
+    """Absolute per-tick local-clock planes ``(pclk [T, P], aclk [T, A])``:
+    ``clk0`` (each node's accumulated local quarter-ticks at ``t0``) plus
+    the exclusive prefix sum of the scenario's rate planes. ``clk0=None``
+    is the rate-1 reading ``4·t0`` on every node; a rate plane missing from
+    the dict means the drift-free DEFAULT_RATE step."""
+
+    def one(rate, rows: int, c0):
+        c0 = (rate1_clock(t0, rows, device=device) if c0 is None
+              else _as_i32(c0, device))
+        if rate is None:
+            steps = QUARTERS * torch.arange(T, dtype=I32, device=device)
+            return c0[None, :] + steps[:, None]
+        rate = _as_i32(rate, device)
+        return c0[None, :] + torch.cumsum(rate, dim=0, dtype=I32) - rate
+
+    pc0, ac0 = (None, None) if clk0 is None else clk0
+    return (
+        one(planes.get("prop_rate"), n_proposers, pc0),
+        one(planes.get("acc_rate"), n_acceptors, ac0),
+    )
+
+
+def _restart_planes(rst0, arst, prst, aclk, lease_q4: int, guard: bool):
+    """Absolute per-tick crash/restart planes, precomputed like the clock
+    planes so restart state needs no carry through the tick loop:
+
+      ``rc [T, P]``        INCLUSIVE running per-proposer restart count;
+      ``deaf [T, A]``      1 while the acceptor's local clock has not yet
+                           advanced a maximal lease span (``lease_q4``) past
+                           its latest restart (a running cummax of
+                           restart-minted horizons vs ``aclk``);
+      ``deaf_rem [T, A]``  local quarter-ticks of deaf window remaining.
+
+    ``rst0`` is the (rc0 [P], deaf_until0 [A]) restart history at t0
+    (None = fresh). ``guard=False`` (the §4 negative control) zeroes the
+    deaf window."""
+    device = aclk.device
+    rc0, du0 = (None, None) if rst0 is None else rst0
+    rc = torch.cumsum(prst, dim=0, dtype=I32)
+    if rc0 is not None:
+        rc = rc + _as_i32(rc0, device)[None, :]
+    minted = torch.where(arst > 0, aclk + lease_q4, 0)
+    du = torch.cummax(minted, dim=0).values
+    if du0 is not None:
+        du = torch.maximum(du, _as_i32(du0, device)[None, :])
+    deaf_rem = (du - aclk).clamp(min=0)
+    if not guard:
+        deaf_rem = torch.zeros_like(deaf_rem)
+    return rc, (deaf_rem > 0).to(I32), deaf_rem
+
+
+def _window_scan_impl(
+    state: LeaseArrayState,
+    net,
+    t0: int,
+    clk0,
+    rst0,
+    planes: dict,
+    *,
+    majority: int,
+    lease_q4: int,
+    round_q4: int,
+    guard_q4: int,
+    backend: str,
+    sync: bool,
+    window: int,
+    restart_guard: bool = True,
+    skip_stable: bool = True,
+):
+    """Shared body of the fused scan. ``planes`` is the Scenario plane dict
+    ([T, ...] arrays or tensors); ``clk0`` the (prop [P], acc [A])
+    local-clock offsets at ``t0`` (None = ``4·t0``); ``rst0`` the
+    (restart-counter [P], deaf-until [A]) restart history at ``t0`` (None =
+    fresh). Returns (state', net', owners [T, N], counts [T, N])."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown lease-plane backend {backend!r}")
+    dev = state.highest_promised.device
+    if backend == "cuda" and dev.type != "cuda":
+        raise ValueError(
+            f"backend 'cuda' runs the CUDA kernels and needs CUDA tensors; "
+            f"the state is on {dev} (use backend 'torch' there)"
+        )
+    P = state.n_proposers
+    A, N = state.highest_promised.shape
+    t0 = int(t0)
+    attempts = _as_i32(planes["attempts"], dev)
+    releases = _as_i32(planes["releases"], dev)
+    acc_up = _as_i32(planes["acc_up"], dev)
+    T = attempts.shape[0]
+    pclk, aclk = _local_clock_planes(t0, T, clk0, planes, P, A, dev)
+    packed = pack_state(state)
+    # the adversarial corruption planes: absent means honest
+    stale = planes.get("acc_stale")
+    equiv = planes.get("acc_equiv")
+    corrupt = stale is not None or equiv is not None
+    if corrupt:
+        if sync:
+            raise ValueError(
+                "corruption planes (acc_stale/acc_equiv) need the delayed "
+                "model; the synchronous tick cannot honor them"
+            )
+        za = torch.zeros((T, A), dtype=I32, device=dev)
+        stale = za if stale is None else _as_i32(stale, dev)
+        equiv = za if equiv is None else _as_i32(equiv, dev)
+    # the §6 extends plane: same omit-means-honest contract
+    ext = planes.get("extends")
+    if ext is not None:
+        if sync:
+            raise ValueError(
+                "the extends plane (§6 owner extension) needs the delayed "
+                "model; the synchronous tick cannot honor it"
+            )
+        ext = _as_i32(ext, dev)
+    # the crash/restart planes: a restart history (rst0) keeps restart mode
+    # on across dispatches even when these planes are quiet
+    arst = planes.get("acc_restart")
+    prst = planes.get("prop_restart")
+    restart = arst is not None or prst is not None or rst0 is not None
+    rst_kw = {}
+    if restart:
+        if sync:
+            raise ValueError(
+                "restart planes (acc_restart/prop_restart) need the "
+                "delayed model; the synchronous tick cannot honor them"
+            )
+        arst = (torch.zeros((T, A), dtype=I32, device=dev) if arst is None
+                else _as_i32(arst, dev))
+        prst = (torch.zeros((T, P), dtype=I32, device=dev) if prst is None
+                else _as_i32(prst, dev))
+        rc, deaf, _ = _restart_planes(
+            rst0, arst, prst, aclk, lease_q4, restart_guard
+        )
+        rst_kw = dict(acc_restart=arst, acc_deaf=deaf, prop_restart=prst,
+                      prop_rc=rc)
+    if backend == "cuda":
+        packed = PackedLeaseState(*(x.contiguous() for x in packed))
+
+    if sync:
+        kw = dict(majority=majority, lease_q4=lease_q4, n_proposers=P,
+                  guard_q4=guard_q4)
+        if backend == "cuda":
+            packed, owners, counts = lease_window_sync(
+                packed, t0, attempts, releases, acc_up, pclk, aclk,
+                window=window, **kw,
+            )
+        else:
+            packed, owners, counts = lease_window_sync_torch(
+                packed, t0, attempts, releases, acc_up, pclk, aclk, **kw,
+            )
+        new_net = net
+    else:
+        link = pack_link(_as_i32(planes["delay"], dev),
+                         _as_i32(planes["drop"], dev))  # [T, P, A]
+        net = NetPlaneState(*(x.contiguous() for x in net))
+        kw = dict(majority=majority, lease_q4=lease_q4, round_q4=round_q4,
+                  n_proposers=P, guard_q4=guard_q4, extends=ext, stale=stale,
+                  equiv=equiv, **rst_kw)
+        args = (packed, net, t0, attempts, releases, acc_up, pclk, aclk, link)
+        if backend == "cuda":
+            packed, new_net, owners, counts = lease_window_delayed(
+                *args, window=window, skip_stable=skip_stable, **kw)
+        else:
+            packed, new_net, owners, counts = lease_window_delayed_torch(
+                *args, **kw)
+    return unpack_state(packed, P), new_net, owners, counts
+
+
+def _guard_pack_budget(
+    t0, n_ticks, planes, *, n_proposers, lease_q4, sync, clk0=None,
+    rst0=None,
+):
+    """Host-side overflow guard for the public entry points: a tick past
+    ``state.max_pack_tick`` would silently corrupt the packed (deadline,
+    ballot) fields, so refuse it here. Fast clocks shrink the budget (the
+    rate planes' maximum step and any clock offsets already ahead of the
+    rate-1 reading are charged), and restart mode charges the ballot carve
+    plus the highest per-proposer restart count."""
+    delay = None if sync else planes.get("delay")
+    t0 = int(t0)
+    max_delay = 0 if delay is None else int(_host(delay).max(initial=0))
+    max_rate = max(
+        (
+            int(_host(planes[k]).max(initial=0))
+            for k in ("prop_rate", "acc_rate") if planes.get(k) is not None
+        ),
+        default=QUARTERS,
+    )
+    max_rate = max(max_rate, QUARTERS)
+    clk_slack = 0
+    if clk0 is not None:
+        clk_max = max(int(_host(c).max(initial=0)) for c in clk0)
+        clk_slack = max(0, clk_max - max_rate * t0)
+    arst = planes.get("acc_restart")
+    prst = planes.get("prop_restart")
+    max_restarts = 0
+    if arst is not None or prst is not None or rst0 is not None:
+        rc_end = np.zeros(n_proposers, np.int64)
+        if prst is not None:
+            rc_end += _host(prst).astype(np.int64).reshape(
+                -1, n_proposers).sum(axis=0)
+        if rst0 is not None:
+            rc_end += _host(rst0[0]).astype(np.int64)
+        # acc-only restart schedules still switch the ballot encoding, so
+        # charge at least one carve slot
+        max_restarts = max(1, int(rc_end.max(initial=0)))
+    check_pack_budget(
+        t0 + n_ticks, n_proposers, lease_q4, max_delay,
+        max_rate=max_rate, clk_slack=clk_slack, max_restarts=max_restarts,
+    )
+
+
+def strip_default_planes(planes: dict) -> dict:
+    """Drop optional fault planes sitting entirely at their registered
+    default: all-default corruption/restart/extends planes ARE the honest
+    engine, and a stripped plane adds no work to the dispatch."""
+    return {
+        k: v for k, v in planes.items()
+        if not (
+            k in CORRUPTION_PLANES + RESTART_PLANES + EXTEND_PLANES
+            and _all_equal(v, PLANES[k].default)
+        )
+    }
+
+
+def lease_window_scan(
+    state: LeaseArrayState,
+    net,
+    t0: int,
+    planes: dict,
+    *,
+    majority: int,
+    lease_q4: int,
+    round_q4: int,
+    guard_q4: int = None,
+    clk0=None,
+    rst0=None,
+    restart_guard: bool = True,
+    backend: str = None,
+    sync: bool = False,
+    window: int = 16,
+    skip_stable: bool = True,
+) -> tuple[LeaseArrayState, NetPlaneState, torch.Tensor, torch.Tensor]:
+    """Replay a whole [T]-tick scenario-plane dict in ONE dispatch.
+
+    ``sync=True`` runs the zero-delay synchronous model (``net`` passes
+    through untouched; the planes' delay/drop entries are ignored);
+    ``sync=False`` runs the delayed in-flight model. ``window`` is the
+    number of ticks the kernels stage per shared-memory window (and the
+    quiescence vote's span). ``guard_q4`` is the proposer's drift-guarded
+    own timespan (default: ``lease_q4``, the ε=0 case) and ``clk0`` the
+    (prop [P], acc [A]) local-clock offsets at ``t0`` (default: ``4·t0``).
+    ``rst0`` is the (restart-counter [P], deaf-until [A]) restart history
+    at ``t0`` (None = fresh; its presence keeps restart mode on);
+    ``restart_guard=False`` disables the post-restart deaf window — the §4
+    negative control. ``skip_stable=False`` disables the delayed kernel's
+    quiescence skip (results are bit-identical either way); ``window`` and
+    ``skip_stable`` shape only the CUDA kernels' work, so the plain
+    ``"torch"`` backend ignores both. ``backend=None`` picks by the
+    state's device. Returns (new_state, new_net, owners [T, N],
+    owner_counts [T, N]) on the state's device.
+    """
+    if guard_q4 is None:
+        guard_q4 = lease_q4
+    if backend is None:
+        backend = default_backend(state.highest_promised.device)
+    planes = strip_default_planes(planes)
+    _guard_pack_budget(
+        t0, int(planes["attempts"].shape[0]), planes,
+        n_proposers=state.n_proposers, lease_q4=lease_q4, sync=sync,
+        clk0=clk0, rst0=rst0,
+    )
+    return _window_scan_impl(
+        state, net, t0, clk0, rst0, planes,
+        majority=majority, lease_q4=lease_q4, round_q4=round_q4,
+        guard_q4=guard_q4, backend=backend, sync=sync, window=window,
+        restart_guard=restart_guard, skip_stable=skip_stable,
+    )
+
+
+def lease_plane_tick(
+    state: LeaseArrayState,
+    net: NetPlaneState,
+    t: int,
+    tick: TickInputs,
+    *,
+    majority: int,
+    lease_q4: int,
+    round_q4: int,
+    guard_q4: int = None,
+    clk0=None,
+    rst0=None,
+    restart_guard: bool = True,
+    backend: str = None,
+    sync: bool = False,
+    window: int = 16,
+    skip_stable: bool = True,
+) -> tuple[LeaseArrayState, NetPlaneState, torch.Tensor]:
+    """Advance all cells one tick.
+
+    ``sync=True`` runs the zero-delay synchronous model (``net`` passes
+    through untouched); ``sync=False`` runs the delayed in-flight model
+    with the tick's ``[P, A]`` link matrices. ``guard_q4``/``clk0`` are the
+    drift parameters (see :func:`lease_window_scan`); the tick's rate
+    planes advance the clocks *after* this tick's deadlines are evaluated,
+    so a stateful caller carries ``clk0 + rate`` into the next tick
+    (``engine.step`` does). Returns (new_state, new_net, owner_count[N]).
+    """
+    if guard_q4 is None:
+        guard_q4 = lease_q4
+    if backend is None:
+        backend = default_backend(state.highest_promised.device)
+
+    def _default_plane(k, v):
+        # an all-DEFAULT_RATE rate plane is the default clock, and an
+        # all-default corruption/restart/extends plane is the honest
+        # engine: omit either from the dispatch. A restart history (rst0)
+        # pins the restart planes in, so ballot encoding never switches.
+        if k in ("prop_rate", "acc_rate"):
+            return _all_equal(v, QUARTERS)
+        if k in CORRUPTION_PLANES or (k in RESTART_PLANES and rst0 is None):
+            return _all_equal(v, 0)
+        if k in EXTEND_PLANES:
+            return _all_equal(v, PLANES[k].default)
+        return False
+
+    planes = {
+        k: v[None, ...] for k, v in tick.planes.items()
+        if not _default_plane(k, v)
+    }
+    _guard_pack_budget(
+        t, 1, tick.planes,
+        n_proposers=state.n_proposers, lease_q4=lease_q4, sync=sync,
+        clk0=clk0, rst0=rst0,
+    )
+    new_state, new_net, _, counts = _window_scan_impl(
+        state, net, t, clk0, rst0, planes,
+        majority=majority, lease_q4=lease_q4, round_q4=round_q4,
+        guard_q4=guard_q4, backend=backend, sync=sync, window=window,
+        restart_guard=restart_guard, skip_stable=skip_stable,
+    )
+    return new_state, new_net, counts[0]
