@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA lease plane once on an NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port once on an NVIDIA card and check it: the
+lease plane (phases 1-7) and internlm2-1.8b prefill and serving through the
+flash-attention kernel (phases 8-12).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``); it exits nonzero
 without them, and on any failed check.
 
 Phases (one line each):
-  1. build the lease kernels from ``src/repro_torch/lease_array/csrc``;
+  1. build the lease kernels from ``src/repro_torch/lease_array/csrc`` and
+     the flash-attention kernel from
+     ``src/repro_torch/kernels/flash_attention/csrc``, all nvcc runs at once;
   2. hold both kernels bit-exact against their plain PyTorch versions on
      small traces (delay 0/2/4, asymmetric links, drift, restarts, extends,
      stale/equiv corruption, windows 1/3/16, a ragged cell count, a trace
@@ -25,7 +29,23 @@ Phases (one line each):
      call must move over the memory rate and the arithmetic instructions
      the compiled tick loop must issue (read from the built library with
      ``cuobjdump -sass``) over their pipes' rates.
-The last line is ``{"ok": true, "device": {...}}``.
+  8. the flash kernel against its plain version on the reference's seven
+     cases plus ragged, windowed and cross-attention lengths;
+  9. internlm2-1.8b at full width, random weights from a seed: a 4 x 2048
+     fp32 prefill through the kernel (24 launches) against the same prefill
+     with plain attention on the card, last logits to a relative error
+     below 2e-4;
+ 10. 16 greedy ``decode_step`` tokens after that prefill against
+     ``forward`` over all 2064 tokens, relative error below 2e-4;
+ 11. ``ServeEngine`` in bf16: 8 requests on 4 slots, 16 new tokens each;
+ 12. the flash kernel's, the plain version's and
+     ``scaled_dot_product_attention``'s times at the prefill shapes in bf16
+     and the bound (the larger of the causal FLOPs over the bf16 peak and
+     the bytes over the memory rate); bf16 prefill and decode step times.
+The line before the last holds every kernel's launches on its main path
+(phases 3-6; the phase-9 prefill and phase-11 serving), time, plain time,
+bound and library time as JSON;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -180,10 +200,9 @@ def kernel_tick_ops(lib: Path, kernel: str) -> dict:
     ``kernel`` (e.g. ``sync_window_kernelILi5E``), read with cuobjdump."""
     import shutil
 
-    from repro_torch.lease_array import _build
+    from repro_torch._nvcc import nvcc_path
 
-    tool = shutil.which("cuobjdump") or str(
-        Path(_build.nvcc_path()).with_name("cuobjdump"))
+    tool = shutil.which("cuobjdump") or str(Path(nvcc_path()).with_name("cuobjdump"))
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     found = [ins for name, ins in sass_functions(sass).items()
@@ -201,13 +220,23 @@ def ops_ms(cell_ticks: int, per_tick: dict) -> float:
                for k, n in per_tick.items()) * 1e3
 
 
-def ptxas_summary(log: str) -> str:
+def lease_kind(entry: str) -> str:
+    return "delayed" if "delayed" in entry else "sync"
+
+
+def flash_kind(entry: str) -> str:
+    """'fp32/Dh128' for the instantiation named in a ptxas entry line."""
+    m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", entry)
+    return f"{'fp32' if m[1] == 'f' else 'bf16'}/Dh{16 * int(m[2])}"
+
+
+def ptxas_summary(log: str, kind_of=lease_kind) -> str:
     """Most registers and total spill bytes per kernel family, from the
     ``-Xptxas -v`` report kept beside a built library."""
     regs, spills, kind = {}, {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            kind = "delayed" if "delayed" in line else "sync"
+            kind = kind_of(line)
         elif kind and "registers" in line and "Used" in line:
             n = int(line.split("Used", 1)[1].split("registers")[0])
             regs[kind] = max(regs.get(kind, 0), n)
@@ -265,6 +294,306 @@ def check(ok, what: str) -> None:
         raise AssertionError(what)
 
 
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events), after
+    one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def host_ms(fn, reps: int = 1) -> float:
+    """Mean host time of ``fn`` over ``reps`` calls, each ended by a device
+    synchronisation, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+#: the LM slice: internlm2-1.8b at its published widths (configs/archs.py)
+LM_ARCH = "internlm2-1.8b"
+LM_BATCH, LM_SEQ, LM_DECODE = 4, 2048, 16  # prefill_32k's 32 x 32768, cut to size
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12
+#: the kernel against its plain version: tests/test_kernels_flash.py's
+#: seven cases, then lengths no multiple of the 64-row tile
+#: (b, sq, sk, hq, hkv, dh, causal, window, dtype)
+FLASH_CASES = [
+    (2, 256, 256, 4, 2, 64, True, None, "float32"),
+    (1, 128, 128, 8, 8, 128, True, None, "float32"),
+    (1, 128, 128, 8, 8, 128, True, None, "bfloat16"),
+    (2, 256, 256, 4, 1, 64, True, 96, "float32"),
+    (1, 128, 256, 2, 2, 64, False, None, "float32"),
+    (1, 64, 64, 6, 3, 112, True, None, "float32"),
+    (1, 256, 256, 2, 2, 64, True, 32, "bfloat16"),
+    (1, 300, 300, 16, 8, 128, True, None, "float32"),
+    (1, 1000, 1000, 16, 8, 128, True, None, "float32"),
+    (1, 1000, 1000, 16, 8, 128, True, None, "bfloat16"),
+    (2, 300, 300, 16, 8, 128, True, 100, "float32"),
+    (1, 77, 200, 4, 4, 16, False, None, "float32"),
+]
+FLASH_TOL = {"float32": 5e-5, "bfloat16": 2.5e-2}  # test_kernels_flash.py:42
+
+
+def profile_call(fn):
+    """One call of ``fn`` under ``torch.profiler`` (after a warm-up call):
+    (wall ms, device busy ms, the three device kernels with the most time as
+    (name, ms)). Busy is the union of the device events' intervals; (0, [])
+    when the profiler sees no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if e.time_range.end > end:
+            busy += e.time_range.end - max(e.time_range.start, end)
+            end = e.time_range.end
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return wall, busy / 1e3, [(name[:60], us / 1e3) for name, us in top]
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, the measure of test_decode_equiv.py."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-9))
+
+
+class PlainAttention:
+    """Within this block the model's sequence attention runs the plain
+    version on the card (the yardstick of phase 9), not the kernel."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.kernels.flash_attention.ref import attention_ref
+
+        self.ops, self.saved = ops, ops.flash_attention_bhsd
+        ops.flash_attention_bhsd = (lambda q, k, v, *, causal, window:
+                                    attention_ref(q, k, v, causal=causal, window=window))
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention_bhsd = self.saved
+
+
+def continue_cache(cfg, cache, new_len: int):
+    """A decode cache of ``new_len`` slots holding a prefill cache in its
+    first slots (slot_pos 0..S-1), the rest empty."""
+    from repro_torch.models import init_cache
+
+    out = init_cache(cfg, cache["k"].shape[1], new_len, device=cache["k"].device)
+    s = cache["k"].shape[2]
+    for name in ("k", "v", "slot_pos"):
+        out[name][:, :, :s] = cache[name]
+    return out
+
+
+def lm_slice(dev) -> dict:
+    """Phases 8-12: the internlm2-1.8b prefill and serve path through the
+    flash kernel, at full width. Returns the kernel's JSON entry."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import forward, init_model
+    from repro_torch.models.schema import leaf_paths
+    from repro_torch.train.serve import Request, ServeEngine
+
+    # fp32 products in full fp32: the plain yardstick must not round to TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sync = torch.cuda.synchronize
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    max_err = 0.0
+
+    # ------------------------------------- 8. flash kernel vs plain, cases
+    t_phase = time.perf_counter()
+    worst = {}
+    for n, (b, sq, sk, hq, hkv, dh, causal, window, dtn) in enumerate(FLASH_CASES):
+        rng = np.random.default_rng(100 + n)
+        q, k, v = (torch.from_numpy(rng.standard_normal((b * h, s, dh), np.float32))
+                   .to(dev, dt[dtn]) for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+        got = FK.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+        sync()
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        err = float((got.float() - want.float()).abs().max())
+        check(got.shape == q.shape and got.dtype == q.dtype, f"flash case {n}: shape/dtype")
+        check(err < FLASH_TOL[dtn], f"flash case {n} {FLASH_CASES[n]}: max |err| {err:.3e}")
+        worst[dtn] = max(worst.get(dtn, 0.0), err)
+        max_err = max(max_err, err)
+    print(f"phase 8 flash kernel vs plain: {len(FLASH_CASES)} cases (the reference's "
+          f"7, ragged 300/1000, windowed, ragged cross) within 5e-5 fp32 / 2.5e-2 bf16; "
+          f"max |err| fp32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # --------------------------- 9. full-width fp32 prefill, kernel vs plain
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_model(cfg, 0, device=dev)  # fp32 master weights
+    n_params = sum(x.numel() for _, x in leaf_paths(params))
+    toks = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)).astype(np.int32)).to(dev)
+    prefill32 = make_prefill_step(cfg32, logits_mode="last")
+    FK.reset_launches()  # the LM main path: the prefill here and serving (11)
+    sync()
+    t0 = time.perf_counter()
+    logits_k, cache_k = prefill32(params, {"tokens": toks})
+    sync()
+    ms_prefill32 = (time.perf_counter() - t0) * 1e3
+    prefill_launches = FK.flash_attention_bhsd.launches
+    check(prefill_launches == cfg.n_layers,
+          f"prefill launched the flash kernel {prefill_launches} times, not {cfg.n_layers}")
+    with PlainAttention():
+        logits_p, cache_p = prefill32(params, {"tokens": toks})
+    sync()
+    check(FK.flash_attention_bhsd.launches == prefill_launches, "plain prefill launched")
+    check(tuple(logits_k.shape) == (LM_BATCH, 1, cfg.vocab_size), "prefill logits shape")
+    check(bool(torch.isfinite(logits_k).all()), "prefill logits not finite")
+    err9 = rel_err(logits_k, logits_p)
+    err9_kv = max(rel_err(cache_k[n], cache_p[n]) for n in ("k", "v"))
+    check(err9 < 2e-4, f"prefill logits kernel vs plain: rel err {err9:.3e}")
+    check(err9_kv < 2e-4, f"prefill cache kernel vs plain: rel err {err9_kv:.3e}")
+    del logits_p, cache_p
+    print(f"phase 9 prefill {LM_ARCH} ({n_params / 1e9:.3f} B params, fp32) "
+          f"{LM_BATCH} x {LM_SEQ}: {ms_prefill32:.1f} ms, flash launches "
+          f"{prefill_launches}; last logits vs plain attention rel err {err9:.3e}, "
+          f"emitted K/V rel err {err9_kv:.3e}; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # -------------------------------------- 10. decode continuation (fp32)
+    t_phase = time.perf_counter()
+    decode32 = make_decode_step(cfg32)
+    cache = continue_cache(cfg32, cache_k, LM_SEQ + LM_DECODE)
+    del cache_k
+    tok = logits_k[:, -1].argmax(-1)
+    fed, dec = [], []
+    for i in range(LM_DECODE):
+        fed.append(tok)
+        lg, cache = decode32(params, cache, tok[:, None], LM_SEQ + i)
+        dec.append(lg[:, 0])
+        tok = lg[:, 0].argmax(-1)
+    del cache
+    FK.reset_launches()  # the yardstick forward below is no part of the main path
+    full, _ = forward(cfg32, params, {"tokens": torch.cat([toks, torch.stack(fed, 1)
+                                                           .to(toks.dtype)], 1)})
+    err10 = rel_err(torch.stack(dec, 1), full[:, LM_SEQ:])
+    check(err10 < 2e-4, f"decode continuation vs forward: rel err {err10:.3e}")
+    del full
+    print(f"phase 10 continuation: {LM_DECODE} greedy decode_steps after the prefill "
+          f"equal forward over {LM_SEQ + LM_DECODE} tokens, rel err {err10:.3e}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ----------------------------------------------- 11. serving in bf16
+    t_phase = time.perf_counter()
+    eng = ServeEngine(cfg, params, slots=4, max_len=128)  # as launch/serve.py
+    FK.reset_launches()
+    rng = np.random.default_rng(0)
+    for rid in range(8):
+        plen = int(rng.integers(2, 12))
+        eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, plen)
+                           .astype(np.int32), max_new=16))
+    sync()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    sync()
+    serve_s = time.perf_counter() - t0
+    n_tok = sum(len(r.out) for r in done)
+    check(len(done) == 8 and all(len(r.out) == 16 for r in done),
+          f"serving completed {len(done)} of 8 requests")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out), "token out of range")
+    lm_launches = prefill_launches + FK.flash_attention_bhsd.launches
+    check(lm_launches > 0, "flash_attention_bhsd was never launched on the main path")
+    print(f"phase 11 serving {LM_ARCH} in {cfg.dtype}: 8 requests / {n_tok} tokens in "
+          f"{eng.steps} engine steps, {serve_s:.2f} s ({n_tok / serve_s:.1f} tokens/s; "
+          f"admission feeds prompts token by token through decode_step, which "
+          f"launches no flash kernel); flash launches on the main path (the "
+          f"phase-9 prefill and this phase): {lm_launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del eng
+
+    # ------------------------------------- 12. timing at the prefill shapes
+    bhq, bhkv, dh = LM_BATCH * cfg.n_heads, LM_BATCH * cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(13)
+    q = torch.randn(bhq, LM_SEQ, dh, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(bhkv, LM_SEQ, dh, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(bhkv, LM_SEQ, dh, generator=g, device=dev).to(torch.bfloat16)
+    err12 = float((FK.flash_attention_bhsd(q, k, v, causal=True).float()
+                   - attention_ref(q, k, v, causal=True).float()).abs().max())
+    check(err12 < FLASH_TOL["bfloat16"], f"flash at the prefill shapes: max |err| {err12:.3e}")
+    max_err = max(max_err, err12)
+    ms_k = time_ms(lambda: FK.flash_attention_bhsd(q, k, v, causal=True), 10)
+    ms_plain = time_ms(lambda: attention_ref(q, k, v, causal=True), 3)
+    q4, k4, v4 = (x.view(LM_BATCH, -1, LM_SEQ, dh) for x in (q, k, v))
+    ms_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), 10)
+    pairs = bhq * LM_SEQ * (LM_SEQ + 1) // 2  # live causal (q, k) pairs
+    ops_ms = 4 * dh * pairs / BF16_FLOP_PER_S * 1e3
+    bytes_ms = (2 * q.numel() + k.numel() + v.numel()) * 2 / HBM_BYTES_PER_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    prefill = make_prefill_step(cfg, logits_mode="last")
+    batch = {"tokens": toks}
+    ms_prefill = host_ms(lambda: prefill(params, batch), 3)
+    _, cache_b = prefill(params, batch)
+    cache_b = continue_cache(cfg, cache_b, LM_SEQ + LM_DECODE)
+    decode = make_decode_step(cfg)
+    one = toks[:, :1]
+    ms_decode = host_ms(lambda: decode(params, cache_b, one, LM_SEQ), 5)
+    print(f"phase 12 timing (bf16, BHq {bhq}, BHkv {bhkv}, S {LM_SEQ}, Dh {dh}, "
+          f"causal): flash kernel {ms_k:.3f} ms ({4 * dh * pairs / ms_k / 1e9:.1f} "
+          f"TFLOP/s), plain {ms_plain:.3f} ms, scaled_dot_product_attention "
+          f"{ms_lib:.3f} ms; bound {bound:.4f} ms (operations {ops_ms:.4f} ms at "
+          f"989 TFLOP/s bf16, bytes {bytes_ms:.4f} ms at 3.35 TB/s); max |err| vs "
+          f"plain {err12:.3e}", flush=True)
+    print(f"phase 12 end to end (bf16): prefill_step {LM_BATCH} x {LM_SEQ} "
+          f"{ms_prefill:.1f} ms ({LM_BATCH * LM_SEQ / ms_prefill * 1e3:.0f} tokens/s); "
+          f"one decode_step at batch {LM_BATCH}, position {LM_SEQ}: {ms_decode:.2f} ms",
+          flush=True)
+    for name, fn in (("prefill_step", lambda: prefill(params, batch)),
+                     ("decode_step", lambda: decode(params, cache_b, one, LM_SEQ))):
+        wall, busy, top = profile_call(fn)
+        seen = (f"device busy {busy:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
+                "most device time: " + ", ".join(f"{n} {ms:.2f} ms" for n, ms in top)
+                if busy else "the profiler saw no device activity (not measured)")
+        print(f"phase 12 profile of one {name} (bf16): {wall:.1f} ms wall under the "
+              f"profiler, {seen}", flush=True)
+    return dict(
+        name="flash_attention_bhsd", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:124",
+        launches=lm_launches, max_abs_err=max_err, ms=ms_k, plain_ms=ms_plain,
+        bound_ms=bound, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        library_ms=ms_lib,
+    )
+
+
 def main() -> int:
     import torch
 
@@ -282,6 +611,7 @@ def main() -> int:
         engine_to_arrays,
         random_trace,
     )
+    from repro_torch.kernels.flash_attention import _build as flash_build
     from repro_torch.lease_array import _build
     from repro_torch.lease_array import kernel as K
     from repro_torch.lease_array.netplane import init_netplane, pack_link
@@ -309,15 +639,22 @@ def main() -> int:
     # ------------------------------------------------------------ 1. build
     # one library per acceptor count (A is a compile-time constant); the
     # nvcc runs go together
+    # and the flash-attention library beside them
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(BUILD_ACCEPTORS)) as pool:
+    with ThreadPoolExecutor(len(BUILD_ACCEPTORS) + 1) as pool:
+        flash_lib = pool.submit(flash_build.build)
         libs = list(pool.map(_build.build, BUILD_ACCEPTORS))
+        flash_lib = flash_lib.result()
     for a in BUILD_ACCEPTORS:
         _build.load(a)
+    flash_build.load()
     build_s = time.perf_counter() - t0
     print(f"phase 1 build: {build_s:.1f} s; " + "; ".join(
         f"{lib.name}: {ptxas_summary(lib.with_suffix('.log').read_text())}"
         for lib in libs), flush=True)
+    print(f"phase 1 build: {flash_lib.name} (dynamic shared memory "
+          f"{(3 * 128 + 64) * 64 * 4} B a block at Dh 128): " + ptxas_summary(
+              flash_lib.with_suffix(".log").read_text(), flash_kind), flush=True)
 
     # ------------------------------------- 2. kernel vs plain, small traces
     t_phase = time.perf_counter()
@@ -526,18 +863,6 @@ def main() -> int:
     del twin, eng3
 
     # ------------------------------------------------- 7. kernel timing
-    def time_ms(fn, reps):
-        fn()  # warm
-        sync()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        sync()
-        return start.elapsed_time(stop) / reps
-
     # delayed kernel at the phase-3 shapes, from a fresh engine's state
     st = init_state(FULL_N, A, P, device=dev)
     packed = pack_state(st)
@@ -628,6 +953,9 @@ def main() -> int:
              plain_ms=plain_s, bound_ms=bound_s, bound_by=by_s,
              library_ms=None),
     ]
+    del att, rel, up, args, packed, st
+    torch.cuda.empty_cache()
+    kernels.append(lm_slice(dev))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,89 @@
+"""Flash attention on the (B·H, S, Dh) layout: the CUDA kernel's wrapper.
+
+``flash_attention_bhsd`` launches ``csrc/flash_attention.cu`` for CUDA
+tensors (see the note at the top of that file) and raises on what the kernel
+does not take; it never falls back. For CPU tensors it runs the plain
+version, ``ref.attention_ref``. ``flash_attention_bhsd.launches`` counts
+kernel launches only; ``reset_launches()`` zeros it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .ref import attention_ref
+
+#: the kernel's element types (C enum of ``flash_attention_fwd``)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head widths the kernel is instantiated for (16 lanes x 1..8 dims each)
+HEAD_DIMS = tuple(range(16, 129, 16))
+MAX_GRID_Y = 65535
+
+
+def _check(q, k, v, window) -> None:
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(x, torch.Tensor) or x.ndim != 3:
+            raise ValueError(f"{name} must be a 3-d tensor (B·H, S, Dh)")
+    if k.shape != v.shape or q.shape[2] != k.shape[2]:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit together")
+    if k.shape[0] == 0 or q.shape[0] % k.shape[0]:
+        raise ValueError(f"query heads ({q.shape[0]}) must be a multiple of "
+                         f"kv heads ({k.shape[0]})")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"devices differ: {q.device}, {k.device}, {v.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous, and 16-byte aligned for the kernel's vector loads."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def flash_attention_bhsd(q, k, v, *, causal: bool = True, window=None) -> torch.Tensor:
+    """q: (BHq, Sq, Dh); k, v: (BHkv, Sk, Dh) -> (BHq, Sq, Dh) in q's dtype.
+    Query head h reads kv head h // (BHq // BHkv); ``window`` keeps keys
+    with k_pos > q_pos - window (None: all)."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on CUDA (kernel) or CPU "
+                         f"(plain) tensors, not {q.device}")
+    bhq, sq, dh = q.shape
+    bhkv, sk, _ = k.shape
+    if q.dtype not in DTYPES:
+        raise ValueError(f"the kernel takes {list(DTYPES)}, not {q.dtype}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}, not {dh}")
+    if bhq > MAX_GRID_Y:
+        raise ValueError(f"at most {MAX_GRID_Y} query heads per call, got {bhq}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    o = torch.empty_like(q)
+    if sq == 0:
+        return o
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            bhq, bhkv, sq, sk, dh, DTYPES[q.dtype], int(bool(causal)),
+            0 if window is None else int(window), 1.0 / math.sqrt(dh),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
+    flash_attention_bhsd.launches += 1
+    return o
+
+
+flash_attention_bhsd.launches = 0
+
+
+def reset_launches() -> None:
+    flash_attention_bhsd.launches = 0

@@ -1,48 +1,23 @@
 """Build and load the lease-plane CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, bound with ``ctypes`` — no PyTorch headers,
-so a build takes seconds, not minutes. The acceptor count A is a
-compile-time constant of the kernels, so there is one library per A. It
-goes to ``build/repro_torch/`` at the repository root, named by A and a hash
-of the sources and flags, so an edited source rebuilds and an unchanged one
-is reused. A build happens at first use, never at import: machines without
-``nvcc`` import this package and run the plain versions on the CPU.
+``_nvcc.compile_library`` compiles the sources for Hopper (``sm_90a``) into a
+shared library with a plain C interface, bound with ``ctypes``. The acceptor
+count A is a compile-time constant of the kernels, so there is one library
+per A, named by A and a hash of the sources and flags.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
+from .._nvcc import BUILD_DIR, NVCC_FLAGS, compile_library
+
 CSRC = Path(__file__).with_name("csrc")
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 #: C entry points and their ctypes signatures: (host pointer array, host
 #: int array, cudaStream_t) -> cudaError_t
 ENTRY_POINTS = ("lease_window_delayed", "lease_window_sync")
-
-
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError(
-        "nvcc not found (PATH or /usr/local/cuda/bin): the lease-plane CUDA "
-        "kernels are built from csrc/ at first use on a machine with the "
-        "CUDA toolkit"
-    )
 
 
 def sources() -> list[Path]:
@@ -60,30 +35,9 @@ def library_path(n_acceptors: int) -> Path:
 
 def build(n_acceptors: int) -> Path:
     """Compile the sources for ``n_acceptors`` unless the hashed library
-    already exists; the compiler's report (registers, spills, shared memory
-    per kernel) is kept beside it as ``.log``. Raises RuntimeError with the
-    compiler output on failure."""
-    lib = library_path(n_acceptors)
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, f"-DLEASE_ACCEPTORS={n_acceptors}",
-               "-o", tmp, *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)  # atomic: concurrent builders race harmlessly
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+    already exists (the ``-Xptxas -v`` report sits beside it as ``.log``)."""
+    return compile_library(library_path(n_acceptors), sources(),
+                           [*NVCC_FLAGS, f"-DLEASE_ACCEPTORS={n_acceptors}"])
 
 
 @functools.cache

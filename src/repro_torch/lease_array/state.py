@@ -34,6 +34,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
+
 NO_PROPOSER = -1  # "no owner / no attempt" sentinel in proposer-id arrays
 QUARTERS = 4  # quarter-ticks per tick
 
@@ -54,20 +56,6 @@ RESTART_SHIFT = 2
 MAX_RESTARTS = (1 << RESTART_SHIFT) - 1  # restart counters must stay below the carve
 
 I32 = torch.int32
-
-
-def resolve_device(device) -> torch.device:
-    """The device a caller asked for. CUDA is the default everywhere; without
-    a CUDA device that request fails here, loudly — nothing moves to the CPU
-    unless the caller passes ``device="cpu"``."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "the lease plane runs on a CUDA device by default, and "
-            "torch.cuda.is_available() is False here; pass device='cpu' to "
-            "run the plain PyTorch version on the CPU"
-        )
-    return dev
 
 
 class LeaseArrayState(NamedTuple):

@@ -1,0 +1,149 @@
+"""The flash-attention CUDA kernel against its plain PyTorch version.
+
+Tests marked ``cuda`` build ``csrc/flash_attention.cu`` and hold the kernel
+against ``attention_ref`` on the card, with the reference's tolerances
+(5e-5 fp32, 2.5e-2 bf16); without a CUDA device they skip. This file
+imports no JAX, so it runs on a machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_kernel.py
+
+The rest run anywhere: CPU tensors take the plain version and count no
+launch, and the wrapper refuses inputs that do not fit together.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels.flash_attention import _build
+from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models import forward, init_model
+
+# (b, sq, sk, hq, hkv, dh, causal, window, dtype): tests/test_kernels_flash.py
+CASES = [
+    (2, 256, 256, 4, 2, 64, True, None, "float32"),
+    (1, 128, 128, 8, 8, 128, True, None, "float32"),
+    (1, 128, 128, 8, 8, 128, True, None, "bfloat16"),
+    (2, 256, 256, 4, 1, 64, True, 96, "float32"),  # SWA + MQA
+    (1, 128, 256, 2, 2, 64, False, None, "float32"),  # cross-attention
+    (1, 64, 64, 6, 3, 112, True, None, "float32"),  # kimi head_dim
+    (1, 256, 256, 2, 2, 64, True, 32, "bfloat16"),  # tight window, bf16
+]
+# lengths that are no multiple of the kernel's 64-row tiles
+RAGGED = [
+    (1, 300, 300, 4, 2, 128, True, None, "float32"),
+    (1, 1000, 1000, 4, 2, 128, True, None, "bfloat16"),
+    (2, 300, 300, 4, 2, 64, True, 100, "float32"),
+    (1, 77, 200, 4, 4, 16, False, None, "float32"),  # cross-attention, ragged k
+    (1, 150, 130, 2, 1, 48, True, 40, "float32"),  # Sq > Sk, window
+]
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def case_id(c):
+    return f"b{c[0]}q{c[1]}k{c[2]}h{c[3]}kv{c[4]}d{c[5]}c{int(c[6])}w{c[7]}{c[8]}"
+
+
+def inputs(case, seed=0):
+    """q (B, Sq, Hq, Dh), k and v (B, Sk, Hkv, Dh), fp32 numpy."""
+    b, sq, sk, hq, hkv, dh, *_ = case
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, hq, dh), np.float32),
+            rng.standard_normal((b, sk, hkv, dh), np.float32),
+            rng.standard_normal((b, sk, hkv, dh), np.float32))
+
+
+def tol(dt):
+    return 2.5e-2 if dt == "bfloat16" else 5e-5
+
+
+def fold(a):
+    """(B, S, H, Dh) -> (B·H, S, Dh)."""
+    b, s, h, d = a.shape
+    return a.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+
+
+def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
+    K.reset_launches()
+    q, k, v = (torch.from_numpy(fold(a)) for a in inputs(CASES[0]))
+    out = K.flash_attention_bhsd(q, k, v, causal=True)
+    assert torch.equal(out, attention_ref(q, k, v, causal=True))
+    assert K.flash_attention_bhsd.launches == 0
+
+
+def test_wrapper_refuses_what_does_not_fit():
+    q = torch.zeros(6, 8, 16)
+    k = torch.zeros(4, 8, 16)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        K.flash_attention_bhsd(q, k, k)
+    with pytest.raises(ValueError, match="do not fit"):
+        K.flash_attention_bhsd(q, torch.zeros(3, 8, 32), torch.zeros(3, 8, 32))
+    with pytest.raises(ValueError, match="dtypes differ"):
+        K.flash_attention_bhsd(q, k[:3].double(), k[:3])
+    with pytest.raises(ValueError, match="window"):
+        K.flash_attention_bhsd(q, k[:3], k[:3], window=0)
+
+
+def test_library_name_follows_the_source(tmp_path, monkeypatch):
+    first = _build.library_path()
+    assert first.parent == _build.BUILD_DIR and first.name.startswith("libflash_attention_")
+    src = tmp_path / "flash_attention.cu"
+    src.write_text(_build.SOURCE.read_text() + "\n// edited\n")
+    monkeypatch.setattr(_build, "SOURCE", src)
+    assert _build.library_path() != first
+
+
+# ------------------------------------------------------------------ card
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash-attention kernel runs only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES + RAGGED, ids=case_id)
+def test_kernel_matches_plain(cuda_device, case):
+    *_, causal, window, dt = case
+    q, k, v = (torch.from_numpy(fold(a)).to(cuda_device, TORCH_DT[dt])
+               for a in inputs(case, seed=2))
+    before = K.flash_attention_bhsd.launches
+    got = K.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert K.flash_attention_bhsd.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() < tol(dt)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_lacks(cuda_device):
+    x = torch.zeros(2, 8, 40, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        K.flash_attention_bhsd(x, x, x)
+    y = torch.zeros(2, 8, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="takes"):
+        K.flash_attention_bhsd(y, y, y)
+
+
+@pytest.mark.cuda
+def test_model_forward_on_the_card_matches_the_cpu(cuda_device):
+    """The reduced internlm2 (head_dim 16) through the kernel, against the
+    plain path on the CPU, fp32, relative error below 2e-4."""
+    cfg = reduced(get_config("internlm2-1.8b"), dtype="float32")
+    params = init_model(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 300)).astype(np.int32))
+    want, _ = forward(cfg, params, {"tokens": toks})
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(cuda_device)
+                for k, v in tree.items()}
+
+    before = K.flash_attention_bhsd.launches
+    got, _ = forward(cfg, to_card(params), {"tokens": toks.to(cuda_device)})
+    assert K.flash_attention_bhsd.launches == before + cfg.n_layers
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert err.item() < 2e-4

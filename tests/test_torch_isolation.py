@@ -26,6 +26,14 @@ def test_package_has_the_slice_modules():
     for name in ("state", "netplane", "ref", "scenario", "kernel", "_build",
                  "ops", "engine", "trace", "carry"):
         assert f"repro_torch.lease_array.{name}" in MODULES
+    for name in ("_nvcc", "device", "configs", "configs.base", "configs.archs",
+                 "models", "models.schema", "models.layers", "models.attention",
+                 "models.transformer", "models.carry", "kernels",
+                 "kernels.flash_attention", "kernels.flash_attention.ref",
+                 "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
+                 "kernels.flash_attention._build", "launch", "launch.steps",
+                 "launch.serve", "train", "train.serve"):
+        assert f"repro_torch.{name}" in MODULES
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
