@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on an NVIDIA card and check it: the
-lease plane (phases 1-7) and internlm2-1.8b prefill and serving through the
-flash-attention kernel (phases 8-12).
+lease plane (phases 1-7), internlm2-1.8b prefill and serving through the
+flash-attention kernel (phases 8-12), and rwkv6-3b prefill and serving
+through the WKV6 kernel (phases 13-17).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``); it exits nonzero
 without them, and on any failed check.
 
 Phases (one line each):
-  1. build the lease kernels from ``src/repro_torch/lease_array/csrc`` and
-     the flash-attention kernel from
-     ``src/repro_torch/kernels/flash_attention/csrc``, all nvcc runs at once;
+  1. build the lease kernels from ``src/repro_torch/lease_array/csrc``, the
+     flash-attention kernel from
+     ``src/repro_torch/kernels/flash_attention/csrc`` and the WKV6 kernel
+     from ``src/repro_torch/kernels/rwkv6/csrc``, all nvcc runs at once;
   2. hold both kernels bit-exact against their plain PyTorch versions on
      small traces (delay 0/2/4, asymmetric links, drift, restarts, extends,
      stale/equiv corruption, windows 1/3/16, a ragged cell count, a trace
@@ -42,9 +44,25 @@ Phases (one line each):
      ``scaled_dot_product_attention``'s times at the prefill shapes in bf16
      and the bound (the larger of the causal FLOPs over the bf16 peak and
      the bytes over the memory rate); bf16 prefill and decode step times.
+ 13. the WKV6 kernel against its plain chunked form on the reference's
+     five cases, ragged lengths from nonzero states (final states
+     compared), 128 tokens against two calls of 64 with the state carried,
+     and the decay rates of rwkv6's own decay_base init;
+ 14. rwkv6-3b at full width, random weights from a seed: a 4 x 2048 fp32
+     prefill through the kernel (32 launches) against the same prefill
+     with the plain chunked form on the card, last logits and the emitted
+     state to a relative error below 2e-4;
+ 15. 16 greedy ``decode_step`` tokens from that prefill's state against
+     ``forward`` over all 2064 tokens, relative error below 2e-4;
+ 16. ``ServeEngine`` in bf16: 8 requests on 4 slots, 16 new tokens each;
+ 17. the WKV6 kernel's and the plain form's times at the prefill shapes
+     (bf16 r/k/v) and the bound (the larger of the bytes over the memory
+     rate and the chunked matrix form's FLOPs over the bf16 peak); bf16
+     prefill and decode step times.
 The line before the last holds every kernel's launches on its main path
-(phases 3-6; the phase-9 prefill and phase-11 serving), time, plain time,
-bound and library time as JSON;
+(phases 3-6; the phase-9 prefill and phase-11 serving; the phase-14
+prefill and phase-16 serving), time, plain time, bound and library time as
+JSON;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -376,6 +394,55 @@ def profile_call(fn):
     return wall, busy / 1e3, [(name[:60], us / 1e3) for name, us in top]
 
 
+def serve_requests(cfg, params):
+    """``ServeEngine`` with the defaults of ``launch/serve.py``: 8 requests
+    with prompts of 2-11 tokens from seed 0, 16 new tokens each, 4 slots,
+    max_len 128. Checks that all are served; returns (engine steps, tokens,
+    seconds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train.serve import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, slots=4, max_len=128)
+    rng = np.random.default_rng(0)
+    for rid in range(8):
+        plen = int(rng.integers(2, 12))
+        eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, plen)
+                           .astype(np.int32), max_new=16))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(len(done) == 8 and all(len(r.out) == 16 for r in done),
+          f"serving completed {len(done)} of 8 requests")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out), "token out of range")
+    return eng.steps, sum(len(r.out) for r in done), seconds
+
+
+def report_steps(phase: int, params, batch, prefill, decode, cache) -> None:
+    """Prints the host time of a prefill_step over ``batch`` and of one
+    decode_step after it (from ``cache``, updated in place), then a
+    ``torch.profiler`` breakdown of one call of each (bf16)."""
+    b, s = batch["tokens"].shape
+    one = batch["tokens"][:, :1]
+    calls = (("prefill_step", lambda: prefill(params, batch)),
+             ("decode_step", lambda: decode(params, cache, one, s)))
+    ms_prefill = host_ms(calls[0][1], 3)
+    ms_decode = host_ms(calls[1][1], 5)
+    print(f"phase {phase} end to end (bf16): prefill_step {b} x {s} "
+          f"{ms_prefill:.1f} ms ({b * s / ms_prefill * 1e3:.0f} tokens/s); "
+          f"one decode_step at batch {b}, position {s}: {ms_decode:.2f} ms", flush=True)
+    for name, fn in calls:
+        wall, busy, top = profile_call(fn)
+        seen = (f"device busy {busy:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
+                "most device time: " + ", ".join(f"{n} {ms:.2f} ms" for n, ms in top)
+                if busy else "the profiler saw no device activity (not measured)")
+        print(f"phase {phase} profile of one {name} (bf16): {wall:.1f} ms wall under the "
+              f"profiler, {seen}", flush=True)
+
+
 def rel_err(got, want) -> float:
     """max |got - want| / max |want|, the measure of test_decode_equiv.py."""
     return float((got.float() - want.float()).abs().max()
@@ -424,7 +491,6 @@ def lm_slice(dev) -> dict:
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import forward, init_model
     from repro_torch.models.schema import leaf_paths
-    from repro_torch.train.serve import Request, ServeEngine
 
     # fp32 products in full fp32: the plain yardstick must not round to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -513,31 +579,16 @@ def lm_slice(dev) -> dict:
 
     # ----------------------------------------------- 11. serving in bf16
     t_phase = time.perf_counter()
-    eng = ServeEngine(cfg, params, slots=4, max_len=128)  # as launch/serve.py
     FK.reset_launches()
-    rng = np.random.default_rng(0)
-    for rid in range(8):
-        plen = int(rng.integers(2, 12))
-        eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, plen)
-                           .astype(np.int32), max_new=16))
-    sync()
-    t0 = time.perf_counter()
-    done = eng.run_until_drained()
-    sync()
-    serve_s = time.perf_counter() - t0
-    n_tok = sum(len(r.out) for r in done)
-    check(len(done) == 8 and all(len(r.out) == 16 for r in done),
-          f"serving completed {len(done)} of 8 requests")
-    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out), "token out of range")
+    steps, n_tok, serve_s = serve_requests(cfg, params)
     lm_launches = prefill_launches + FK.flash_attention_bhsd.launches
     check(lm_launches > 0, "flash_attention_bhsd was never launched on the main path")
     print(f"phase 11 serving {LM_ARCH} in {cfg.dtype}: 8 requests / {n_tok} tokens in "
-          f"{eng.steps} engine steps, {serve_s:.2f} s ({n_tok / serve_s:.1f} tokens/s; "
+          f"{steps} engine steps, {serve_s:.2f} s ({n_tok / serve_s:.1f} tokens/s; "
           f"admission feeds prompts token by token through decode_step, which "
           f"launches no flash kernel); flash launches on the main path (the "
           f"phase-9 prefill and this phase): {lm_launches}; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    del eng
 
     # ------------------------------------- 12. timing at the prefill shapes
     bhq, bhkv, dh = LM_BATCH * cfg.n_heads, LM_BATCH * cfg.n_kv_heads, cfg.head_dim
@@ -560,30 +611,15 @@ def lm_slice(dev) -> dict:
     bound = max(ops_ms, bytes_ms)
     prefill = make_prefill_step(cfg, logits_mode="last")
     batch = {"tokens": toks}
-    ms_prefill = host_ms(lambda: prefill(params, batch), 3)
     _, cache_b = prefill(params, batch)
     cache_b = continue_cache(cfg, cache_b, LM_SEQ + LM_DECODE)
-    decode = make_decode_step(cfg)
-    one = toks[:, :1]
-    ms_decode = host_ms(lambda: decode(params, cache_b, one, LM_SEQ), 5)
     print(f"phase 12 timing (bf16, BHq {bhq}, BHkv {bhkv}, S {LM_SEQ}, Dh {dh}, "
           f"causal): flash kernel {ms_k:.3f} ms ({4 * dh * pairs / ms_k / 1e9:.1f} "
           f"TFLOP/s), plain {ms_plain:.3f} ms, scaled_dot_product_attention "
           f"{ms_lib:.3f} ms; bound {bound:.4f} ms (operations {ops_ms:.4f} ms at "
           f"989 TFLOP/s bf16, bytes {bytes_ms:.4f} ms at 3.35 TB/s); max |err| vs "
           f"plain {err12:.3e}", flush=True)
-    print(f"phase 12 end to end (bf16): prefill_step {LM_BATCH} x {LM_SEQ} "
-          f"{ms_prefill:.1f} ms ({LM_BATCH * LM_SEQ / ms_prefill * 1e3:.0f} tokens/s); "
-          f"one decode_step at batch {LM_BATCH}, position {LM_SEQ}: {ms_decode:.2f} ms",
-          flush=True)
-    for name, fn in (("prefill_step", lambda: prefill(params, batch)),
-                     ("decode_step", lambda: decode(params, cache_b, one, LM_SEQ))):
-        wall, busy, top = profile_call(fn)
-        seen = (f"device busy {busy:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
-                "most device time: " + ", ".join(f"{n} {ms:.2f} ms" for n, ms in top)
-                if busy else "the profiler saw no device activity (not measured)")
-        print(f"phase 12 profile of one {name} (bf16): {wall:.1f} ms wall under the "
-              f"profiler, {seen}", flush=True)
+    report_steps(12, params, batch, prefill, make_decode_step(cfg), cache_b)
     return dict(
         name="flash_attention_bhsd", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -591,6 +627,250 @@ def lm_slice(dev) -> dict:
         launches=lm_launches, max_abs_err=max_err, ms=ms_k, plain_ms=ms_plain,
         bound_ms=bound, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
         library_ms=ms_lib,
+    )
+
+
+#: the rwkv slice: rwkv6-3b at its published widths (configs/archs.py), at the
+#: LM slice's prefill size
+RWKV_ARCH = "rwkv6-3b"
+#: the WKV6 kernel against its plain version: tests/test_kernels_rwkv6.py's
+#: five cases, then ragged lengths from nonzero states and the reduced
+#: configs' head size (b, s, h, n, omega_hi, dtype, initial state)
+WKV_CASES = [
+    (2, 64, 4, 64, 0.5, "float32", False),
+    (1, 128, 2, 64, 1.0, "float32", False),
+    (1, 96, 2, 64, 0.5, "float32", False),
+    (2, 96, 3, 32, 0.5, "bfloat16", False),
+    (1, 64, 1, 128, 0.0, "float32", False),
+    (1, 77, 4, 64, 0.5, "float32", True),
+    (2, 1000, 2, 64, 0.5, "bfloat16", True),
+    (1, 1000, 4, 64, 1.0, "float32", True),
+    (3, 45, 4, 16, 0.5, "float32", True),
+]
+WKV_TOL = {"float32": 5e-4, "bfloat16": 3e-2}  # test_kernels_rwkv6.py:45-47
+WKV_CHUNK = 32  # the Pallas kernel's chunk, for the matrix form's operation count
+
+
+def wkv_kind(entry: str) -> str:
+    """'fp32/N64' for the instantiation named in a ptxas entry line."""
+    m = re.search(r"wkv6_kernelI(f|13__nv_bfloat16)Li(\d+)E", entry)
+    return f"{'fp32' if m[1] == 'f' else 'bf16'}/N{m[2]}"
+
+
+def wkv_inputs(dev, b, s, h, n, omega_hi, dt, with_state, seed, omega=None):
+    """(r, k, v, logw, u, state) on the kernel's (B·H, S, N) layout from
+    numpy: r, k, v in ``dt``, the rest fp32; ``omega`` (broadcast to
+    (B, S, H, N)) replaces the uniform [-6, omega_hi] decay draw."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.rwkv6.ref import fold_heads
+
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((b, s, h, n), np.float32) for _ in range(3))
+    if omega is None:
+        omega = rng.uniform(-6.0, omega_hi, (b, s, h, n))
+    logw = (-np.exp(omega)).astype(np.float32)
+    u = np.broadcast_to(rng.standard_normal((h, n)) * 0.3, (b, h, n)).reshape(b * h, n)
+    st = (rng.standard_normal((b * h, n, n)) * 0.1).astype(np.float32) if with_state else None
+
+    def t(a, d=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, d)
+
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dt]
+    return (*(fold_heads(t(a, tdt)).contiguous() for a in (r, k, v)),
+            fold_heads(t(logw)).contiguous(), t(u), None if st is None else t(st))
+
+
+def decay_base_omega(b, s, h, n, seed):
+    """rwkv6's decay_base init spread over a head's channels (-6 + 7
+    linspace(0, 1)^1.5), plus 0.1 noise per element: the decay rates at
+    which the Pallas kernel's clamp is wrong."""
+    import numpy as np
+
+    base = -6.0 + 7.0 * np.linspace(0.0, 1.0, n) ** 1.5
+    return base + 0.1 * np.random.default_rng(seed).standard_normal((b, s, h, n))
+
+
+class PlainWKV:
+    """Within this block the model's WKV6 recurrence runs the plain chunked
+    form on the card (the yardstick of phase 14), not the kernel."""
+
+    def __enter__(self):
+        from repro_torch.kernels.rwkv6 import ops
+        from repro_torch.kernels.rwkv6.ref import wkv_chunked_bhsn
+
+        self.ops, self.saved = ops, ops.wkv6_bhsn
+        ops.wkv6_bhsn = wkv_chunked_bhsn
+
+    def __exit__(self, *exc):
+        self.ops.wkv6_bhsn = self.saved
+
+
+def rwkv_slice(dev) -> dict:
+    """Phases 13-17: the rwkv6-3b prefill and serve path through the WKV6
+    kernel, at full width. Returns the kernel's JSON entry."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.kernels.rwkv6.ref import wkv_chunked_bhsn
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import forward, init_model
+    from repro_torch.models.schema import leaf_paths
+
+    sync = torch.cuda.synchronize
+    max_err = 0.0
+
+    def against_plain(args, tol, what):
+        """The kernel and the plain chunked form on the same inputs:
+        outputs and final states to ``tol`` relative; returns max |err|."""
+        out, st = WK.wkv6_bhsn(*args)
+        sync()
+        want, want_st = wkv_chunked_bhsn(*args)
+        check(out.shape == args[0].shape and out.dtype == torch.float32, f"{what}: shape/dtype")
+        err, err_st = rel_err(out, want), rel_err(st, want_st)
+        check(err < tol and err_st < tol,
+              f"{what}: rel err {err:.3e}, state {err_st:.3e} (tolerance {tol})")
+        return float((out - want).abs().max()), max(err, err_st)
+
+    # ------------------------------------------ 13. WKV6 kernel vs plain
+    t_phase = time.perf_counter()
+    worst = {}
+    for i, case in enumerate(WKV_CASES):
+        args = wkv_inputs(dev, *case, seed=130 + i)
+        abs_err, rel = against_plain(args, WKV_TOL[case[5]], f"wkv case {i} {case}")
+        worst[case[5]] = max(worst.get(case[5], 0.0), rel)
+        max_err = max(max_err, abs_err)
+    r, k, v, logw, u, _ = wkv_inputs(dev, 1, 128, 2, 64, 0.5, "float32", False, seed=139)
+    full, full_st = WK.wkv6_bhsn(r, k, v, logw, u)
+    o1, st = WK.wkv6_bhsn(r[:, :64], k[:, :64], v[:, :64], logw[:, :64], u)
+    o2, st = WK.wkv6_bhsn(r[:, 64:], k[:, 64:], v[:, 64:], logw[:, 64:], u, st)
+    err_carry = max(rel_err(torch.cat([o1, o2], 1), full), rel_err(st, full_st))
+    check(err_carry < WKV_TOL["float32"], f"wkv 128 vs 2 x 64 carried: rel err {err_carry:.3e}")
+    b, s, h, n = 2, 512, 4, 64
+    spread = wkv_inputs(dev, b, s, h, n, None, "float32", True, seed=140,
+                        omega=decay_base_omega(b, s, h, n, 141))
+    abs_err, err_spread = against_plain(spread, WKV_TOL["float32"], "wkv decay_base spread")
+    max_err = max(max_err, abs_err)
+    print(f"phase 13 WKV6 kernel vs plain: {len(WKV_CASES)} cases (the reference's 5, "
+          f"ragged 77/1000/45 from nonzero states, N 16/32/64/128) within 5e-4 fp32 / "
+          f"3e-2 bf16, outputs and final states; worst rel err fp32 "
+          f"{worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}; 128 tokens vs 2 x 64 "
+          f"carried {err_carry:.3e}; decay_base spread {err_spread:.3e}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # --------------------------- 14. full-width fp32 prefill, kernel vs plain
+    t_phase = time.perf_counter()
+    cfg = get_config(RWKV_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_model(cfg, 0, device=dev)  # fp32 master weights
+    n_params = sum(x.numel() for _, x in leaf_paths(params))
+    toks = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)).astype(np.int32)).to(dev)
+    prefill32 = make_prefill_step(cfg32, logits_mode="last")
+    WK.reset_launches()  # the rwkv main path: the prefill here and serving (16)
+    sync()
+    t0 = time.perf_counter()
+    logits_k, cache_k = prefill32(params, {"tokens": toks})
+    sync()
+    ms_prefill32 = (time.perf_counter() - t0) * 1e3
+    prefill_launches = WK.wkv6_bhsn.launches
+    check(prefill_launches == cfg.n_layers,
+          f"prefill launched the WKV6 kernel {prefill_launches} times, not {cfg.n_layers}")
+    with PlainWKV():
+        logits_p, cache_p = prefill32(params, {"tokens": toks})
+    sync()
+    check(WK.wkv6_bhsn.launches == prefill_launches, "plain prefill launched")
+    check(tuple(logits_k.shape) == (LM_BATCH, 1, cfg.vocab_size), "prefill logits shape")
+    check(bool(torch.isfinite(logits_k).all()), "prefill logits not finite")
+    err14 = rel_err(logits_k, logits_p)
+    err14_state = {name: rel_err(cache_k[name], cache_p[name]) for name in cache_k}
+    check(err14 < 2e-4, f"prefill logits kernel vs plain: rel err {err14:.3e}")
+    check(max(err14_state.values()) < 2e-4, f"prefill state kernel vs plain: {err14_state}")
+    del logits_p, cache_p
+    print(f"phase 14 prefill {RWKV_ARCH} ({n_params / 1e9:.3f} B params, fp32) "
+          f"{LM_BATCH} x {LM_SEQ}: {ms_prefill32:.1f} ms, WKV6 launches "
+          f"{prefill_launches}; last logits vs the plain chunked form rel err "
+          f"{err14:.3e}, emitted state rel err " + ", ".join(
+              f"{k} {v:.3e}" for k, v in err14_state.items())
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -------------------------------------- 15. decode continuation (fp32)
+    t_phase = time.perf_counter()
+    decode32 = make_decode_step(cfg32)
+    cache = cache_k  # the recurrent state is the whole decode cache
+    tok = logits_k[:, -1].argmax(-1)
+    fed, dec = [], []
+    for i in range(LM_DECODE):
+        fed.append(tok)
+        lg, cache = decode32(params, cache, tok[:, None], LM_SEQ + i)
+        dec.append(lg[:, 0])
+        tok = lg[:, 0].argmax(-1)
+    del cache, cache_k
+    WK.reset_launches()  # the yardstick forward below is no part of the main path
+    full, _ = forward(cfg32, params, {"tokens": torch.cat([toks, torch.stack(fed, 1)
+                                                           .to(toks.dtype)], 1)})
+    err15 = rel_err(torch.stack(dec, 1), full[:, LM_SEQ:])
+    check(err15 < 2e-4, f"decode continuation vs forward: rel err {err15:.3e}")
+    del full
+    print(f"phase 15 continuation: {LM_DECODE} greedy decode_steps from the kernel "
+          f"prefill's state equal forward over {LM_SEQ + LM_DECODE} tokens, rel err "
+          f"{err15:.3e}; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ----------------------------------------------- 16. serving in bf16
+    t_phase = time.perf_counter()
+    WK.reset_launches()
+    steps, n_tok, serve_s = serve_requests(cfg, params)
+    rwkv_launches = prefill_launches + WK.wkv6_bhsn.launches
+    check(rwkv_launches > 0, "wkv6_bhsn was never launched on the main path")
+    print(f"phase 16 serving {RWKV_ARCH} in {cfg.dtype}: 8 requests / {n_tok} tokens in "
+          f"{steps} engine steps, {serve_s:.2f} s ({n_tok / serve_s:.1f} tokens/s; "
+          f"admission feeds prompts token by token through decode_step, which "
+          f"launches no WKV6 kernel); WKV6 launches on the main path (the phase-14 "
+          f"prefill and this phase): {rwkv_launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ------------------------------------- 17. timing at the prefill shapes
+    h, n = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
+    args = wkv_inputs(dev, LM_BATCH, LM_SEQ, h, n, None, "bfloat16", False, seed=17,
+                      omega=decay_base_omega(LM_BATCH, LM_SEQ, h, n, 18))
+    abs_err, err17 = against_plain(args, WKV_TOL["bfloat16"], "wkv at the prefill shapes")
+    max_err = max(max_err, abs_err)
+    ms_k = time_ms(lambda: WK.wkv6_bhsn(*args), 10)
+    ms_plain = time_ms(lambda: wkv_chunked_bhsn(*args), 3)
+    bh, seq = args[0].shape[:2]
+    # inputs read once (r, k, v in bf16, logw and u in fp32), outputs written
+    # once (out and the final state, fp32); the zero initial state is no input
+    n_bytes = (sum(x.numel() * x.element_size() for x in args[:5])
+               + bh * seq * n * 4 + bh * n * n * 4)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    # the chunked matrix form, per token and head: scores and intra-chunk
+    # products 2 x 2·C·N, inter-chunk output and state update 2 x 2·N·N
+    flop = bh * seq * 4 * n * (WKV_CHUNK + n)
+    ops_ms = flop / BF16_FLOP_PER_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    print(f"phase 17 timing (bf16 r/k/v, BH {bh}, S {seq}, N {n}, decay_base spread): "
+          f"WKV6 kernel {ms_k:.3f} ms ({n_bytes / ms_k / 1e6:.1f} GB/s), plain chunked "
+          f"form {ms_plain:.3f} ms; no single PyTorch call computes WKV6 (library_ms "
+          f"null); bound {bound:.4f} ms (bytes {bytes_ms:.4f} ms: {n_bytes / 1e6:.1f} MB "
+          f"at 3.35 TB/s; operations {ops_ms:.4f} ms: {flop:.3e} FLOP of the chunked "
+          f"matrix form at 989 TFLOP/s bf16); rel err vs plain {err17:.3e}", flush=True)
+    del args
+    prefill = make_prefill_step(cfg, logits_mode="last")
+    batch = {"tokens": toks}
+    _, cache_b = prefill(params, batch)
+    report_steps(17, params, batch, prefill, make_decode_step(cfg), cache_b)
+    return dict(
+        name="wkv6_bhsn", route="cuda",
+        source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+        replaces="src/repro/kernels/rwkv6/kernel.py:94",
+        launches=rwkv_launches, max_abs_err=max_err, ms=ms_k, plain_ms=ms_plain,
+        bound_ms=bound, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        library_ms=None,
     )
 
 
@@ -612,6 +892,7 @@ def main() -> int:
         random_trace,
     )
     from repro_torch.kernels.flash_attention import _build as flash_build
+    from repro_torch.kernels.rwkv6 import _build as wkv_build
     from repro_torch.lease_array import _build
     from repro_torch.lease_array import kernel as K
     from repro_torch.lease_array.netplane import init_netplane, pack_link
@@ -641,13 +922,15 @@ def main() -> int:
     # nvcc runs go together
     # and the flash-attention library beside them
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(BUILD_ACCEPTORS) + 1) as pool:
+    with ThreadPoolExecutor(len(BUILD_ACCEPTORS) + 2) as pool:
         flash_lib = pool.submit(flash_build.build)
+        wkv_lib = pool.submit(wkv_build.build)
         libs = list(pool.map(_build.build, BUILD_ACCEPTORS))
-        flash_lib = flash_lib.result()
+        flash_lib, wkv_lib = flash_lib.result(), wkv_lib.result()
     for a in BUILD_ACCEPTORS:
         _build.load(a)
     flash_build.load()
+    wkv_build.load()
     build_s = time.perf_counter() - t0
     print(f"phase 1 build: {build_s:.1f} s; " + "; ".join(
         f"{lib.name}: {ptxas_summary(lib.with_suffix('.log').read_text())}"
@@ -655,6 +938,9 @@ def main() -> int:
     print(f"phase 1 build: {flash_lib.name} (dynamic shared memory "
           f"{(3 * 128 + 64) * 64 * 4} B a block at Dh 128): " + ptxas_summary(
               flash_lib.with_suffix(".log").read_text(), flash_kind), flush=True)
+    print(f"phase 1 build: {wkv_lib.name} (dynamic shared memory "
+          f"{(3 * 32 * 64 + 5 * 32 * 32 + 64 + 32) * 4} B a block at N 64): " + ptxas_summary(
+              wkv_lib.with_suffix(".log").read_text(), wkv_kind), flush=True)
 
     # ------------------------------------- 2. kernel vs plain, small traces
     t_phase = time.perf_counter()
@@ -956,6 +1242,8 @@ def main() -> int:
     del att, rel, up, args, packed, st
     torch.cuda.empty_cache()
     kernels.append(lm_slice(dev))
+    torch.cuda.empty_cache()  # the internlm weights are gone; rwkv6-3b's take 12.4 GB
+    kernels.append(rwkv_slice(dev))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

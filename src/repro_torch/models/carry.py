@@ -47,9 +47,13 @@ def params_from_reference(cfg: ModelConfig, tree: dict, *, device="cuda") -> dic
 
 
 def cache_from_reference(cfg: ModelConfig, cache: dict, *, device="cuda") -> dict:
-    """The reference's decode cache (numpy arrays) as the port's."""
+    """The reference's decode cache (numpy arrays) as the port's. The batch
+    size is any leaf's second axis; the K/V ring's length is that of
+    ``slot_pos`` (rwkv6's recurrent cache has no ring)."""
     dev = resolve_device(device)
-    spec = cache_spec(cfg, *np.shape(cache["slot_pos"])[1:])
+    batch = np.shape(next(iter(cache.values())))[1]
+    ring = np.shape(cache["slot_pos"])[2] if "slot_pos" in cache else 0
+    spec = cache_spec(cfg, batch, ring)
     if set(cache) != set(spec):
         raise ValueError(f"cache keys {sorted(cache)}, want {sorted(spec)}")
     out = {}

@@ -24,7 +24,7 @@ import torch
 class P:
     shape: tuple
     axes: tuple  # logical axis names (or None), len == len(shape)
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | decay_base
     scale: Optional[float] = None  # stddev override; default fan-in scaled
 
     def __post_init__(self):
@@ -63,6 +63,10 @@ def _init_leaf(gen: torch.Generator, p: P, dtype, device) -> torch.Tensor:
         return torch.zeros(p.shape, dtype=dtype, device=device)
     if p.init == "ones":
         return torch.ones(p.shape, dtype=dtype, device=device)
+    if p.init == "decay_base":
+        # rwkv base decay omega_0: spread over [-6, 1] across channels
+        r = torch.linspace(0.0, 1.0, p.shape[-1], dtype=torch.float32, device=device)
+        return (-6.0 + 7.0 * r**1.5).expand(p.shape).to(dtype).contiguous()
     if p.init != "normal":
         raise NotImplementedError(f"init kind {p.init!r} (its family is not ported)")
     scale = p.scale if p.scale is not None else 1.0 / math.sqrt(_fan_in(p.shape))

@@ -1,20 +1,23 @@
-"""Model assembly for the dense family: schema, forward (prefill), decode step.
+"""Model assembly: schema, forward (prefill), decode step.
 
 The port of ``repro.models.transformer`` for dense GQA language models
-(internlm2, granite, qwen1.5, starcoder2 and the lm* example configs). The
-other families raise ``NotImplementedError`` (``ROADMAP.md``, queue 1).
+(internlm2, granite, qwen1.5, starcoder2 and the lm* example configs) and
+the attention-free family (rwkv6). The other families raise
+``NotImplementedError`` (``ROADMAP.md``, queue 1).
 
 Parameters are the nested dicts of ``schema.init_params`` with the
 reference's keys and stacked ``[L, ...]`` layer leaves, in fp32. Layers run
 as a Python loop; each layer's master weights are cast to ``cfg.dtype`` as
 it runs, as ``repro``'s ``cast_tree`` does inside its layer scan.
 Sequence-mode attention (``forward``, prefill) goes through the flash
-kernel; decode attention against the cache is plain PyTorch.
+kernel, and rwkv6's sequence-mode recurrence through the WKV6 kernel;
+decode, against the cache, is plain PyTorch.
 
 Differences from the reference's API: ``forward`` returns
-``(logits, cache)`` (the dense family has no auxiliary loss), and
-``decode_step`` writes the new token's K/V into ``cache`` in place and
-returns that same dict (no copy of the cache per token).
+``(logits, cache)`` (these families have no auxiliary loss), and
+``decode_step`` updates ``cache`` in place (the new token's K/V, or the
+recurrent ``wkv``/``tm_prev``/``cm_prev`` leaves) and returns that same dict
+(no copy of the cache per token).
 """
 from __future__ import annotations
 
@@ -23,12 +26,16 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels.flash_attention.ops import flash_attention
+from . import rwkv6
 from .attention import attn_schema, out_project, qkv_project
 from .layers import apply_mlp, apply_norm, mlp_schema, norm_schema, sinusoidal_positions
 from .schema import P, Schema, init_params, stacked
 
 #: ModelConfig fields that select a family the port does not run yet
-UNPORTED = ("moe", "attention_free", "hybrid_parallel_ssm", "enc_dec", "frontend")
+UNPORTED = ("moe", "hybrid_parallel_ssm", "enc_dec", "frontend")
+#: decode-cache leaves that a step overwrites whole (rwkv6's recurrent state),
+#: unlike the K/V ring, where a step writes one slot
+RECURRENT = ("wkv", "tm_prev", "cm_prev")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -36,7 +43,7 @@ def check_family(cfg: ModelConfig) -> None:
     if found:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(found)} is not ported to repro_torch yet "
-            f"(the dense family is; see ROADMAP.md, queue 1)"
+            f"(the dense and attention-free families are; see ROADMAP.md, queue 1)"
         )
 
 
@@ -64,6 +71,8 @@ def layer_params(params: dict, layer: int, dtype: torch.dtype) -> dict:
 # ---------------------------------------------------------------------------
 def block_schema(cfg: ModelConfig) -> Schema:
     check_family(cfg)
+    if cfg.attention_free:
+        return {**rwkv6.rwkv_schema(cfg), "norm1": norm_schema(cfg), "norm2": norm_schema(cfg)}
     return {"norm1": norm_schema(cfg), "attn": attn_schema(cfg),
             "norm2": norm_schema(cfg), "mlp": mlp_schema(cfg)}
 
@@ -94,6 +103,10 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """Shapes/dtypes of the decode cache (leading ``layers`` axis on leaves)."""
     check_family(cfg)
     L = cfg.n_layers
+    if cfg.attention_free:
+        h, n = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
+        prev = ((L, batch, cfg.d_model), torch_dtype(cfg.dtype))
+        return {"wkv": ((L, batch, h, n, n), torch.float32), "tm_prev": prev, "cm_prev": prev}
     sc = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     kv = ((L, batch, sc, cfg.n_kv_heads, cfg.head_dim), torch_dtype(cfg.dtype))
     return {"k": kv, "v": kv,
@@ -149,17 +162,39 @@ def _cache_attention(q, kc, vc, slot_pos, pos, window):
 
 
 def block_seq(cfg: ModelConfig, p, x, positions, *, causal=True, emit_cache=False):
-    """One decoder block over a full sequence. Returns (x, (k, v) or None)."""
+    """One decoder block over a full sequence. Returns (x, this layer's cache
+    leaves or None): {"k", "v"} for attention, {"wkv", "tm_prev", "cm_prev"}
+    for rwkv6."""
+    if cfg.attention_free:
+        b = x.shape[0]
+        h, n = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
+        pv0 = x.new_zeros((b, cfg.d_model))
+        st0 = torch.zeros((b, h, n, n), dtype=torch.float32, device=x.device)
+        y, tm_prev, wkv = rwkv6.apply_time_mix(cfg, p["tm"], apply_norm(cfg, p["norm1"], x),
+                                               pv0, st0)
+        x = x + y
+        y, cm_prev = rwkv6.apply_channel_mix(cfg, p["cm"], apply_norm(cfg, p["norm2"], x), pv0)
+        emit = {"wkv": wkv, "tm_prev": tm_prev, "cm_prev": cm_prev}
+        return x + y, (emit if emit_cache else None)
     h = apply_norm(cfg, p["norm1"], x)
-    a, kv = _attn_seq(cfg, p["attn"], h, positions, causal=causal)
+    a, (k, v) = _attn_seq(cfg, p["attn"], h, positions, causal=causal)
     x = x + a
     x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
-    return x, (kv if emit_cache else None)
+    return x, ({"k": k, "v": v} if emit_cache else None)
 
 
 def block_step(cfg: ModelConfig, p, x, pos, cache_l) -> torch.Tensor:
     """One decoder block for a single decode step; ``cache_l`` (this layer's
-    k, v, slot_pos views) is updated in place."""
+    views of the cache leaves) is updated in place."""
+    if cfg.attention_free:
+        y, tm_prev, wkv = rwkv6.apply_time_mix_step(
+            cfg, p["tm"], apply_norm(cfg, p["norm1"], x), cache_l["tm_prev"], cache_l["wkv"])
+        x = x + y
+        y, cm_prev = rwkv6.apply_channel_mix_step(
+            cfg, p["cm"], apply_norm(cfg, p["norm2"], x), cache_l["cm_prev"])
+        for name, new in zip(RECURRENT, (wkv, tm_prev, cm_prev)):
+            cache_l[name].copy_(new)
+        return x + y
     h = apply_norm(cfg, p["norm1"], x)
     x = x + _attn_step(cfg, p["attn"], h, pos, cache_l["k"], cache_l["v"],
                        cache_l["slot_pos"], window=cfg.sliding_window)
@@ -193,23 +228,27 @@ def forward(cfg: ModelConfig, params, batch: dict, *, emit_cache: bool = False,
     positions = torch.arange(h.shape[1], device=h.device)
     emits = []
     for layer in range(cfg.n_layers):
-        h, kv = block_seq(cfg, layer_params(params, layer, dtype), h, positions,
-                          causal=True, emit_cache=emit_cache)
-        emits.append(kv)
+        h, emit = block_seq(cfg, layer_params(params, layer, dtype), h, positions,
+                            causal=True, emit_cache=emit_cache)
+        emits.append(emit)
     h = apply_norm(cfg, params["final_norm"], h)
     if logits_mode == "last":
         h = h[:, -1:, :]
     logits = _unembed(cfg, params, h)
     cache = None
     if emit_cache:
-        k = torch.stack([kv[0] for kv in emits])
-        v = torch.stack([kv[1] for kv in emits])
-        cache = _assemble_cache(cfg, k, v)
+        cache = _assemble_cache(cfg, {name: torch.stack([e[name] for e in emits])
+                                      for name in emits[0]})
     return logits, cache
 
 
-def _assemble_cache(cfg: ModelConfig, k, v) -> dict:
-    """Per-layer (L, B, S, Hkv, Dh) keys/values -> the decode cache layout."""
+def _assemble_cache(cfg: ModelConfig, emits: dict) -> dict:
+    """Per-layer leaves stacked on a leading layer axis -> the decode cache
+    layout: rwkv6's recurrent state as it is; keys/values (L, B, S, Hkv, Dh)
+    with their ring positions."""
+    if cfg.attention_free:
+        return emits
+    k, v = emits["k"], emits["v"]
     L, b, seq_len = k.shape[:3]
     sc = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
     if sc < seq_len:  # keep the last `window` keys, slot = pos % sc
@@ -231,7 +270,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens, pos):
     check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
     b = tokens.shape[0]
-    dev = cache["k"].device
+    dev = next(iter(cache.values())).device
     pos = torch.as_tensor(pos, device=dev).to(torch.int32).expand(b).contiguous()
     h = _embed_tokens(cfg, params, tokens.to(dev))
     if not cfg.use_rope:
@@ -239,7 +278,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens, pos):
                           for o in pos])
         h = h + pe.to(h.dtype)
     for layer in range(cfg.n_layers):
-        cache_l = {name: cache[name][layer] for name in ("k", "v", "slot_pos")}
+        cache_l = {name: leaf[layer] for name, leaf in cache.items()}
         h = block_step(cfg, layer_params(params, layer, dtype), h, pos, cache_l)
     h = apply_norm(cfg, params["final_norm"], h)
     return _unembed(cfg, params, h), cache

@@ -31,7 +31,9 @@ def test_package_has_the_slice_modules():
                  "models.transformer", "models.carry", "kernels",
                  "kernels.flash_attention", "kernels.flash_attention.ref",
                  "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
-                 "kernels.flash_attention._build", "launch", "launch.steps",
+                 "kernels.flash_attention._build", "models.rwkv6", "kernels.rwkv6",
+                 "kernels.rwkv6.ref", "kernels.rwkv6.kernel", "kernels.rwkv6.ops",
+                 "kernels.rwkv6._build", "launch", "launch.steps",
                  "launch.serve", "train", "train.serve"):
         assert f"repro_torch.{name}" in MODULES
 

@@ -1,4 +1,5 @@
-"""The port's dense language model against ``repro``'s, on the CPU.
+"""The port's language models (the dense family and rwkv6) against
+``repro``'s, on the CPU.
 
 Weights are made by the reference's ``init_model`` and carried across with
 ``models.carry.params_from_reference``; tokens come from numpy. Everything
@@ -31,8 +32,10 @@ CFG = configs.reduced(configs.get_config("internlm2-1.8b"), dtype="float32")
 REF_CFG = ref_configs.reduced(ref_configs.get_config("internlm2-1.8b"), dtype="float32")
 SWA = dataclasses.replace(CFG, sliding_window=8)
 REF_SWA = dataclasses.replace(REF_CFG, sliding_window=8)
-DENSE = [n for n in configs.REGISTRY if not any(
+PORTED = [n for n in configs.REGISTRY if not any(
     getattr(configs.get_config(n), f) for f in transformer.UNPORTED)]
+RWKV = configs.reduced(configs.get_config("rwkv6-3b"), dtype="float32")
+REF_RWKV = ref_configs.reduced(ref_configs.get_config("rwkv6-3b"), dtype="float32")
 
 
 def rel_err(got, want) -> float:
@@ -68,7 +71,7 @@ def test_configs_are_the_references(name):
         k: dataclasses.asdict(v) for k, v in ref_configs.SHAPES.items()}
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_dense_schemas_count_the_references_parameters(name):
     cfg = configs.get_config(name)
     ours = dict(schema.leaf_paths(transformer.model_schema(cfg)))
@@ -79,7 +82,7 @@ def test_dense_schemas_count_the_references_parameters(name):
         ref_transformer.model_schema(ref_configs.get_config(name)))
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x22b", "rwkv6-3b", "hymba-1.5b",
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "kimi-k2-1t-a32b", "hymba-1.5b",
                                   "whisper-large-v3", "internvl2-2b"])
 def test_other_families_raise(name):
     cfg = configs.reduced(configs.get_config(name))
@@ -267,3 +270,81 @@ def test_cache_round_trips_through_numpy(ref_params):
         assert np.array_equal(back[name], ref_cache[name])
     with pytest.raises(ValueError, match="keys"):
         carry.params_from_reference(CFG, {"embed": ref_params["embed"]}, device="cpu")
+
+
+# ------------------------------------------------------------------ rwkv6
+@pytest.fixture(scope="module")
+def rwkv_ref_params():
+    """The reference's reduced rwkv6-3b weights, with the token-shift mixes
+    and the bonus u (which its schema starts at zero) drawn from numpy so
+    that every path of the block carries weight."""
+    tree = to_np(ref_init_model(REF_RWKV, jax.random.PRNGKey(5)))
+    rng = np.random.default_rng(5)
+    layers_ = tree["layers"]
+    for part in ("tm", "cm"):
+        layers_[part]["mu"] = rng.uniform(0, 1, layers_[part]["mu"].shape).astype(np.float32)
+    layers_["tm"]["u"] = (rng.standard_normal(layers_["tm"]["u"].shape) * 0.3).astype(np.float32)
+    return tree
+
+
+def test_rwkv_init_matches_the_references_deterministic_leaves():
+    """decay_base, zeros and ones leaves are the reference's (decay_base to
+    float rounding: the two linspaces round differently); the random leaves
+    have its shapes."""
+    ours = dict(schema.leaf_paths(init_model(RWKV, 0, device="cpu")))
+    theirs = dict(schema.leaf_paths(to_np(ref_init_model(REF_RWKV, jax.random.PRNGKey(0)))))
+    assert {k: tuple(v.shape) for k, v in ours.items()} == {
+        k: v.shape for k, v in theirs.items()}
+    for path in (("layers", "tm", "w0"), ("layers", "tm", "u"), ("layers", "tm", "mu"),
+                 ("layers", "tm", "ln"), ("layers", "norm1", "scale")):
+        assert np.abs(ours[path].numpy() - theirs[path]).max() < 1e-5, path
+
+
+@pytest.mark.parametrize("seq", [12, 40])  # one chunk, and a ragged second chunk
+def test_rwkv_forward_logits_and_cache_match(rwkv_ref_params, seq):
+    toks = tokens(2, seq, seed=seq)
+    want, want_cache, _ = ref_forward(REF_RWKV, rwkv_ref_params,
+                                      {"tokens": jnp.asarray(toks)}, emit_cache=True)
+    got, got_cache = forward(RWKV, port_params(RWKV, rwkv_ref_params),
+                             {"tokens": torch.from_numpy(toks)}, emit_cache=True)
+    assert got.shape == (2, seq, RWKV.vocab_size)
+    assert rel_err(got, want) < 2e-4
+    got_cache = carry.cache_to_arrays(got_cache)
+    assert sorted(got_cache) == sorted(want_cache) == ["cm_prev", "tm_prev", "wkv"]
+    for name in got_cache:
+        assert got_cache[name].shape == want_cache[name].shape
+        assert rel_err(got_cache[name], want_cache[name]) < 2e-4
+
+
+def test_rwkv_decode_matches_reference(rwkv_ref_params):
+    """12 decode steps: logits against repro's decode_step and against
+    forward over the same tokens, and the final recurrent state."""
+    toks = tokens(2, 12, seed=11)
+    want, got, ref_cache, cache = _decode_both(RWKV, REF_RWKV, rwkv_ref_params, toks)
+    assert rel_err(got, want) < 2e-4
+    full, pre = forward(RWKV, port_params(RWKV, rwkv_ref_params),
+                        {"tokens": torch.from_numpy(toks)}, emit_cache=True)
+    assert rel_err(got, full) < 2e-4
+    ours = carry.cache_to_arrays(cache)
+    for name in ref_cache:
+        assert rel_err(ours[name], ref_cache[name]) < 2e-4
+        assert rel_err(ours[name], carry.cache_to_arrays(pre)[name]) < 2e-4
+
+
+def test_rwkv_cache_round_trips_and_hands_off_to_decode(rwkv_ref_params):
+    """The reference's prefill cache carried into the port and back is
+    unchanged; decoding on from it gives the reference's next logits."""
+    toks = tokens(2, 10, seed=13)
+    _, ref_cache, _ = ref_forward(REF_RWKV, rwkv_ref_params, {"tokens": jnp.asarray(toks)},
+                                  emit_cache=True)
+    ref_cache = to_np(ref_cache)
+    cache = carry.cache_from_reference(RWKV, ref_cache, device="cpu")
+    back = carry.cache_to_arrays(cache)
+    for name in ref_cache:
+        assert np.array_equal(back[name], ref_cache[name])
+    nxt = tokens(2, 1, seed=14)
+    want, _ = ref_decode_step(REF_RWKV, rwkv_ref_params, ref_cache, jnp.asarray(nxt),
+                              jnp.int32(10))
+    got, _ = decode_step(RWKV, port_params(RWKV, rwkv_ref_params), cache,
+                         torch.from_numpy(nxt), 10)
+    assert rel_err(got, want) < 2e-4

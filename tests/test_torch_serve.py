@@ -18,7 +18,7 @@ from repro.train.serve import ServeEngine as RefServeEngine
 from repro_torch import configs
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.steps import make_decode_step
-from repro_torch.models import carry, init_cache
+from repro_torch.models import carry, init_cache, init_model
 from repro_torch.train.serve import Request, ServeEngine
 
 CFG = configs.reduced(configs.get_config("internlm2-1.8b"), dtype="float32")
@@ -85,6 +85,53 @@ def test_decode_step_writes_the_cache_in_place(weights):
 
 def test_launcher_serves_on_the_cpu(capsys):
     out = launch_serve.main(["--arch", "internlm2-1.8b", "--reduced", "--requests", "3",
+                             "--slots", "2", "--max-new", "4", "--device", "cpu"])
+    assert out["requests"] == 3 and out["tokens"] == 12
+    assert "served 3 requests / 12 tokens" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------------ rwkv6
+RWKV = configs.reduced(configs.get_config("rwkv6-3b"), dtype="float32", vocab_size=128)
+REF_RWKV = ref_configs.reduced(ref_configs.get_config("rwkv6-3b"), dtype="float32",
+                               vocab_size=128)
+
+
+@pytest.fixture(scope="module")
+def rwkv_weights():
+    """The port's seeded init as numpy arrays, for both engines: the
+    reference's init seeds each leaf from the per-process string hash, and
+    some of its draws make every request emit the same token, which would
+    hide a leak. The token-shift mixes and the bonus, zero in the schema,
+    are drawn from numpy."""
+    tree = jax.tree.map(lambda t: t.numpy(), init_model(RWKV, 0, device="cpu"))
+    rng = np.random.default_rng(0)
+    for part in ("tm", "cm"):
+        mu = tree["layers"][part]["mu"]
+        tree["layers"][part]["mu"] = rng.uniform(0, 1, mu.shape).astype(np.float32)
+    u = tree["layers"]["tm"]["u"]
+    tree["layers"]["tm"]["u"] = (rng.standard_normal(u.shape) * 0.3).astype(np.float32)
+    return tree, carry.params_from_reference(RWKV, tree, device="cpu")
+
+
+def test_rwkv_requests_keep_their_own_state(rwkv_weights):
+    """Every request served by a 4-slot port engine (prompts admitted while
+    other lanes decode, slots reused) gets the greedy tokens the reference
+    engine gives it alone in one slot: no lane's recurrent state moves while
+    another lane is fed, and a slot starts each request from zero state."""
+    tree, params = rwkv_weights
+    rng = np.random.default_rng(3)
+    ps = [rng.integers(0, RWKV.vocab_size, int(rng.integers(2, 8))).astype(np.int32)
+          for _ in range(6)]
+    got, _ = serve(ServeEngine(RWKV, params, slots=4, max_len=64), Request, ps, 6)
+    alone = {rid: serve(RefServeEngine(REF_RWKV, tree, slots=1, max_len=64), RefRequest,
+                        [p], 6)[0][0] for rid, p in enumerate(ps)}
+    assert sorted(got) == list(range(6))
+    assert got == alone
+    assert len({tuple(t) for t in got.values()}) > 1  # the requests' tokens differ
+
+
+def test_launcher_serves_rwkv_on_the_cpu(capsys):
+    out = launch_serve.main(["--arch", "rwkv6-3b", "--reduced", "--requests", "3",
                              "--slots", "2", "--max-new", "4", "--device", "cpu"])
     assert out["requests"] == 3 and out["tokens"] == 12
     assert "served 3 requests / 12 tokens" in capsys.readouterr().out
