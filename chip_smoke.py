@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on an NVIDIA card and check it: the
 lease plane (phases 1-7), internlm2-1.8b prefill and serving through the
-flash-attention kernel (phases 8-12), and rwkv6-3b prefill and serving
+flash-attention kernels (phases 8-12), and rwkv6-3b prefill and serving
 through the WKV6 kernel (phases 13-17).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
@@ -10,7 +10,7 @@ without them, and on any failed check.
 
 Phases (one line each):
   1. build the lease kernels from ``src/repro_torch/lease_array/csrc``, the
-     flash-attention kernel from
+     flash-attention kernels from
      ``src/repro_torch/kernels/flash_attention/csrc`` and the WKV6 kernel
      from ``src/repro_torch/kernels/rwkv6/csrc``, all nvcc runs at once;
   2. hold both kernels bit-exact against their plain PyTorch versions on
@@ -31,8 +31,10 @@ Phases (one line each):
      call must move over the memory rate and the arithmetic instructions
      the compiled tick loop must issue (read from the built library with
      ``cuobjdump -sass``) over their pipes' rates.
-  8. the flash kernel against its plain version on the reference's seven
-     cases plus ragged, windowed and cross-attention lengths;
+  8. the flash kernels against their plain version on the reference's
+     seven cases plus ragged, windowed and cross-attention lengths, and
+     bf16 cases through the tensor-core kernel at Dh 64, 112 and 128
+     (windowed, ragged, a fully masked first live tile);
   9. internlm2-1.8b at full width, random weights from a seed: a 4 x 2048
      fp32 prefill through the kernel (24 launches) against the same prefill
      with plain attention on the card, last logits to a relative error
@@ -40,10 +42,13 @@ Phases (one line each):
  10. 16 greedy ``decode_step`` tokens after that prefill against
      ``forward`` over all 2064 tokens, relative error below 2e-4;
  11. ``ServeEngine`` in bf16: 8 requests on 4 slots, 16 new tokens each;
- 12. the flash kernel's, the plain version's and
-     ``scaled_dot_product_attention``'s times at the prefill shapes in bf16
-     and the bound (the larger of the causal FLOPs over the bf16 peak and
-     the bytes over the memory rate); bf16 prefill and decode step times.
+ 12. a 4 x 2048 bf16 prefill through the tensor-core kernel (24 launches)
+     against the same prefill with plain attention, last logits to a
+     relative error below 5e-2; then, for each flash kernel (bf16 tensor
+     cores, fp32 CUDA cores), its, the plain version's and
+     ``scaled_dot_product_attention``'s times at the prefill shapes and the
+     bound (the larger of the causal FLOPs over the dtype's peak and the
+     bytes over the memory rate); bf16 prefill and decode step times.
  13. the WKV6 kernel against its plain chunked form on the reference's
      five cases, ragged lengths from nonzero states (final states
      compared), 128 tokens against two calls of 64 with the state carried,
@@ -60,9 +65,10 @@ Phases (one line each):
      rate and the chunked matrix form's FLOPs over the bf16 peak); bf16
      prefill and decode step times.
 The line before the last holds every kernel's launches on its main path
-(phases 3-6; the phase-9 prefill and phase-11 serving; the phase-14
-prefill and phase-16 serving), time, plain time, bound and library time as
-JSON;
+(phases 3-6; the phase-12 bf16 prefill for the tensor-core flash kernel,
+the phase-9 prefill and phase-11 serving for the CUDA-core one; the
+phase-14 prefill and phase-16 serving), time, plain time, bound and
+library time as JSON;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -243,9 +249,22 @@ def lease_kind(entry: str) -> str:
 
 
 def flash_kind(entry: str) -> str:
-    """'fp32/Dh128' for the instantiation named in a ptxas entry line."""
-    m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", entry)
-    return f"{'fp32' if m[1] == 'f' else 'bf16'}/Dh{16 * int(m[2])}"
+    """'fp32/Dh128' (the CUDA-core kernel) or 'bf16-wgmma/Dh<=128' (the
+    tensor-core kernel, per padded width) for the instantiation named in a
+    ptxas entry line."""
+    if m := re.search(r"flash_wgmma_kernelILi(\d+)E", entry):
+        return f"bf16-wgmma/Dh<={m[1]}"
+    m = re.search(r"flash_fwd_kernelILi(\d+)E", entry)
+    return f"fp32/Dh{16 * int(m[1])}"
+
+
+def wgmma_smem_bytes(dh_padded: int) -> int:
+    """Dynamic shared memory of a tensor-core flash block
+    (``Smem<DHP>::BYTES`` of ``csrc/flash_attention_wgmma.cu``): the 128-row
+    Q tile and two stages of 128-row K and V tiles, in 64-column panels of
+    128 bytes a row, the mbarriers and 1024 bytes of alignment slack."""
+    panel, stages = 128 * 128, 2
+    return dh_padded // 64 * panel * (1 + 2 * stages) + 8 * (1 + 2 * stages) + 1024
 
 
 def ptxas_summary(log: str, kind_of=lease_kind) -> str:
@@ -346,10 +365,14 @@ def host_ms(fn, reps: int = 1) -> float:
 #: the LM slice: internlm2-1.8b at its published widths (configs/archs.py)
 LM_ARCH = "internlm2-1.8b"
 LM_BATCH, LM_SEQ, LM_DECODE = 4, 2048, 16  # prefill_32k's 32 x 32768, cut to size
-#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+#: H100 SXM dense bf16 tensor-core peak and fp32 peak outside the tensor
+#: cores (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12
-#: the kernel against its plain version: tests/test_kernels_flash.py's
-#: seven cases, then lengths no multiple of the 64-row tile
+FP32_FLOP_PER_S = 67e12
+#: the kernels against their plain version: tests/test_kernels_flash.py's
+#: seven cases, then lengths no multiple of the tiles, then bf16 (the
+#: tensor-core kernel) at widths 64, 112 and 128, windowed and ragged (the
+#: 512-row windowed cases have rows whose first live tile is fully masked)
 #: (b, sq, sk, hq, hkv, dh, causal, window, dtype)
 FLASH_CASES = [
     (2, 256, 256, 4, 2, 64, True, None, "float32"),
@@ -364,6 +387,13 @@ FLASH_CASES = [
     (1, 1000, 1000, 16, 8, 128, True, None, "bfloat16"),
     (2, 300, 300, 16, 8, 128, True, 100, "float32"),
     (1, 77, 200, 4, 4, 16, False, None, "float32"),
+    (2, 300, 300, 16, 8, 128, True, 100, "bfloat16"),
+    (1, 512, 512, 16, 8, 128, True, 100, "bfloat16"),
+    (1, 1000, 1000, 16, 8, 112, True, None, "bfloat16"),
+    (1, 150, 130, 2, 1, 112, True, 40, "bfloat16"),
+    (2, 300, 300, 4, 1, 64, True, 96, "bfloat16"),
+    (1, 512, 512, 4, 2, 64, True, 100, "bfloat16"),
+    (1, 77, 200, 4, 4, 64, False, None, "bfloat16"),
 ]
 FLASH_TOL = {"float32": 5e-5, "bfloat16": 2.5e-2}  # test_kernels_flash.py:42
 
@@ -477,9 +507,11 @@ def continue_cache(cfg, cache, new_len: int):
     return out
 
 
-def lm_slice(dev) -> dict:
+def lm_slice(dev) -> list:
     """Phases 8-12: the internlm2-1.8b prefill and serve path through the
-    flash kernel, at full width. Returns the kernel's JSON entry."""
+    flash kernels, at full width. Returns the kernels' JSON entries: the
+    tensor-core kernel (bf16; its main path the phase-12 bf16 prefill) and
+    the CUDA-core kernel (fp32; the phase-9 prefill and phase-11 serving)."""
     import dataclasses
 
     import numpy as np
@@ -497,7 +529,7 @@ def lm_slice(dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     sync = torch.cuda.synchronize
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    max_err = 0.0
+    f32, bf16 = FK.KERNELS[torch.float32], FK.KERNELS[torch.bfloat16]
 
     # ------------------------------------- 8. flash kernel vs plain, cases
     t_phase = time.perf_counter()
@@ -513,9 +545,10 @@ def lm_slice(dev) -> dict:
         check(got.shape == q.shape and got.dtype == q.dtype, f"flash case {n}: shape/dtype")
         check(err < FLASH_TOL[dtn], f"flash case {n} {FLASH_CASES[n]}: max |err| {err:.3e}")
         worst[dtn] = max(worst.get(dtn, 0.0), err)
-        max_err = max(max_err, err)
-    print(f"phase 8 flash kernel vs plain: {len(FLASH_CASES)} cases (the reference's "
-          f"7, ragged 300/1000, windowed, ragged cross) within 5e-5 fp32 / 2.5e-2 bf16; "
+    n_bf16 = sum(c[-1] == "bfloat16" for c in FLASH_CASES)
+    print(f"phase 8 flash kernels vs plain: {len(FLASH_CASES)} cases (the reference's "
+          f"7, ragged 300/1000, windowed, ragged cross; {n_bf16} bf16 through the "
+          f"tensor-core kernel at Dh 64/112/128) within 5e-5 fp32 / 2.5e-2 bf16; "
           f"max |err| fp32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
@@ -534,9 +567,10 @@ def lm_slice(dev) -> dict:
     logits_k, cache_k = prefill32(params, {"tokens": toks})
     sync()
     ms_prefill32 = (time.perf_counter() - t0) * 1e3
-    prefill_launches = FK.flash_attention_bhsd.launches
-    check(prefill_launches == cfg.n_layers,
-          f"prefill launched the flash kernel {prefill_launches} times, not {cfg.n_layers}")
+    prefill_launches = FK.flash_attention_bhsd.launches_by_kernel[f32]
+    check(prefill_launches == FK.flash_attention_bhsd.launches == cfg.n_layers,
+          f"prefill launched the fp32 flash kernel {prefill_launches} times, not "
+          f"{cfg.n_layers}")
     with PlainAttention():
         logits_p, cache_p = prefill32(params, {"tokens": toks})
     sync()
@@ -581,53 +615,92 @@ def lm_slice(dev) -> dict:
     t_phase = time.perf_counter()
     FK.reset_launches()
     steps, n_tok, serve_s = serve_requests(cfg, params)
-    lm_launches = prefill_launches + FK.flash_attention_bhsd.launches
-    check(lm_launches > 0, "flash_attention_bhsd was never launched on the main path")
+    lm_launches = prefill_launches + FK.flash_attention_bhsd.launches_by_kernel[f32]
+    check(lm_launches > 0, "the fp32 flash kernel was never launched on the main path")
     print(f"phase 11 serving {LM_ARCH} in {cfg.dtype}: 8 requests / {n_tok} tokens in "
           f"{steps} engine steps, {serve_s:.2f} s ({n_tok / serve_s:.1f} tokens/s; "
           f"admission feeds prompts token by token through decode_step, which "
-          f"launches no flash kernel); flash launches on the main path (the "
+          f"launches no flash kernel); fp32 flash launches on its main path (the "
           f"phase-9 prefill and this phase): {lm_launches}; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # ------------------------------------- 12. timing at the prefill shapes
-    bhq, bhkv, dh = LM_BATCH * cfg.n_heads, LM_BATCH * cfg.n_kv_heads, cfg.head_dim
-    g = torch.Generator(device=dev).manual_seed(13)
-    q = torch.randn(bhq, LM_SEQ, dh, generator=g, device=dev).to(torch.bfloat16)
-    k = torch.randn(bhkv, LM_SEQ, dh, generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn(bhkv, LM_SEQ, dh, generator=g, device=dev).to(torch.bfloat16)
-    err12 = float((FK.flash_attention_bhsd(q, k, v, causal=True).float()
-                   - attention_ref(q, k, v, causal=True).float()).abs().max())
-    check(err12 < FLASH_TOL["bfloat16"], f"flash at the prefill shapes: max |err| {err12:.3e}")
-    max_err = max(max_err, err12)
-    ms_k = time_ms(lambda: FK.flash_attention_bhsd(q, k, v, causal=True), 10)
-    ms_plain = time_ms(lambda: attention_ref(q, k, v, causal=True), 3)
-    q4, k4, v4 = (x.view(LM_BATCH, -1, LM_SEQ, dh) for x in (q, k, v))
-    ms_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True), 10)
-    pairs = bhq * LM_SEQ * (LM_SEQ + 1) // 2  # live causal (q, k) pairs
-    ops_ms = 4 * dh * pairs / BF16_FLOP_PER_S * 1e3
-    bytes_ms = (2 * q.numel() + k.numel() + v.numel()) * 2 / HBM_BYTES_PER_S * 1e3
-    bound = max(ops_ms, bytes_ms)
+    # ------------- 12. bf16 prefill through the tensor-core kernel; timing
+    t_phase = time.perf_counter()
     prefill = make_prefill_step(cfg, logits_mode="last")
     batch = {"tokens": toks}
-    _, cache_b = prefill(params, batch)
+    FK.reset_launches()  # the bf16 kernel's main path: this prefill
+    logits_b, cache_b = prefill(params, batch)
+    sync()
+    bf16_launches = FK.flash_attention_bhsd.launches_by_kernel[bf16]
+    check(bf16_launches == FK.flash_attention_bhsd.launches == cfg.n_layers,
+          f"bf16 prefill launched the tensor-core kernel {bf16_launches} times, not "
+          f"{cfg.n_layers}")
+    with PlainAttention():
+        logits_bp, _ = prefill(params, batch)
+    sync()
+    check(bool(torch.isfinite(logits_b).all()), "bf16 prefill logits not finite")
+    err12_logits = rel_err(logits_b, logits_bp)
+    # bf16 keeps 8 mantissa bits (3.9e-3 a rounding), over 24 layers of a
+    # bf16 residual stream: a lost tile or mask shows far above this
+    check(err12_logits < 5e-2,
+          f"bf16 prefill logits kernel vs plain: rel err {err12_logits:.3e}")
+    del logits_bp
+    print(f"phase 12 bf16 prefill {LM_BATCH} x {LM_SEQ}: tensor-core flash launches "
+          f"{bf16_launches}; last logits vs plain attention rel err {err12_logits:.3e} "
+          f"(limit 5e-2)", flush=True)
+
+    bhq, bhkv, dh = LM_BATCH * cfg.n_heads, LM_BATCH * cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(13)
+    q = torch.randn(bhq, LM_SEQ, dh, generator=g, device=dev)
+    k = torch.randn(bhkv, LM_SEQ, dh, generator=g, device=dev)
+    v = torch.randn(bhkv, LM_SEQ, dh, generator=g, device=dev)
+    pairs = bhq * LM_SEQ * (LM_SEQ + 1) // 2  # live causal (q, k) pairs
+    flop = 4 * dh * pairs
+    rows = []
+    for dtn, entry, peak, peak_name, launches in (
+            ("bfloat16", bf16, BF16_FLOP_PER_S, "989 TFLOP/s bf16 tensor cores", bf16_launches),
+            ("float32", f32, FP32_FLOP_PER_S, "67 TFLOP/s fp32 CUDA cores", lm_launches)):
+        qx, kx, vx = (x.to(dt[dtn]) for x in (q, k, v))
+        err = float((FK.flash_attention_bhsd(qx, kx, vx, causal=True).float()
+                     - attention_ref(qx, kx, vx, causal=True).float()).abs().max())
+        check(err < FLASH_TOL[dtn], f"{dtn} flash at the prefill shapes: max |err| {err:.3e}")
+        q4, k4, v4 = (x.view(LM_BATCH, -1, LM_SEQ, dh) for x in (qx, kx, vx))
+
+        def kernel():
+            return FK.flash_attention_bhsd(qx, kx, vx, causal=True)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, enable_gqa=True)
+
+        # in turns, library, kernel, kernel, library: one card, one call
+        ms_lib1, ms_k1, ms_k2, ms_lib2 = (time_ms(f, 10) for f in (library, kernel, kernel,
+                                                                     library))
+        ms_k, ms_lib = (ms_k1 + ms_k2) / 2, (ms_lib1 + ms_lib2) / 2
+        ms_plain = time_ms(lambda: attention_ref(qx, kx, vx, causal=True), 3)
+        ops_ms = flop / peak * 1e3
+        bytes_ms = (2 * q.numel() + k.numel() + v.numel()) * qx.element_size() / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        print(f"phase 12 timing ({dtn}, {entry}, BHq {bhq}, BHkv {bhkv}, S {LM_SEQ}, Dh {dh}, "
+              f"causal): flash kernel {ms_k:.4f} ms ({ms_k1:.4f} / {ms_k2:.4f}; "
+              f"{flop / ms_k / 1e9:.1f} TFLOP/s), plain {ms_plain:.3f} ms, "
+              f"scaled_dot_product_attention {ms_lib:.4f} ms ({ms_lib1:.4f} / {ms_lib2:.4f}; "
+              f"kernel / library {ms_k / ms_lib:.2f}); bound {bound:.4f} ms (operations "
+              f"{ops_ms:.4f} ms at {peak_name}, bytes {bytes_ms:.4f} ms at 3.35 TB/s); "
+              f"max |err| vs plain {err:.3e}", flush=True)
+        rows.append(dict(
+            name="flash_attention_bhsd" if dtn == "bfloat16" else "flash_attention_bhsd_fp32",
+            route="cuda", source=f"src/repro_torch/kernels/flash_attention/csrc/"
+            f"{'flash_attention_wgmma.cu' if dtn == 'bfloat16' else 'flash_attention.cu'}",
+            replaces="src/repro/kernels/flash_attention/kernel.py:124",
+            launches=launches, max_abs_err=max(worst[dtn], err), ms=ms_k, plain_ms=ms_plain,
+            bound_ms=bound, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            library_ms=ms_lib))
+        del qx, kx, vx, q4, k4, v4
     cache_b = continue_cache(cfg, cache_b, LM_SEQ + LM_DECODE)
-    print(f"phase 12 timing (bf16, BHq {bhq}, BHkv {bhkv}, S {LM_SEQ}, Dh {dh}, "
-          f"causal): flash kernel {ms_k:.3f} ms ({4 * dh * pairs / ms_k / 1e9:.1f} "
-          f"TFLOP/s), plain {ms_plain:.3f} ms, scaled_dot_product_attention "
-          f"{ms_lib:.3f} ms; bound {bound:.4f} ms (operations {ops_ms:.4f} ms at "
-          f"989 TFLOP/s bf16, bytes {bytes_ms:.4f} ms at 3.35 TB/s); max |err| vs "
-          f"plain {err12:.3e}", flush=True)
     report_steps(12, params, batch, prefill, make_decode_step(cfg), cache_b)
-    return dict(
-        name="flash_attention_bhsd", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:124",
-        launches=lm_launches, max_abs_err=max_err, ms=ms_k, plain_ms=ms_plain,
-        bound_ms=bound, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-        library_ms=ms_lib,
-    )
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
 
 
 #: the rwkv slice: rwkv6-3b at its published widths (configs/archs.py), at the
@@ -935,9 +1008,14 @@ def main() -> int:
     print(f"phase 1 build: {build_s:.1f} s; " + "; ".join(
         f"{lib.name}: {ptxas_summary(lib.with_suffix('.log').read_text())}"
         for lib in libs), flush=True)
-    print(f"phase 1 build: {flash_lib.name} (dynamic shared memory "
-          f"{(3 * 128 + 64) * 64 * 4} B a block at Dh 128): " + ptxas_summary(
-              flash_lib.with_suffix(".log").read_text(), flash_kind), flush=True)
+    flash_log = flash_lib.with_suffix(".log").read_text()
+    serialized = sorted({flash_kind(line) for line in flash_log.splitlines()
+                         if "C7512" in line and "flash_wgmma_kernel" in line})
+    print(f"phase 1 build: {flash_lib.name} (dynamic shared memory a block: fp32 "
+          f"{(3 * 128 + 64) * 64 * 4} B at Dh 128; bf16-wgmma {wgmma_smem_bytes(64)} B at "
+          f"Dh<=64, {wgmma_smem_bytes(128)} B at Dh<=128; wgmma serialized by ptxas "
+          f"(C7512) in: {', '.join(serialized) or 'none'}): "
+          + ptxas_summary(flash_log, flash_kind), flush=True)
     print(f"phase 1 build: {wkv_lib.name} (dynamic shared memory "
           f"{(3 * 32 * 64 + 5 * 32 * 32 + 64 + 32) * 4} B a block at N 64): " + ptxas_summary(
               wkv_lib.with_suffix(".log").read_text(), wkv_kind), flush=True)
@@ -1241,7 +1319,7 @@ def main() -> int:
     ]
     del att, rel, up, args, packed, st
     torch.cuda.empty_cache()
-    kernels.append(lm_slice(dev))
+    kernels.extend(lm_slice(dev))
     torch.cuda.empty_cache()  # the internlm weights are gone; rwkv6-3b's take 12.4 GB
     kernels.append(rwkv_slice(dev))
     print(json.dumps({"kernels": kernels}), flush=True)

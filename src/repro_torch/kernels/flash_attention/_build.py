@@ -1,7 +1,12 @@
-"""Build and load the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
+"""Build and load the flash-attention CUDA kernels (``csrc/``).
 
-One library holds every instantiation (fp32 and bf16, head widths 16..128 in
-steps of 16), named by a hash of the source and flags.
+One library holds both kernels: ``flash_attention.cu`` (fp32, CUDA cores,
+head widths 16..128 in steps of 16) and ``flash_attention_wgmma.cu`` (bf16,
+tensor cores: wgmma, TMA, mbarriers; widths padded to 64 and 128). It is
+named by a hash of every source and the flags. The wgmma source reaches the
+driver's ``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``, so
+the library links no ``-lcuda`` and the flags are those of every library of
+the port.
 """
 from __future__ import annotations
 
@@ -12,28 +17,42 @@ from pathlib import Path
 
 from ..._nvcc import BUILD_DIR, NVCC_FLAGS, compile_library
 
-SOURCE = Path(__file__).with_name("csrc") / "flash_attention.cu"
+CSRC = Path(__file__).with_name("csrc")
+#: the fp32 kernel on the CUDA cores
+SOURCE = CSRC / "flash_attention.cu"
+#: the bf16 kernel on the tensor cores
+WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"
+#: the C entry point of each kernel, both with one signature
+ENTRY_POINTS = ("flash_fwd_f32", "flash_fwd_bf16")
+
+
+def sources() -> list:
+    return [SOURCE, WGMMA_SOURCE]
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libflash_attention_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the source unless the hashed library exists (the
+    """Compile the sources unless the hashed library exists (the
     ``-Xptxas -v`` report sits beside it as ``.log``)."""
-    return compile_library(library_path(), [SOURCE], list(NVCC_FLAGS))
+    return compile_library(library_path(), sources(), list(NVCC_FLAGS))
 
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """The library with ``flash_attention_fwd``'s signature declared (built
-    if needed, loaded once per process)."""
+    """The library with both entry points' signatures declared (built if
+    needed, loaded once per process): q, k, v, o, bhq, bhkv, sq, sk, dh,
+    causal, window, scale, stream."""
     lib = ctypes.CDLL(str(build()))
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name in ENTRY_POINTS:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib

@@ -1,16 +1,17 @@
-// Flash attention forward for NVIDIA Hopper (sm_90a): GQA, causal and
-// sliding-window masks, online softmax, skipping of fully masked kv tiles.
+// Flash attention forward for NVIDIA Hopper (sm_90a) on the CUDA cores, for
+// fp32 q/k/v: GQA, causal and sliding-window masks, online softmax,
+// skipping of fully masked kv tiles. bf16 inputs go to the tensor-core
+// kernel of flash_attention_wgmma.cu instead (see kernel.py).
 //
-// Replaces the TPU kernel `flash_attention_bhsd` (body `_flash_kernel`) of
-// src/repro/kernels/flash_attention/kernel.py and computes exactly its
-// function:
-//   * q (BHq, Sq, Dh), k/v (BHkv, Sk, Dh), fp32 or bf16, contiguous; query
+// Replaces, for fp32 inputs, the TPU kernel `flash_attention_bhsd` (body
+// `_flash_kernel`) of src/repro/kernels/flash_attention/kernel.py and
+// computes exactly its function:
+//   * q (BHq, Sq, Dh), k/v (BHkv, Sk, Dh), fp32, contiguous; query
 //     head h reads kv head h / (BHq / BHkv);
 //   * s = q.k * scale (scale = 1/sqrt(Dh), passed in), masked where
 //     k_pos > q_pos (causal) or k_pos <= q_pos - window, positions from 0
 //     for q and k alike, with the FINITE mask value -1e30;
-//   * online softmax in fp32 (m, l, acc), o = acc / max(l, 1e-30), cast to
-//     q's dtype;
+//   * online softmax in fp32 (m, l, acc), o = acc / max(l, 1e-30);
 //   * kv tiles entirely in the future or behind the window are skipped, not
 //     masked.
 // Ragged lengths (Sq, Sk not multiples of the tile) are masked inside: key
@@ -21,25 +22,23 @@
 // acc) with m = -1e30, and the first real key's correction exp(-1e30 - m)
 // is exactly 0, as in the reference. With -inf, exp(-inf - -inf) is NaN.
 //
-// What bounds it on this card: at the prefill shapes (Dh 128, S 2048,
-// causal) attention does ~Dh/2 FLOP per byte of q/k/v/o, far above the
-// H100's ~295 FLOP/byte ridge, so the bound is the operations: 4*Dh FLOP
-// per live (q, k) pair over the bf16 tensor-core peak. This first kernel
-// does not reach for that rate: it computes on the CUDA cores in fp32
-// (67 TFLOP/s peak), which also keeps fp32 inputs exact to the reference's
-// 5e-5. The design keeps the CUDA cores fed: each block owns 64 query rows
+// What bounds it on this card: attention does ~Dh/4 FLOP per byte of fp32
+// q/k/v/o, above the H100's ridge, so the bound is the operations: 4*Dh
+// FLOP per live (q, k) pair. The reference's fp32 tolerance of 5e-5 rules
+// out the tensor cores (TF32 keeps 10 mantissa bits), so this kernel
+// computes with fp32 FMAs on the CUDA cores (67 TFLOP/s peak) and keeps
+// them fed: each block owns 64 query rows
 // and walks the live kv tiles of 64 keys; K/V tiles (and the q tile, once)
 // are staged in shared memory as fp32, transposed so that each thread's
 // 4x4 score tile takes one 16-byte load of q and one of k per 16 FMAs, and
 // its 4 x Dh/16 output tile takes one 16-byte load of P per 4 keys and row
-// plus one load of V per key and 4 FMAs. Tensor cores (wgmma) and TMA
-// pipelining are later work.
+// plus one load of V per key and 4 FMAs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-// -Xcompiler -fPIC (kernels/flash_attention/_build.py); entry point
-// flash_attention_fwd, bound with ctypes.
+// -Xcompiler -fPIC, with flash_attention_wgmma.cu, into one library
+// (kernels/flash_attention/_build.py); entry point flash_fwd_f32, bound
+// with ctypes.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -52,48 +51,33 @@ constexpr int THREADS = 256;  // a 16 x 16 grid: ty -> 4 rows, tx -> 4 keys / Dh
 constexpr float MASKED = -1e30f;
 static_assert(BQ == 64 && BK == 64, "the staging helpers move 64-row tiles");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Stage a (64, DH) tile of rows [r0, r0 + 64) of `src` (n rows of DH) into
-// shared memory as fp32, transposed: dst[d * 64 + r]. Rows past n are 0.
-// Each thread moves one 16-byte vector of one row; consecutive threads take
+// shared memory, transposed: dst[d * 64 + r]. Rows past n are 0. Each
+// thread moves one 16-byte vector of one row; consecutive threads take
 // consecutive rows, so the transposed stores fall in distinct banks.
-template <typename T, int DH>
-__device__ __forceinline__ void stage_transposed(float* dst, const T* src, int r0, int n) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int NV = DH / VEC;
+template <int DH>
+__device__ __forceinline__ void stage_transposed(float* dst, const float* src, int r0, int n) {
+  constexpr int NV = DH / 4;
   for (int i = threadIdx.x; i < 64 * NV; i += THREADS) {
-    const int r = i % 64, d = (i / 64) * VEC;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);  // all-zero bits: 0 in fp32 and bf16
-    if (r0 + r < n) raw = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * DH + d);
-    const T* buf = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) dst[(d + j) * 64 + r] = to_f32(buf[j]);
+    const int r = i % 64, d = (i / 64) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n) x = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * DH + d);
+    dst[(d + 0) * 64 + r] = x.x;
+    dst[(d + 1) * 64 + r] = x.y;
+    dst[(d + 2) * 64 + r] = x.z;
+    dst[(d + 3) * 64 + r] = x.w;
   }
 }
 
-// Stage rows [r0, r0 + 64) of `src` as fp32, row-major: dst[r * DH + d].
-template <typename T, int DH>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0, int n) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int NV = DH / VEC;
+// Stage rows [r0, r0 + 64) of `src`, row-major: dst[r * DH + d].
+template <int DH>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int r0, int n) {
+  constexpr int NV = DH / 4;
   for (int i = threadIdx.x; i < 64 * NV; i += THREADS) {
-    const int r = i / NV, d = (i % NV) * VEC;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);  // all-zero bits: 0 in fp32 and bf16
-    if (r0 + r < n) raw = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * DH + d);
-    const T* buf = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) dst[r * DH + d + j] = to_f32(buf[j]);
+    const int r = i / NV, d = (i % NV) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n) x = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * DH + d);
+    *reinterpret_cast<float4*>(dst + r * DH + d) = x;
   }
 }
 
@@ -111,11 +95,11 @@ __device__ __forceinline__ float reduce16_sum(float x) {
 
 // grid (ceil(Sq / 64), BHq), THREADS threads, smem_bytes<DH>() dynamic
 // shared memory. DPT = Dh / 16 output dims per thread.
-template <typename T, int DPT>
+template <int DPT>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int sq, int sk, int group, int causal, int window,
-                 float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int sq, int sk, int group,
+                 int causal, int window, float scale) {
   constexpr int DH = 16 * DPT;
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [DH][BQ]  q tile, transposed
@@ -127,9 +111,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int n_q = (sq + BQ - 1) / BQ;
   const int q0 = (n_q - 1 - (int)blockIdx.x) * BQ;  // longest rows launch first
   const int bh = blockIdx.y;
-  const T* qh = q + (size_t)bh * sq * DH;
-  const T* kh = k + (size_t)(bh / group) * sk * DH;
-  const T* vh = v + (size_t)(bh / group) * sk * DH;
+  const float* qh = q + (size_t)bh * sq * DH;
+  const float* kh = k + (size_t)(bh / group) * sk * DH;
+  const float* vh = v + (size_t)(bh / group) * sk * DH;
 
   // the live kv tiles: none entirely in the future, none entirely behind
   // the window, for any row of this block
@@ -138,7 +122,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   if (causal) t_end = min(t_end, q_last / BK + 1);
   if (window > 0 && q0 - window + 1 > 0) t_begin = (q0 - window + 1) / BK;
 
-  stage_transposed<T, DH>(qt, qh, q0, sq);
+  stage_transposed<DH>(qt, qh, q0, sq);
 
   float m_i[4], l_i[4], acc[4][DPT];
 #pragma unroll
@@ -152,8 +136,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile's readers are done
-    stage_transposed<T, DH>(kt, kh, k0, sk);
-    stage_rows<T, DH>(vs, vh, k0, sk);
+    stage_transposed<DH>(kt, kh, k0, sk);
+    stage_rows<DH>(vs, vh, k0, sk);
     __syncthreads();
 
     // scores of rows 4ty + i against keys 4tx + j
@@ -240,9 +224,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int row = q0 + 4 * ty + i;
     if (row >= sq) continue;
     const float denom = fmaxf(l_i[i], 1e-30f);
-    T* orow = o + ((size_t)bh * sq + row) * DH;
+    float* orow = o + ((size_t)bh * sq + row) * DH;
 #pragma unroll
-    for (int e = 0; e < DPT; ++e) orow[tx + 16 * e] = from_f32<T>(acc[i][e] / denom);
+    for (int e = 0; e < DPT; ++e) orow[tx + 16 * e] = acc[i][e] / denom;
   }
 }
 
@@ -251,29 +235,34 @@ constexpr int smem_bytes() {
   return (DH * BQ + DH * BK + BK * DH + BQ * BK) * (int)sizeof(float);
 }
 
-template <typename T, int DPT>
+template <int DPT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bhq, int bhkv,
                    int sq, int sk, int causal, int window, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<16 * DPT>();
-  auto kernel = flash_fwd_kernel<T, DPT>;
+  auto kernel = flash_fwd_kernel<DPT>;
   // above 48 KB a block's shared memory must be opted into
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + BQ - 1) / BQ, bhq);
   kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, bhq / bhkv, causal, window, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), sq, sk, bhq / bhkv, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int dh, const void* q, const void* k, const void* v, void* o, int bhq,
-                     int bhkv, int sq, int sk, int causal, int window, float scale,
-                     cudaStream_t stream) {
-#define FLASH_CASE(DPT)                                                                    \
-  case 16 * DPT:                                                                           \
-    return launch<T, DPT>(q, k, v, o, bhq, bhkv, sq, sk, causal, window, scale, stream);
+}  // namespace
+
+// q, k, v, o fp32, contiguous, 16-byte aligned. window <= 0 means no
+// window. Returns the cudaError_t of the launch (cudaErrorInvalidValue for
+// a head width the kernel does not take).
+extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, int bhq,
+                             int bhkv, int sq, int sk, int dh, int causal, int window,
+                             float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FLASH_CASE(DPT) \
+  case 16 * DPT:        \
+    return launch<DPT>(q, k, v, o, bhq, bhkv, sq, sk, causal, window, scale, s);
   switch (dh) {
     FLASH_CASE(1)
     FLASH_CASE(2)
@@ -287,21 +276,4 @@ cudaError_t dispatch(int dh, const void* q, const void* k, const void* v, void* 
       return cudaErrorInvalidValue;
   }
 #undef FLASH_CASE
-}
-
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window. Returns
-// the cudaError_t of the launch (cudaErrorInvalidValue for a head width or
-// dtype the kernel does not take).
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int bhq, int bhkv, int sq, int sk, int dh, int dtype,
-                                   int causal, int window, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(dh, q, k, v, o, bhq, bhkv, sq, sk, causal, window, scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(dh, q, k, v, o, bhq, bhkv, sq, sk, causal, window, scale,
-                                   s);
-  return cudaErrorInvalidValue;
 }

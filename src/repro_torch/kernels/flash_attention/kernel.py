@@ -1,10 +1,20 @@
-"""Flash attention on the (B·H, S, Dh) layout: the CUDA kernel's wrapper.
+"""Flash attention on the (B·H, S, Dh) layout: the CUDA kernels' wrapper.
 
-``flash_attention_bhsd`` launches ``csrc/flash_attention.cu`` for CUDA
-tensors (see the note at the top of that file) and raises on what the kernel
-does not take; it never falls back. For CPU tensors it runs the plain
-version, ``ref.attention_ref``. ``flash_attention_bhsd.launches`` counts
-kernel launches only; ``reset_launches()`` zeros it.
+``flash_attention_bhsd`` launches, for CUDA tensors, one of two kernels, and
+the dtype alone decides which (``KERNELS``):
+
+* bf16 goes to ``csrc/flash_attention_wgmma.cu``, on the tensor cores
+  (``wgmma``, K/V by TMA into an mbarrier ring). It rounds the softmax
+  weights to bf16 before the product with V, as tensor-core flash kernels
+  do; the result stays within the reference's bf16 tolerance.
+* fp32 goes to ``csrc/flash_attention.cu``, on the CUDA cores in fp32: the
+  reference's fp32 tolerance (5e-5) rules out TF32 tensor cores.
+
+This is a rule, not a fallback: nothing is chosen at run time, and on what
+its kernel does not take the wrapper raises. For CPU tensors it runs the
+plain version, ``ref.attention_ref``. ``flash_attention_bhsd.launches``
+counts kernel launches only, and ``.launches_by_kernel`` splits that count
+by entry point; ``reset_launches()`` zeros both.
 """
 from __future__ import annotations
 
@@ -15,9 +25,9 @@ import torch
 from . import _build
 from .ref import attention_ref
 
-#: the kernel's element types (C enum of ``flash_attention_fwd``)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head widths the kernel is instantiated for (16 lanes x 1..8 dims each)
+#: the C entry point (``_build.ENTRY_POINTS``) that each dtype launches
+KERNELS = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_bf16"}
+#: head widths both kernels take
 HEAD_DIMS = tuple(range(16, 129, 16))
 MAX_GRID_Y = 65535
 
@@ -41,7 +51,7 @@ def _check(q, k, v, window) -> None:
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous, and 16-byte aligned for the kernel's vector loads."""
+    """Contiguous, and 16-byte aligned for the kernels' vector loads and TMA."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
@@ -58,8 +68,8 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window=None) -> torch.
                          f"(plain) tensors, not {q.device}")
     bhq, sq, dh = q.shape
     bhkv, sk, _ = k.shape
-    if q.dtype not in DTYPES:
-        raise ValueError(f"the kernel takes {list(DTYPES)}, not {q.dtype}")
+    if q.dtype not in KERNELS:
+        raise ValueError(f"the kernel takes {list(KERNELS)}, not {q.dtype}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}, not {dh}")
     if bhq > MAX_GRID_Y:
@@ -68,22 +78,24 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window=None) -> torch.
     o = torch.empty_like(q)
     if sq == 0:
         return o
-    lib = _build.load()
+    entry = KERNELS[q.dtype]
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
+        err = getattr(_build.load(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            bhq, bhkv, sq, sk, dh, DTYPES[q.dtype], int(bool(causal)),
+            bhq, bhkv, sq, sk, dh, int(bool(causal)),
             0 if window is None else int(window), 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     flash_attention_bhsd.launches += 1
+    flash_attention_bhsd.launches_by_kernel[entry] += 1
     return o
-
-
-flash_attention_bhsd.launches = 0
 
 
 def reset_launches() -> None:
     flash_attention_bhsd.launches = 0
+    flash_attention_bhsd.launches_by_kernel = dict.fromkeys(KERNELS.values(), 0)
+
+
+reset_launches()

@@ -1,14 +1,16 @@
-"""The flash-attention CUDA kernel against its plain PyTorch version.
+"""The flash-attention CUDA kernels against their plain PyTorch version.
 
-Tests marked ``cuda`` build ``csrc/flash_attention.cu`` and hold the kernel
-against ``attention_ref`` on the card, with the reference's tolerances
-(5e-5 fp32, 2.5e-2 bf16); without a CUDA device they skip. This file
-imports no JAX, so it runs on a machine with the card:
+Tests marked ``cuda`` build ``csrc/`` (the fp32 kernel on the CUDA cores,
+the bf16 kernel on the tensor cores) and hold each against
+``attention_ref`` on the card, with the reference's tolerances (5e-5 fp32,
+2.5e-2 bf16); without a CUDA device they skip. This file imports no JAX,
+so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_kernel.py
 
 The rest run anywhere: CPU tensors take the plain version and count no
-launch, and the wrapper refuses inputs that do not fit together.
+launch, the wrapper refuses inputs that do not fit together, each dtype
+names its kernel, and the library's name hashes every source.
 """
 import numpy as np
 import pytest
@@ -38,6 +40,31 @@ RAGGED = [
     (1, 77, 200, 4, 4, 16, False, None, "float32"),  # cross-attention, ragged k
     (1, 150, 130, 2, 1, 48, True, 40, "float32"),  # Sq > Sk, window
 ]
+# bf16 through the tensor-core kernel: every head width it takes; the
+# reference's windowed, MQA, GQA and cross-attention shapes; ragged lengths
+# about its 128-row tiles, alone and with Sq > Sk or Sk > Sq; windows whose
+# first live tile is fully masked for the block's last rows; and one head
+# group at internlm2's prefill widths
+BF16 = (
+    [(1, 200, 200, 4, 2, dh, True, None, "bfloat16") for dh in K.HEAD_DIMS]
+    + [
+        (2, 256, 256, 4, 1, 64, True, 96, "bfloat16"),  # SWA + MQA (group 4)
+        (2, 256, 256, 4, 2, 128, True, None, "bfloat16"),  # GQA, group 2
+        (1, 256, 256, 8, 1, 128, True, None, "bfloat16"),  # GQA, group 8
+        (1, 128, 256, 2, 2, 64, False, None, "bfloat16"),  # cross-attention
+        (1, 64, 64, 6, 3, 112, True, None, "bfloat16"),  # kimi head_dim
+    ]
+    + [(1, n, n, 2, 1, 128, True, None, "bfloat16") for n in (1, 63, 65, 127, 129, 300)]
+    + [
+        (1, 300, 127, 2, 1, 64, True, None, "bfloat16"),  # Sq > Sk
+        (1, 150, 130, 2, 1, 48, True, 40, "bfloat16"),  # Sq > Sk, window
+        (1, 65, 1000, 2, 2, 112, False, None, "bfloat16"),  # Sk > Sq
+        (1, 129, 300, 4, 2, 80, True, None, "bfloat16"),  # Sk > Sq, causal
+        (1, 512, 512, 2, 1, 128, True, 100, "bfloat16"),  # first live tile fully masked
+        (1, 512, 512, 2, 1, 64, True, 100, "bfloat16"),  # ... for some rows
+        (1, 2048, 2048, 16, 8, 128, True, None, "bfloat16"),  # prefill widths
+    ]
+)
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -85,6 +112,29 @@ def test_wrapper_refuses_what_does_not_fit():
         K.flash_attention_bhsd(q, k[:3], k[:3], window=0)
 
 
+def test_each_dtype_names_its_kernel():
+    """bf16 launches the tensor-core kernel, fp32 the CUDA-core one: each
+    entry point is defined in its own source, and only the bf16 source
+    issues wgmma and TMA loads into an mbarrier ring."""
+    assert set(K.KERNELS) == {torch.float32, torch.bfloat16}
+    assert sorted(K.KERNELS.values()) == sorted(_build.ENTRY_POINTS)
+    cores, tensor_cores = _build.SOURCE.read_text(), _build.WGMMA_SOURCE.read_text()
+    assert f'extern "C" int {K.KERNELS[torch.float32]}(' in cores
+    assert f'extern "C" int {K.KERNELS[torch.bfloat16]}(' in tensor_cores
+    for op in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait", "setmaxnreg"):
+        assert op in tensor_cores and op not in cores
+    assert _build.sources() == [_build.SOURCE, _build.WGMMA_SOURCE]
+
+
+@pytest.mark.parametrize("attr", ["SOURCE", "WGMMA_SOURCE"])
+def test_library_name_hashes_every_source(tmp_path, monkeypatch, attr):
+    first = _build.library_path()
+    src = tmp_path / getattr(_build, attr).name
+    src.write_text(getattr(_build, attr).read_text() + "\n// edited\n")
+    monkeypatch.setattr(_build, attr, src)
+    assert _build.library_path() != first
+
+
 def test_library_name_follows_the_source(tmp_path, monkeypatch):
     first = _build.library_path()
     assert first.parent == _build.BUILD_DIR and first.name.startswith("libflash_attention_")
@@ -104,7 +154,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES + RAGGED, ids=case_id)
+@pytest.mark.parametrize("case", CASES + RAGGED + BF16, ids=case_id)
 def test_kernel_matches_plain(cuda_device, case):
     *_, causal, window, dt = case
     q, k, v = (torch.from_numpy(fold(a)).to(cuda_device, TORCH_DT[dt])
@@ -116,6 +166,27 @@ def test_kernel_matches_plain(cuda_device, case):
     want = attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == q.dtype and got.shape == q.shape
     assert (got.float() - want.float()).abs().max().item() < tol(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, name, other", [
+    (torch.bfloat16, "flash_wgmma_kernel", "flash_fwd_kernel"),
+    (torch.float32, "flash_fwd_kernel", "flash_wgmma_kernel"),
+])
+def test_dtype_launches_its_kernel(cuda_device, dtype, name, other):
+    """The device kernels a call runs, as the profiler names them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(2, 256, 128, device=cuda_device).to(dtype)
+    K.flash_attention_bhsd(x, x, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        K.flash_attention_bhsd(x, x, x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any(name in n for n in names), names
+    assert not any(other in n for n in names), names
 
 
 @pytest.mark.cuda
