@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port once on an NVIDIA card and check it: the
 lease plane (phases 1-7), internlm2-1.8b prefill and serving through the
 flash-attention kernels (phases 8-12), and rwkv6-3b prefill and serving
-through the WKV6 kernel (phases 13-17).
+through the WKV6 kernels (phases 13-17).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``); it exits nonzero
@@ -11,7 +11,7 @@ without them, and on any failed check.
 Phases (one line each):
   1. build the lease kernels from ``src/repro_torch/lease_array/csrc``, the
      flash-attention kernels from
-     ``src/repro_torch/kernels/flash_attention/csrc`` and the WKV6 kernel
+     ``src/repro_torch/kernels/flash_attention/csrc`` and the WKV6 kernels
      from ``src/repro_torch/kernels/rwkv6/csrc``, all nvcc runs at once;
   2. hold both kernels bit-exact against their plain PyTorch versions on
      small traces (delay 0/2/4, asymmetric links, drift, restarts, extends,
@@ -49,26 +49,34 @@ Phases (one line each):
      ``scaled_dot_product_attention``'s times at the prefill shapes and the
      bound (the larger of the causal FLOPs over the dtype's peak and the
      bytes over the memory rate); bf16 prefill and decode step times.
- 13. the WKV6 kernel against its plain chunked form on the reference's
-     five cases, ragged lengths from nonzero states (final states
-     compared), 128 tokens against two calls of 64 with the state carried,
-     and the decay rates of rwkv6's own decay_base init;
+ 13. the WKV6 kernels (fp32: the CUDA-core kernel; bf16: the tensor-core
+     kernel) against their plain chunked form on the reference's five
+     cases, ragged lengths from nonzero states (final states compared),
+     bf16 at N 32/64/128 and the extreme decay, two calls with the state
+     carried, and the decay rates of rwkv6's own decay_base init;
  14. rwkv6-3b at full width, random weights from a seed: a 4 x 2048 fp32
-     prefill through the kernel (32 launches) against the same prefill
-     with the plain chunked form on the card, last logits and the emitted
-     state to a relative error below 2e-4;
+     prefill through the CUDA-core kernel (32 launches, all of them
+     ``wkv6_fwd_f32``) against the same prefill with the plain chunked
+     form on the card, last logits and the emitted state to a relative
+     error below 2e-4;
  15. 16 greedy ``decode_step`` tokens from that prefill's state against
      ``forward`` over all 2064 tokens, relative error below 2e-4;
  16. ``ServeEngine`` in bf16: 8 requests on 4 slots, 16 new tokens each;
- 17. the WKV6 kernel's and the plain form's times at the prefill shapes
-     (bf16 r/k/v) and the bound (the larger of the bytes over the memory
-     rate and the chunked matrix form's FLOPs over the bf16 peak); bf16
-     prefill and decode step times.
+ 17. a 4 x 2048 bf16 prefill through the tensor-core kernel (32 launches of
+     ``wkv6_fwd_bf16``, none of ``wkv6_fwd_f32``) against the same prefill
+     with the plain chunked form, last logits and the emitted state to a
+     relative error below 5e-2; then, for each WKV6 kernel, its and the
+     plain form's times at the prefill shapes (bf16 r/k/v for the
+     tensor-core kernel, their fp32 cast for the CUDA-core one) and the
+     bound (the larger of the bytes over the memory rate and the chunked
+     matrix form's FLOPs over the dtype's peak); bf16 prefill and decode
+     step times.
 The line before the last holds every kernel's launches on its main path
 (phases 3-6; the phase-12 bf16 prefill for the tensor-core flash kernel,
 the phase-9 prefill and phase-11 serving for the CUDA-core one; the
-phase-14 prefill and phase-16 serving), time, plain time, bound and
-library time as JSON;
+phase-17 bf16 prefill for the tensor-core WKV6 kernel, the phase-14
+prefill and phase-16 serving for the CUDA-core one), time, plain time,
+bound and library time as JSON;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -706,9 +714,10 @@ def lm_slice(dev) -> list:
 #: the rwkv slice: rwkv6-3b at its published widths (configs/archs.py), at the
 #: LM slice's prefill size
 RWKV_ARCH = "rwkv6-3b"
-#: the WKV6 kernel against its plain version: tests/test_kernels_rwkv6.py's
+#: the WKV6 kernels against their plain version: tests/test_kernels_rwkv6.py's
 #: five cases, then ragged lengths from nonzero states and the reduced
-#: configs' head size (b, s, h, n, omega_hi, dtype, initial state)
+#: configs' head size (b, s, h, n, omega_hi, dtype, initial state); omega_hi
+#: 3.5 is the extreme decay (logw down to -33 a token)
 WKV_CASES = [
     (2, 64, 4, 64, 0.5, "float32", False),
     (1, 128, 2, 64, 1.0, "float32", False),
@@ -720,14 +729,37 @@ WKV_CASES = [
     (1, 1000, 4, 64, 1.0, "float32", True),
     (3, 45, 4, 16, 0.5, "float32", True),
 ]
+#: bf16 through the tensor-core kernel at N 32, 64 and 128, ragged, with and
+#: without a state, at the extreme decay
+WKV_BF16_CASES = [
+    (1, 1000, 4, 32, 0.5, "bfloat16", True),
+    (2, 777, 4, 64, 3.5, "bfloat16", True),
+    (1, 130, 4, 64, 0.5, "bfloat16", False),
+    (1, 500, 4, 128, 0.5, "bfloat16", False),
+    (1, 301, 4, 128, 3.5, "bfloat16", True),
+    (2, 65, 4, 32, 3.5, "bfloat16", False),
+]
 WKV_TOL = {"float32": 5e-4, "bfloat16": 3e-2}  # test_kernels_rwkv6.py:45-47
 WKV_CHUNK = 32  # the Pallas kernel's chunk, for the matrix form's operation count
 
 
 def wkv_kind(entry: str) -> str:
-    """'fp32/N64' for the instantiation named in a ptxas entry line."""
-    m = re.search(r"wkv6_kernelI(f|13__nv_bfloat16)Li(\d+)E", entry)
-    return f"{'fp32' if m[1] == 'f' else 'bf16'}/N{m[2]}"
+    """'fp32/N64' (the CUDA-core kernel) or 'bf16-mma/N64' (the tensor-core
+    kernel) for the instantiation named in a ptxas entry line."""
+    m = re.search(r"wkv6_(mma_)?kernelILi(\d+)E", entry)
+    return f"{'bf16-mma' if m[1] else 'fp32'}/N{m[2]}"
+
+
+def wkv_mma_smem_bytes(n: int, stages: int = 2) -> int:
+    """Dynamic shared memory of a tensor-core WKV6 block (``Plan<N>::BYTES``
+    of ``csrc/wkv6_mma.cu``): per stage r, k (C rows of N + 8 bf16), v (C
+    rows of MT + 8 bf16) and logw (C x N fp32); then cum (C rows of N + 4
+    fp32), K~ (C rows of N + 8 bf16), the state's bf16 copy (MT rows of
+    N + 8), four 16 x 24 bf16 diagonal blocks, u and the scan's sums."""
+    mt, c = min(n, 32), 32 if n == 128 else 64
+    stage = 2 * c * (n + 8) * 2 + c * (mt + 8) * 2 + c * n * 4
+    return (stages * stage + c * (n + 4) * 4 + c * (n + 8) * 2 + mt * (n + 8) * 2
+            + 4 * 16 * 24 * 2 + n * 4 + 128 // n * n * 4)
 
 
 def wkv_inputs(dev, b, s, h, n, omega_hi, dt, with_state, seed, omega=None):
@@ -767,7 +799,7 @@ def decay_base_omega(b, s, h, n, seed):
 
 class PlainWKV:
     """Within this block the model's WKV6 recurrence runs the plain chunked
-    form on the card (the yardstick of phase 14), not the kernel."""
+    form on the card (the yardstick of phases 14 and 17), not a kernel."""
 
     def __enter__(self):
         from repro_torch.kernels.rwkv6 import ops
@@ -780,9 +812,11 @@ class PlainWKV:
         self.ops.wkv6_bhsn = self.saved
 
 
-def rwkv_slice(dev) -> dict:
+def rwkv_slice(dev) -> list:
     """Phases 13-17: the rwkv6-3b prefill and serve path through the WKV6
-    kernel, at full width. Returns the kernel's JSON entry."""
+    kernels, at full width. Returns the kernels' JSON entries: the
+    tensor-core kernel (bf16; its main path the phase-17 bf16 prefill) and
+    the CUDA-core kernel (fp32; the phase-14 prefill and phase-16 serving)."""
     import dataclasses
 
     import numpy as np
@@ -796,44 +830,63 @@ def rwkv_slice(dev) -> dict:
     from repro_torch.models.schema import leaf_paths
 
     sync = torch.cuda.synchronize
-    max_err = 0.0
+    f32, bf16 = WK.KERNELS[torch.float32], WK.KERNELS[torch.bfloat16]
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
 
     def against_plain(args, tol, what):
         """The kernel and the plain chunked form on the same inputs:
-        outputs and final states to ``tol`` relative; returns max |err|."""
+        outputs and final states to ``tol`` relative; returns (max |err|,
+        worst rel err)."""
         out, st = WK.wkv6_bhsn(*args)
         sync()
         want, want_st = wkv_chunked_bhsn(*args)
         check(out.shape == args[0].shape and out.dtype == torch.float32, f"{what}: shape/dtype")
+        check(bool(torch.isfinite(out).all() and torch.isfinite(st).all()), f"{what}: not finite")
         err, err_st = rel_err(out, want), rel_err(st, want_st)
         check(err < tol and err_st < tol,
               f"{what}: rel err {err:.3e}, state {err_st:.3e} (tolerance {tol})")
         return float((out - want).abs().max()), max(err, err_st)
 
-    # ------------------------------------------ 13. WKV6 kernel vs plain
+    # ------------------------------------------ 13. WKV6 kernels vs plain
     t_phase = time.perf_counter()
     worst = {}
-    for i, case in enumerate(WKV_CASES):
+    for i, case in enumerate(WKV_CASES + WKV_BF16_CASES):
         args = wkv_inputs(dev, *case, seed=130 + i)
+        before = dict(WK.wkv6_bhsn.launches_by_kernel)
         abs_err, rel = against_plain(args, WKV_TOL[case[5]], f"wkv case {i} {case}")
+        entry = WK.KERNELS[args[0].dtype]
+        check(WK.wkv6_bhsn.launches_by_kernel[entry] == before[entry] + 1,
+              f"wkv case {i}: {entry} not launched")
         worst[case[5]] = max(worst.get(case[5], 0.0), rel)
-        max_err = max(max_err, abs_err)
+        max_err[case[5]] = max(max_err[case[5]], abs_err)
     r, k, v, logw, u, _ = wkv_inputs(dev, 1, 128, 2, 64, 0.5, "float32", False, seed=139)
     full, full_st = WK.wkv6_bhsn(r, k, v, logw, u)
     o1, st = WK.wkv6_bhsn(r[:, :64], k[:, :64], v[:, :64], logw[:, :64], u)
     o2, st = WK.wkv6_bhsn(r[:, 64:], k[:, 64:], v[:, 64:], logw[:, 64:], u, st)
     err_carry = max(rel_err(torch.cat([o1, o2], 1), full), rel_err(st, full_st))
     check(err_carry < WKV_TOL["float32"], f"wkv 128 vs 2 x 64 carried: rel err {err_carry:.3e}")
+    r, k, v = (x.bfloat16() for x in (r, k, v))
+    want, want_st = wkv_chunked_bhsn(r, k, v, logw, u)
+    o1, st = WK.wkv6_bhsn(r[:, :64], k[:, :64], v[:, :64], logw[:, :64], u)
+    o2, st = WK.wkv6_bhsn(r[:, 64:], k[:, 64:], v[:, 64:], logw[:, 64:], u, st)
+    err_carry_bf16 = max(rel_err(torch.cat([o1, o2], 1), want), rel_err(st, want_st))
+    check(err_carry_bf16 < WKV_TOL["bfloat16"],
+          f"bf16 wkv 2 x 64 carried vs plain: rel err {err_carry_bf16:.3e}")
     b, s, h, n = 2, 512, 4, 64
-    spread = wkv_inputs(dev, b, s, h, n, None, "float32", True, seed=140,
-                        omega=decay_base_omega(b, s, h, n, 141))
-    abs_err, err_spread = against_plain(spread, WKV_TOL["float32"], "wkv decay_base spread")
-    max_err = max(max_err, abs_err)
-    print(f"phase 13 WKV6 kernel vs plain: {len(WKV_CASES)} cases (the reference's 5, "
-          f"ragged 77/1000/45 from nonzero states, N 16/32/64/128) within 5e-4 fp32 / "
-          f"3e-2 bf16, outputs and final states; worst rel err fp32 "
-          f"{worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}; 128 tokens vs 2 x 64 "
-          f"carried {err_carry:.3e}; decay_base spread {err_spread:.3e}; "
+    err_spread = {}
+    for dtn in ("float32", "bfloat16"):
+        spread = wkv_inputs(dev, b, s, h, n, None, dtn, True, seed=140,
+                            omega=decay_base_omega(b, s, h, n, 141))
+        abs_err, err_spread[dtn] = against_plain(spread, WKV_TOL[dtn],
+                                                 f"wkv decay_base spread {dtn}")
+        max_err[dtn] = max(max_err[dtn], abs_err)
+    print(f"phase 13 WKV6 kernels vs plain: {len(WKV_CASES)} cases (the reference's 5, "
+          f"ragged 77/1000/45 from nonzero states, N 16/32/64/128) and "
+          f"{len(WKV_BF16_CASES)} bf16 (N 32/64/128, ragged, extreme decay) within 5e-4 "
+          f"fp32 ({f32}) / 3e-2 bf16 ({bf16}), outputs and final states; worst rel err "
+          f"fp32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}; 128 tokens vs 2 x 64 "
+          f"carried fp32 {err_carry:.3e}, bf16 {err_carry_bf16:.3e}; decay_base spread "
+          f"fp32 {err_spread['float32']:.3e}, bf16 {err_spread['bfloat16']:.3e}; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # --------------------------- 14. full-width fp32 prefill, kernel vs plain
@@ -845,15 +898,16 @@ def rwkv_slice(dev) -> dict:
     toks = torch.from_numpy(np.random.default_rng(14).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_SEQ)).astype(np.int32)).to(dev)
     prefill32 = make_prefill_step(cfg32, logits_mode="last")
-    WK.reset_launches()  # the rwkv main path: the prefill here and serving (16)
+    WK.reset_launches()  # the fp32 kernel's main path: the prefill here and serving (16)
     sync()
     t0 = time.perf_counter()
     logits_k, cache_k = prefill32(params, {"tokens": toks})
     sync()
     ms_prefill32 = (time.perf_counter() - t0) * 1e3
-    prefill_launches = WK.wkv6_bhsn.launches
-    check(prefill_launches == cfg.n_layers,
-          f"prefill launched the WKV6 kernel {prefill_launches} times, not {cfg.n_layers}")
+    prefill_launches = WK.wkv6_bhsn.launches_by_kernel[f32]
+    check(prefill_launches == WK.wkv6_bhsn.launches == cfg.n_layers,
+          f"fp32 prefill launched {f32} {prefill_launches} times (all WKV6 kernels "
+          f"{WK.wkv6_bhsn.launches}), not {cfg.n_layers}")
     with PlainWKV():
         logits_p, cache_p = prefill32(params, {"tokens": toks})
     sync()
@@ -866,9 +920,9 @@ def rwkv_slice(dev) -> dict:
     check(max(err14_state.values()) < 2e-4, f"prefill state kernel vs plain: {err14_state}")
     del logits_p, cache_p
     print(f"phase 14 prefill {RWKV_ARCH} ({n_params / 1e9:.3f} B params, fp32) "
-          f"{LM_BATCH} x {LM_SEQ}: {ms_prefill32:.1f} ms, WKV6 launches "
-          f"{prefill_launches}; last logits vs the plain chunked form rel err "
-          f"{err14:.3e}, emitted state rel err " + ", ".join(
+          f"{LM_BATCH} x {LM_SEQ}: {ms_prefill32:.1f} ms, {f32} launches "
+          f"{prefill_launches} of {WK.wkv6_bhsn.launches}; last logits vs the plain chunked "
+          f"form rel err {err14:.3e}, emitted state rel err " + ", ".join(
               f"{k} {v:.3e}" for k, v in err14_state.items())
           + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
 
@@ -898,53 +952,91 @@ def rwkv_slice(dev) -> dict:
     t_phase = time.perf_counter()
     WK.reset_launches()
     steps, n_tok, serve_s = serve_requests(cfg, params)
-    rwkv_launches = prefill_launches + WK.wkv6_bhsn.launches
-    check(rwkv_launches > 0, "wkv6_bhsn was never launched on the main path")
+    rwkv_launches = prefill_launches + WK.wkv6_bhsn.launches_by_kernel[f32]
+    check(rwkv_launches > 0, f"{f32} was never launched on its main path")
     print(f"phase 16 serving {RWKV_ARCH} in {cfg.dtype}: 8 requests / {n_tok} tokens in "
           f"{steps} engine steps, {serve_s:.2f} s ({n_tok / serve_s:.1f} tokens/s; "
           f"admission feeds prompts token by token through decode_step, which "
-          f"launches no WKV6 kernel); WKV6 launches on the main path (the phase-14 "
+          f"launches no WKV6 kernel); {f32} launches on its main path (the phase-14 "
           f"prefill and this phase): {rwkv_launches}; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # ------------------------------------- 17. timing at the prefill shapes
+    # --------- 17. bf16 prefill through the tensor-core kernel; timing
+    t_phase = time.perf_counter()
+    prefill = make_prefill_step(cfg, logits_mode="last")
+    batch = {"tokens": toks}
+    WK.reset_launches()  # the bf16 kernel's main path: this prefill
+    logits_b, cache_b = prefill(params, batch)
+    sync()
+    bf16_launches = WK.wkv6_bhsn.launches_by_kernel[bf16]
+    check(bf16_launches == WK.wkv6_bhsn.launches == cfg.n_layers
+          and WK.wkv6_bhsn.launches_by_kernel[f32] == 0,
+          f"bf16 prefill launched {bf16} {bf16_launches} times and {f32} "
+          f"{WK.wkv6_bhsn.launches_by_kernel[f32]} times, not {cfg.n_layers} and 0")
+    with PlainWKV():
+        logits_bp, cache_bp = prefill(params, batch)
+    sync()
+    check(WK.wkv6_bhsn.launches == bf16_launches, "plain bf16 prefill launched")
+    check(bool(torch.isfinite(logits_b).all()), "bf16 prefill logits not finite")
+    err17_logits = rel_err(logits_b, logits_bp)
+    err17_state = {name: rel_err(cache_b[name], cache_bp[name]) for name in cache_b}
+    # bf16 keeps 8 mantissa bits (3.9e-3 a rounding) over 32 layers of a bf16
+    # residual stream: a lost block or a wrong decay shows far above this
+    check(err17_logits < 5e-2 and max(err17_state.values()) < 5e-2,
+          f"bf16 prefill kernel vs plain: logits rel err {err17_logits:.3e}, "
+          f"state {err17_state}")
+    del logits_bp, cache_bp
+    print(f"phase 17 bf16 prefill {LM_BATCH} x {LM_SEQ}: {bf16} launches {bf16_launches}, "
+          f"{f32} {WK.wkv6_bhsn.launches_by_kernel[f32]}; last logits vs the plain chunked "
+          f"form rel err {err17_logits:.3e}, emitted state rel err " + ", ".join(
+              f"{k} {v:.3e}" for k, v in err17_state.items()) + " (limit 5e-2)", flush=True)
+
     h, n = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
     args = wkv_inputs(dev, LM_BATCH, LM_SEQ, h, n, None, "bfloat16", False, seed=17,
                       omega=decay_base_omega(LM_BATCH, LM_SEQ, h, n, 18))
-    abs_err, err17 = against_plain(args, WKV_TOL["bfloat16"], "wkv at the prefill shapes")
-    max_err = max(max_err, abs_err)
-    ms_k = time_ms(lambda: WK.wkv6_bhsn(*args), 10)
-    ms_plain = time_ms(lambda: wkv_chunked_bhsn(*args), 3)
     bh, seq = args[0].shape[:2]
-    # inputs read once (r, k, v in bf16, logw and u in fp32), outputs written
-    # once (out and the final state, fp32); the zero initial state is no input
-    n_bytes = (sum(x.numel() * x.element_size() for x in args[:5])
-               + bh * seq * n * 4 + bh * n * n * 4)
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     # the chunked matrix form, per token and head: scores and intra-chunk
     # products 2 x 2·C·N, inter-chunk output and state update 2 x 2·N·N
     flop = bh * seq * 4 * n * (WKV_CHUNK + n)
-    ops_ms = flop / BF16_FLOP_PER_S * 1e3
-    bound = max(ops_ms, bytes_ms)
-    print(f"phase 17 timing (bf16 r/k/v, BH {bh}, S {seq}, N {n}, decay_base spread): "
-          f"WKV6 kernel {ms_k:.3f} ms ({n_bytes / ms_k / 1e6:.1f} GB/s), plain chunked "
-          f"form {ms_plain:.3f} ms; no single PyTorch call computes WKV6 (library_ms "
-          f"null); bound {bound:.4f} ms (bytes {bytes_ms:.4f} ms: {n_bytes / 1e6:.1f} MB "
-          f"at 3.35 TB/s; operations {ops_ms:.4f} ms: {flop:.3e} FLOP of the chunked "
-          f"matrix form at 989 TFLOP/s bf16); rel err vs plain {err17:.3e}", flush=True)
+    rows = []
+    for dtn, entry, peak, peak_name, launches in (
+            ("bfloat16", bf16, BF16_FLOP_PER_S, "989 TFLOP/s bf16", bf16_launches),
+            ("float32", f32, FP32_FLOP_PER_S, "67 TFLOP/s fp32", rwkv_launches)):
+        x = (*(a.to(torch.float32 if dtn == "float32" else torch.bfloat16) for a in args[:3]),
+             *args[3:])
+        abs_err, err = against_plain(x, WKV_TOL[dtn], f"{dtn} wkv at the prefill shapes")
+        max_err[dtn] = max(max_err[dtn], abs_err)
+        ms_k1, ms_k2 = (time_ms(lambda: WK.wkv6_bhsn(*x), 10) for _ in range(2))
+        ms_k = (ms_k1 + ms_k2) / 2
+        ms_plain = time_ms(lambda: wkv_chunked_bhsn(*x), 3)
+        # inputs read once (r, k, v in their dtype, logw and u in fp32),
+        # outputs written once (out and the final state, fp32); the zero
+        # initial state is no input
+        n_bytes = (sum(a.numel() * a.element_size() for a in x[:5])
+                   + bh * seq * n * 4 + bh * n * n * 4)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flop / peak * 1e3
+        bound = max(ops_ms, bytes_ms)
+        print(f"phase 17 timing ({dtn} r/k/v, {entry}, BH {bh}, S {seq}, N {n}, decay_base "
+              f"spread): WKV6 kernel {ms_k:.4f} ms ({ms_k1:.4f} / {ms_k2:.4f}; "
+              f"{n_bytes / ms_k / 1e6:.1f} GB/s), plain chunked form {ms_plain:.3f} ms; no "
+              f"single PyTorch call computes WKV6 (library_ms null); bound {bound:.4f} ms "
+              f"(bytes {bytes_ms:.4f} ms: {n_bytes / 1e6:.1f} MB at 3.35 TB/s; operations "
+              f"{ops_ms:.4f} ms: {flop:.3e} FLOP of the chunked matrix form at {peak_name}); "
+              f"rel err vs plain {err:.3e}", flush=True)
+        rows.append(dict(
+            name="wkv6_bhsn" if dtn == "bfloat16" else "wkv6_bhsn_fp32", route="cuda",
+            source=f"src/repro_torch/kernels/rwkv6/csrc/"
+            f"{'wkv6_mma.cu' if dtn == 'bfloat16' else 'wkv6.cu'}",
+            replaces="src/repro/kernels/rwkv6/kernel.py:94",
+            launches=launches, max_abs_err=max_err[dtn], ms=ms_k, plain_ms=ms_plain,
+            bound_ms=bound, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            library_ms=None))
+        del x
     del args
-    prefill = make_prefill_step(cfg, logits_mode="last")
-    batch = {"tokens": toks}
-    _, cache_b = prefill(params, batch)
     report_steps(17, params, batch, prefill, make_decode_step(cfg), cache_b)
-    return dict(
-        name="wkv6_bhsn", route="cuda",
-        source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
-        replaces="src/repro/kernels/rwkv6/kernel.py:94",
-        launches=rwkv_launches, max_abs_err=max_err, ms=ms_k, plain_ms=ms_plain,
-        bound_ms=bound, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-        library_ms=None,
-    )
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
 
 
 def main() -> int:
@@ -1016,9 +1108,11 @@ def main() -> int:
           f"Dh<=64, {wgmma_smem_bytes(128)} B at Dh<=128; wgmma serialized by ptxas "
           f"(C7512) in: {', '.join(serialized) or 'none'}): "
           + ptxas_summary(flash_log, flash_kind), flush=True)
-    print(f"phase 1 build: {wkv_lib.name} (dynamic shared memory "
-          f"{(3 * 32 * 64 + 5 * 32 * 32 + 64 + 32) * 4} B a block at N 64): " + ptxas_summary(
-              wkv_lib.with_suffix(".log").read_text(), wkv_kind), flush=True)
+    print(f"phase 1 build: {wkv_lib.name} (dynamic shared memory a block: fp32 "
+          f"{(3 * 32 * 64 + 5 * 32 * 32 + 64 + 32) * 4} B at N 64; bf16-mma "
+          + ", ".join(f"{wkv_mma_smem_bytes(n)} B at N {n}" for n in (16, 32, 64, 128))
+          + "): " + ptxas_summary(wkv_lib.with_suffix(".log").read_text(), wkv_kind),
+          flush=True)
 
     # ------------------------------------- 2. kernel vs plain, small traces
     t_phase = time.perf_counter()
@@ -1321,7 +1415,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.extend(lm_slice(dev))
     torch.cuda.empty_cache()  # the internlm weights are gone; rwkv6-3b's take 12.4 GB
-    kernels.append(rwkv_slice(dev))
+    kernels.extend(rwkv_slice(dev))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 // WKV6 recurrence (RWKV6 "Finch") for NVIDIA Hopper (sm_90a), from a given
-// state to the final one.
+// state to the final one, for fp32 r, k, v on the CUDA cores. bf16 r, k, v
+// go to the tensor-core kernel of wkv6_mma.cu (kernels/rwkv6/kernel.py,
+// KERNELS).
 //
 // Replaces the TPU kernel `wkv6_bhsn` (body `_wkv_kernel`) of
 // src/repro/kernels/rwkv6/kernel.py. Per head, with an N x N state S that
 // maps keys to values:
 //   o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 //   S_t = diag(e^{logw_t}) S_{t-1} + k_t^T v_t
-//   * r, k, v (BH, S, N), fp32 or bf16; logw (BH, S, N) and u (BH, N) fp32;
+//   * r, k, v (BH, S, N), fp32; logw (BH, S, N) and u (BH, N) fp32;
 //     all contiguous and 16-byte aligned;
 //   * state (BH, N, N) fp32, read as the initial state and overwritten with
 //     the final one; out (BH, S, N) fp32;
@@ -20,10 +22,9 @@
 // does not (prefill hands the state to the decode cache).
 //
 // What bounds it on this card: the bytes. At the prefill shapes (BH 160,
-// S 2048, N 64, bf16 r/k/v) the call moves ~0.3 GB (r, k, v, logw in, out
-// and the state) and needs ~5e9 FLOP in the recurrence form, or ~8e9 in the
-// chunked matrix form, far under the ~295 FLOP per byte at which the
-// tensor cores would be the limit. Run on the CUDA cores, though, the
+// S 2048, N 64) the call moves ~0.4 GB in fp32 (r, k, v, logw in, out and
+// the state) and needs ~5e9 FLOP in the recurrence form, far under the
+// fp32 rate of the CUDA cores per byte. Run on the CUDA cores, though, the
 // recurrence issues 3 fp32 instructions per (token, key, value), and this
 // kernel takes several times the byte bound (PERF.md has its time beside
 // the bound). The design: one block owns one head and a tile of 32 value
@@ -39,14 +40,13 @@
 // partials and the bonus term d_t v_t (d_t = sum_n r u k, once per token,
 // a warp reduction) and writes 32 rows at once. The ragged tail is cut by
 // the token count, so the padded tokens of a chunk never touch the state.
-// Tensor cores (the chunked form with wgmma) and overlapping the next
-// chunk's loads with this chunk's work are later work.
+// The tensor cores are for bf16 only (wkv6_mma.cu): the fp32 tolerance
+// (5e-4) rules out bf16 operands.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-// -Xcompiler -fPIC (kernels/rwkv6/_build.py); entry point wkv6_fwd, bound
-// with ctypes.
+// -Xcompiler -fPIC (kernels/rwkv6/_build.py), one library with
+// wkv6_mma.cu; entry point wkv6_fwd_f32, bound with ctypes.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -69,49 +69,22 @@ __host__ __device__ constexpr int smem_floats() {
   return 3 * CH * N + CH * cols<N>() + G * CH * cols<N>() + N + CH;
 }
 
-// Element q of 16 bytes of fp32 or bf16 values, as fp32 (a bf16 value is
-// the upper half of its fp32 bits).
-__device__ __forceinline__ unsigned word(const uint4& x, int i) {
-  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+// Copy n_el floats of src (16-byte aligned, n_el a multiple of 4) to dst,
+// one 16-byte vector a thread per pass.
+template <int THREADS>
+__device__ __forceinline__ void stage(float* dst, const float* src, int n_el) {
+  for (int i = threadIdx.x * 4; i < n_el; i += THREADS * 4)
+    *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(src + i);
 }
 
-template <typename T>
-__device__ __forceinline__ float elem(const uint4& x, int q);
-template <>
-__device__ __forceinline__ float elem<float>(const uint4& x, int q) {
-  return __uint_as_float(word(x, q));
-}
-template <>
-__device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& x, int q) {
-  const unsigned w = word(x, q / 2);
-  return __uint_as_float(q % 2 ? (w & 0xffff0000u) : (w << 16));
-}
-
-template <typename T>
-__device__ __forceinline__ uint4 load16(const T* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-// Copy n_el elements of src (16-byte aligned, n_el a multiple of 16 / sizeof(T))
-// to dst as fp32, one 16-byte vector a thread per pass.
-template <typename T, int THREADS>
-__device__ __forceinline__ void stage(float* dst, const T* src, int n_el) {
-  constexpr int VEC = 16 / sizeof(T);
-  for (int i = threadIdx.x * VEC; i < n_el; i += THREADS * VEC) {
-    const uint4 x = load16(src + i);
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) dst[i + q] = elem<T>(x, q);
-  }
-}
-
-template <typename T, int N>
+template <int N>
 __global__ void __launch_bounds__(threads<N>())
-    wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+    wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                const float* __restrict__ v,
                 const float* __restrict__ logw, const float* __restrict__ u,
                 float* __restrict__ out, float* __restrict__ state, int seq) {
   constexpr int MT = cols<N>(), THREADS = threads<N>(), JPT = N / G;
-  constexpr int VEC = 16 / sizeof(T);
-  static_assert(JPT % 4 == 0 && MT % VEC == 0, "float4 key groups, vector loads of v");
+  static_assert(JPT % 4 == 0 && MT % 4 == 0, "float4 key groups, vector loads of v");
   extern __shared__ float4 smem4[];
   float* rs = reinterpret_cast<float*>(smem4);
   float* ks = rs + CH * N;
@@ -136,14 +109,13 @@ __global__ void __launch_bounds__(threads<N>())
     const int nt = min(CH, seq - t0);
     const size_t row0 = base + (size_t)t0 * N;
     __syncthreads();  // the previous round's buffers have been read
-    stage<T, THREADS>(rs, r + row0, nt * N);
-    stage<T, THREADS>(ks, k + row0, nt * N);
-    stage<float, THREADS>(ws, logw + row0, nt * N);
-    for (int i = tid * VEC; i < nt * MT; i += THREADS * VEC) {
+    stage<THREADS>(rs, r + row0, nt * N);
+    stage<THREADS>(ks, k + row0, nt * N);
+    stage<THREADS>(ws, logw + row0, nt * N);
+    for (int i = tid * 4; i < nt * MT; i += THREADS * 4) {
       const int tt = i / MT, mm = i % MT;
-      const uint4 x = load16(v + row0 + (size_t)tt * N + c0 + mm);
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) vs[i + q] = elem<T>(x, q);
+      *reinterpret_cast<float4*>(vs + i) =
+          *reinterpret_cast<const float4*>(v + row0 + (size_t)tt * N + c0 + mm);
     }
     __syncthreads();
     for (int i = tid; i < nt * N; i += THREADS) ws[i] = expf(ws[i]);  // decay e^{logw}
@@ -190,48 +162,41 @@ __global__ void __launch_bounds__(threads<N>())
   for (int j = 0; j < JPT; ++j) st[(size_t)(j0 + j) * N + c0 + m] = s[j];
 }
 
-template <typename T, int N>
+template <int N>
 cudaError_t launch(const void* r, const void* k, const void* v, const void* logw,
                    const void* u, void* out, void* state, int bh, int seq,
                    cudaStream_t stream) {
   constexpr int bytes = smem_floats<N>() * (int)sizeof(float);
-  auto kernel = wkv6_kernel<T, N>;
+  auto kernel = wkv6_kernel<N>;
   // above 48 KB (N 128) a block's shared memory must be opted into
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(N / cols<N>(), bh);
   kernel<<<grid, threads<N>(), bytes, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(r), static_cast<const float*>(k),
+      static_cast<const float*>(v),
       static_cast<const float*>(logw), static_cast<const float*>(u),
       static_cast<float*>(out), static_cast<float*>(state), seq);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int n, const void* r, const void* k, const void* v, const void* logw,
-                     const void* u, void* out, void* state, int bh, int seq,
-                     cudaStream_t stream) {
-  switch (n) {
-    case 16: return launch<T, 16>(r, k, v, logw, u, out, state, bh, seq, stream);
-    case 32: return launch<T, 32>(r, k, v, logw, u, out, state, bh, seq, stream);
-    case 64: return launch<T, 64>(r, k, v, logw, u, out, state, bh, seq, stream);
-    case 128: return launch<T, 128>(r, k, v, logw, u, out, state, bh, seq, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// dtype of r, k, v: 0 = float32, 1 = bfloat16. `state` is read and then
-// overwritten in place. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a head size or dtype the kernel does not take).
-extern "C" int wkv6_fwd(const void* r, const void* k, const void* v, const void* logw,
-                        const void* u, void* out, void* state, int bh, int seq, int n,
-                        int dtype, void* stream) {
+// dtype of r, k, v: 0 = float32, the only one this entry takes (bf16 is
+// wkv6_fwd_bf16's). `state` is read and then overwritten in place. Returns
+// the cudaError_t of the launch (cudaErrorInvalidValue for a head size or
+// dtype the kernel does not take).
+extern "C" int wkv6_fwd_f32(const void* r, const void* k, const void* v, const void* logw,
+                            const void* u, void* out, void* state, int bh, int seq, int n,
+                            int dtype, void* stream) {
+  if (dtype != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(n, r, k, v, logw, u, out, state, bh, seq, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(n, r, k, v, logw, u, out, state, bh, seq, s);
-  return cudaErrorInvalidValue;
+  switch (n) {
+    case 16: return launch<16>(r, k, v, logw, u, out, state, bh, seq, s);
+    case 32: return launch<32>(r, k, v, logw, u, out, state, bh, seq, s);
+    case 64: return launch<64>(r, k, v, logw, u, out, state, bh, seq, s);
+    case 128: return launch<128>(r, k, v, logw, u, out, state, bh, seq, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

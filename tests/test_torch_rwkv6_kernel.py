@@ -1,6 +1,7 @@
-"""The WKV6 CUDA kernel against its plain PyTorch version.
+"""The WKV6 CUDA kernels against their plain PyTorch version.
 
-Tests marked ``cuda`` build ``csrc/wkv6.cu`` and hold the kernel against the
+Tests marked ``cuda`` build ``csrc/`` (``wkv6.cu``, fp32 on the CUDA cores;
+``wkv6_mma.cu``, bf16 on the tensor cores) and hold each kernel against the
 plain chunked form ``ref.wkv_chunked_bhsn`` on the card, outputs and final
 state, to the reference's tolerances (5e-4 relative for fp32 inputs, 3e-2
 for bf16; ``tests/test_kernels_rwkv6.py``); without a CUDA device they skip.
@@ -9,8 +10,10 @@ This file imports no JAX, so it runs on a machine with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_rwkv6_kernel.py
 
 The rest run anywhere: CPU tensors take the plain version and count no
-launch, the plain forms agree with each other, and the wrapper refuses
-inputs that do not fit together.
+launch, the plain forms agree with each other, a model of the tensor-core
+kernel's arithmetic (``mma_model``) holds the reference's bf16 tolerance,
+each dtype names its kernel, and the wrapper refuses inputs that do not fit
+together.
 """
 import numpy as np
 import pytest
@@ -22,6 +25,8 @@ from repro_torch.kernels.rwkv6 import kernel as K
 from repro_torch.kernels.rwkv6 import ops
 from repro_torch.kernels.rwkv6.ref import fold_heads, wkv6_ref, wkv_chunked_bhsn
 from repro_torch.models import forward, init_model
+
+LOG2E = 1.4426950408889634
 
 # (b, s, h, n, omega_hi, dtype, initial state): tests/test_kernels_rwkv6.py's
 # five cases, then ragged lengths, a nonzero state and the reduced head size
@@ -71,6 +76,66 @@ def decay_base_omega(b, s, h, n, seed):
     """rwkv6's decay_base spread over a head's channels, plus 0.1 noise."""
     base = -6.0 + 7.0 * np.linspace(0.0, 1.0, n) ** 1.5
     return base + 0.1 * np.random.default_rng(seed).standard_normal((b, s, h, n))
+
+
+def extreme_omega(b, s, h, n, seed):
+    """Decay draws up to omega 3.5 (logw down to -33 a token): a factoring
+    of the decay about any point inside a 16-token block overflows."""
+    return np.random.default_rng(seed).uniform(-6.0, 3.5, (b, s, h, n))
+
+
+def bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def mma_model(r, k, v, logw, u, state=None, chunk=64):
+    """The arithmetic of ``csrc/wkv6_mma.cu`` in plain torch on (BH, S, N):
+    chunks of ``chunk`` tokens in 16-token sub-blocks; the decay in base 2
+    (cum = running sum of logw·log2 e per channel, cum_ex its exclusive
+    form); off-diagonal scores of sub-blocks i > j about the reference point
+    cum[e_j] (e_j the last token of block j), from bf16 Q~ and K~; diagonal
+    blocks pairwise in fp32 by the running product k·w[s+1]···w[t-1], with
+    the bonus r·u·k on the diagonal; the scores, the decayed r and k and the
+    copy of the state that the products read rounded to bf16; the state
+    itself in fp32. -> (out (BH, S, N), state (BH, N, N)), fp32."""
+    bh, s, n = r.shape
+    pad = (-s) % chunk
+    padded = [torch.nn.functional.pad(x.float(), (0, 0, 0, pad)) for x in (r, k, v, logw)]
+    rf, kf, vf, lw = padded
+    st = (torch.zeros(bh, n, n) if state is None else state.float()).clone()
+    uf = u.float()
+    nb = chunk // 16
+    outs = []
+    for c0 in range(0, s + pad, chunk):
+        rc, kc, vc = (x[:, c0:c0 + chunk] for x in (rf, kf, vf))
+        lw2 = lw[:, c0:c0 + chunk] * LOG2E
+        cum = lw2.cumsum(1)
+        cum_ex = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
+        ends = cum[:, 15::16]  # (BH, nb, N): cum at each block's last token
+        ref_pt = ends.repeat_interleave(16, 1)  # cum[e_j(s)] per token s
+        kt = bf16(kc * torch.exp2(ref_pt - cum))
+        a = torch.zeros(bh, chunk, chunk)
+        for i in range(nb):
+            ti = slice(16 * i, 16 * i + 16)
+            for j in range(i):
+                qt = bf16(rc[:, ti] * torch.exp2(cum_ex[:, ti] - ends[:, j:j + 1]))
+                a[:, ti, 16 * j:16 * j + 16] = qt @ kt[:, 16 * j:16 * j + 16].transpose(1, 2)
+            # the diagonal block, pairwise: g_s = k[s] w[s+1] ... w[t-1]
+            g = kc[:, ti].clone()
+            w = torch.exp2(lw2[:, ti])
+            sidx = torch.arange(16)
+            for t in range(16):
+                live = (sidx < t)[None, :, None]
+                a[:, 16 * i + t, ti] = torch.where(
+                    sidx[None] < t, torch.einsum("bn,bsn->bs", rc[:, 16 * i + t], g), 0.0)
+                g = torch.where(live, g * w[:, t:t + 1], g)
+            a[:, ti, ti] += torch.diag_embed((rc[:, ti] * uf[:, None] * kc[:, ti]).sum(-1))
+        o = bf16(a) @ vc + bf16(rc * torch.exp2(cum_ex)) @ bf16(st)
+        last = cum[:, -1:]
+        kh = bf16(kc * torch.exp2(last - cum))
+        st = torch.exp2(last).transpose(1, 2) * st + kh.transpose(1, 2) @ vc
+        outs.append(o)
+    return torch.cat(outs, 1)[:, :s], st
 
 
 # ------------------------------------------------------------------ CPU
@@ -136,13 +201,68 @@ def test_entry_point_folds_heads_and_carries_the_state():
     assert rel_err(st.reshape(b * h, n, n), want_st) < 5e-4
 
 
-def test_library_name_follows_the_source(tmp_path, monkeypatch):
+@pytest.mark.parametrize("attr", ["SOURCE", "MMA_SOURCE"])
+def test_library_name_follows_the_source(tmp_path, monkeypatch, attr):
+    """The library's name hashes both sources: an edit of either renames it."""
     first = _build.library_path()
     assert first.parent == _build.BUILD_DIR and first.name.startswith("libwkv6_")
-    src = tmp_path / "wkv6.cu"
-    src.write_text(_build.SOURCE.read_text() + "\n// edited\n")
-    monkeypatch.setattr(_build, "SOURCE", src)
+    src = tmp_path / getattr(_build, attr).name
+    src.write_text(getattr(_build, attr).read_text() + "\n// edited\n")
+    monkeypatch.setattr(_build, attr, src)
     assert _build.library_path() != first
+
+
+def test_each_dtype_names_its_kernel():
+    """bf16 launches the tensor-core kernel, fp32 the CUDA-core one: each
+    entry point is defined in its own source, and only the bf16 source
+    issues mma.sync, ldmatrix and cp.async."""
+    assert set(K.KERNELS) == {torch.float32, torch.bfloat16}
+    assert sorted(K.KERNELS.values()) == sorted(_build.ENTRY_POINTS)
+    cores, tensor_cores = _build.SOURCE.read_text(), _build.MMA_SOURCE.read_text()
+    assert f'extern "C" int {K.KERNELS[torch.float32]}(' in cores
+    assert f'extern "C" int {K.KERNELS[torch.bfloat16]}(' in tensor_cores
+    for op in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32", "ldmatrix.sync",
+               "cp.async.cg.shared.global", "cp.async.wait_group"):
+        assert op in tensor_cores and op not in cores
+    assert _build.sources() == [_build.SOURCE, _build.MMA_SOURCE]
+    K.reset_launches()
+    assert K.wkv6_bhsn.launches == 0
+    assert K.wkv6_bhsn.launches_by_kernel == dict.fromkeys(K.KERNELS.values(), 0)
+
+
+# (b, s, h, n, decay, initial state, chunk) for the model of the tensor-core
+# kernel: the decay_base spread, a uniform draw, the extreme decay, ragged
+# lengths about its 16-token blocks and 64-token chunks, and the head sizes
+# whose chunk differs (N 128 runs 32-token chunks)
+MODEL_CASES = (
+    [(1, 256, 2, 64, "spread", True, 64), (2, 200, 2, 64, "uniform", False, 64),
+     (1, 200, 2, 64, "extreme", True, 64), (1, 130, 2, 128, "spread", True, 32),
+     (2, 90, 3, 16, "uniform", True, 64)]
+    + [(1, s, 2, 32, "uniform", st, 64) for s in (1, 15, 17, 65) for st in (False, True)]
+)
+OMEGA = {"spread": decay_base_omega, "extreme": extreme_omega, "uniform": None}
+
+
+def model_case_id(c):
+    return f"b{c[0]}s{c[1]}h{c[2]}n{c[3]}-{c[4]}{'-state' if c[5] else ''}-c{c[6]}"
+
+
+def bf16_inputs(b, s, h, n, decay, with_state, seed, device="cpu"):
+    omega = OMEGA[decay] and OMEGA[decay](b, s, h, n, seed + 1)
+    return inputs(b, s, h, n, 0.5, "bfloat16", with_state, seed=seed, device=device,
+                  omega=omega)
+
+
+@pytest.mark.parametrize("case", MODEL_CASES, ids=model_case_id)
+def test_mma_model_holds_the_bf16_tolerance(case):
+    """The tensor-core kernel's arithmetic, bf16 roundings and all, against
+    the exact scan within the bf16 tolerance, outputs and final state."""
+    *shape, decay, with_state, chunk = case
+    args = bf16_inputs(*shape, decay, with_state, seed=20)
+    out, st = mma_model(*args, chunk=chunk)
+    want, want_st = wkv6_ref(*args)
+    assert torch.isfinite(out).all() and torch.isfinite(st).all()
+    assert rel_err(out, want) < 3e-2 and rel_err(st, want_st) < 3e-2
 
 
 # ------------------------------------------------------------------ card
@@ -187,6 +307,69 @@ def test_kernel_is_exact_at_the_decay_base_spread(cuda_device):
     out, st = K.wkv6_bhsn(*args)
     want, want_st = wkv6_ref(*args)
     assert rel_err(out, want) < 5e-4 and rel_err(st, want_st) < 5e-4
+
+
+# bf16 through the tensor-core kernel: every head size; ragged lengths about
+# its 16-token blocks and 64-token chunks, with and without a state; the
+# decay_base spread and the extreme decay (b, s, h, n, decay, initial state)
+BF16 = (
+    [(1, 200, 4, n, "uniform", True) for n in K.HEAD_SIZES]
+    + [(1, s, 2, 64, "uniform", st) for s in (1, 15, 16, 17, 63, 65, 1000)
+       for st in (False, True)]
+    + [(2, 512, 4, 64, "spread", True), (1, 300, 2, 128, "spread", False),
+       (1, 333, 3, 16, "spread", True)]
+    + [(2, 256, 4, 64, "extreme", True), (1, 100, 2, 32, "extreme", False),
+       (1, 150, 2, 128, "extreme", True)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16, ids=lambda c: model_case_id((*c, 64)))
+def test_bf16_kernel_matches_plain(cuda_device, case):
+    args = bf16_inputs(*case, seed=21, device=cuda_device)
+    before = dict(K.wkv6_bhsn.launches_by_kernel)
+    out, st = K.wkv6_bhsn(*args)
+    torch.cuda.synchronize()
+    assert K.wkv6_bhsn.launches_by_kernel["wkv6_fwd_bf16"] == before["wkv6_fwd_bf16"] + 1
+    assert K.wkv6_bhsn.launches_by_kernel["wkv6_fwd_f32"] == before["wkv6_fwd_f32"]
+    want, want_st = wkv_chunked_bhsn(*args)
+    assert out.dtype == torch.float32 and out.shape == args[0].shape
+    assert torch.isfinite(out).all() and torch.isfinite(st).all()
+    assert rel_err(out, want) < 3e-2 and rel_err(st, want_st) < 3e-2
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_carries_the_state_across_calls(cuda_device):
+    r, k, v, logw, u, st0 = bf16_inputs(1, 300, 2, 64, "spread", True, seed=22,
+                                        device=cuda_device)
+    full, full_st = K.wkv6_bhsn(r, k, v, logw, u, st0)
+    o1, st = K.wkv6_bhsn(r[:, :100], k[:, :100], v[:, :100], logw[:, :100], u, st0)
+    o2, st = K.wkv6_bhsn(r[:, 100:], k[:, 100:], v[:, 100:], logw[:, 100:], u, st)
+    want, want_st = wkv_chunked_bhsn(r, k, v, logw, u, st0)
+    assert rel_err(torch.cat([o1, o2], 1), want) < 3e-2 and rel_err(st, want_st) < 3e-2
+    assert rel_err(torch.cat([o1, o2], 1), full) < 3e-2 and rel_err(st, full_st) < 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, name, other", [
+    (torch.bfloat16, "wkv6_mma_kernel", "wkv6_kernel"),
+    (torch.float32, "wkv6_kernel", "wkv6_mma_kernel"),
+])
+def test_dtype_launches_its_kernel(cuda_device, dtype, name, other):
+    """The device kernels a call runs, as the profiler names them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = inputs(1, 128, 2, 64, 0.5, "float32", True, seed=23, device=cuda_device)
+    args = (*(x.to(dtype) for x in args[:3]), *args[3:])
+    K.wkv6_bhsn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        K.wkv6_bhsn(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any(name in n for n in names), names
+    assert not any(other in n for n in names), names
 
 
 @pytest.mark.cuda
