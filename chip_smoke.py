@@ -750,15 +750,15 @@ def wkv_kind(entry: str) -> str:
     return f"{'bf16-mma' if m[1] else 'fp32'}/N{m[2]}"
 
 
-def wkv_mma_smem_bytes(n: int, stages: int = 2) -> int:
+def wkv_mma_smem_bytes(n: int) -> int:
     """Dynamic shared memory of a tensor-core WKV6 block (``Plan<N>::BYTES``
-    of ``csrc/wkv6_mma.cu``): per stage r, k (C rows of N + 8 bf16), v (C
+    of ``csrc/wkv6_mma.cu``): the stage's r, k (C rows of N + 8 bf16), v (C
     rows of MT + 8 bf16) and logw (C x N fp32); then cum (C rows of N + 4
     fp32), K~ (C rows of N + 8 bf16), the state's bf16 copy (MT rows of
     N + 8), four 16 x 24 bf16 diagonal blocks, u and the scan's sums."""
-    mt, c = min(n, 32), 32 if n == 128 else 64
+    mt, c = min(n, 64), 32 if n == 128 else 64
     stage = 2 * c * (n + 8) * 2 + c * (mt + 8) * 2 + c * n * 4
-    return (stages * stage + c * (n + 4) * 4 + c * (n + 8) * 2 + mt * (n + 8) * 2
+    return (stage + c * (n + 4) * 4 + c * (n + 8) * 2 + mt * (n + 8) * 2
             + 4 * 16 * 24 * 2 + n * 4 + 128 // n * n * 4)
 
 

@@ -18,8 +18,12 @@
 // ~8e9 FLOP, 8 us on the tensor cores against ~88 us for the bytes. So the
 // design spends nothing on the tensor cores' full rate (no wgmma, no TMA):
 // warp-level mma.sync.m16n8k16 (bf16 in, fp32 accumulate) for the
-// products, and the next chunk's r, k, v, logw copied by cp.async into a
-// second stage while this chunk computes.
+// products, and the next chunk's r, k, v, logw copied by cp.async into the
+// stage as soon as this chunk's last reader of each is done. (A second
+// stage costs an SM one of its blocks in flight and was slower on the
+// H100; PERF.md has the times.) Measured, the kernel is bound by the
+// instructions it issues, not by the bytes: the diagonal blocks on the CUDA
+// cores take about 40 % of a chunk.
 //
 // The chunked form, exact for any decay (no clamp; the Pallas kernel
 // clamps the within-chunk decay at -30, which is wrong at rwkv6's own
@@ -44,16 +48,17 @@
 // the decayed r and k, the scores and the state's copy to bf16 costs about
 // 2^-9 relative a term, inside the 3e-2 bf16 tolerance.
 //
-// Layout: one block per (head, 32 value columns) (16 at N 16), 4 warps.
-// C is 64 (32 at N 128, for shared memory). Warp w owns token rows
-// [16 (w % RB), +16) of a chunk (RB = C / 16 row blocks) and, where RB is 2,
-// half of the block's value columns; it computes its scores, its diagonal
-// block and its output tile. For the state, warp w owns the key rows of the
-// 16-row m-tiles w, w + 4, ... (all value columns). Shared memory at N 64:
-// two stages of 39,936 B and 35,072 B of derived tiles, so two blocks fit
-// on an SM. Padded tokens of a ragged last chunk are zero-filled by
-// cp.async (k = v = r = 0, logw = 0: decay 1), so they leave the state as
-// it is, and their rows are never stored.
+// Layout: one block per (head, 64 value columns) (all N columns up to N 64:
+// the work on keys, which is most of it, is then done once a head), 4
+// warps. C is 64 (32 at N 128, for shared memory). Warp w owns token rows
+// [16 (w % RB), +16) of a chunk (RB = C / 16 row blocks) and, where RB is
+// 2, half of the block's value columns; it computes its scores, its
+// diagonal block and its output tile. For the state, warp w owns the key
+// rows of the 16-row m-tiles w, w + 4, ... (all value columns). Shared
+// memory at N 64: a stage of 44,032 B and 39,680 B of derived tiles, so
+// two blocks fit on an SM. Padded tokens of a ragged last chunk are
+// zero-filled by cp.async (k = v = r = 0, logw = 0: decay 1), so they leave
+// the state as it is, and their rows are never stored.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (kernels/rwkv6/_build.py), one library with wkv6.cu;
@@ -132,7 +137,6 @@ __device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w <<
 __device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 constexpr int THREADS = 128, WARPS = 4;
-constexpr int STAGES = 1;  // chunks in shared memory at once
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shapes and the shared-memory plan of one head size. bf16 rows are padded
@@ -140,7 +144,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 // in distinct banks; cum's fp32 rows by 4.
 template <int N>
 struct Plan {
-  static constexpr int MT = N < 32 ? N : 32;  // value columns of a block
+  static constexpr int MT = N < 64 ? N : 64;  // value columns of a block
   static constexpr int C = N == 128 ? 32 : 64;  // tokens a chunk
   static constexpr int RB = C / 16;             // row blocks of a chunk
   static constexpr int CG = WARPS / RB;         // warps sharing a row block
@@ -154,7 +158,7 @@ struct Plan {
   static constexpr int RS = N + 8;              // row stride of r, k, K~, S_bf16
   static constexpr int VS = MT + 8;             // row stride of v
   static constexpr int CS = N + 4;              // row stride of cum
-  // one stage: r, k (C x RS bf16), v (C x VS bf16), logw (C x N fp32)
+  // the stage: r, k (C x RS bf16), v (C x VS bf16), logw (C x N fp32)
   static constexpr int R_OFF = 0;
   static constexpr int K_OFF = R_OFF + C * RS * 2;
   static constexpr int V_OFF = K_OFF + C * RS * 2;
@@ -163,7 +167,7 @@ struct Plan {
   // derived tiles: cum (fp32), K~ then K^ (bf16), the state's bf16 copy
   // (S^T: MT x RS), each warp's diagonal block (16 x 24 bf16), u, the scan's
   // segment sums
-  static constexpr int CUM_OFF = STAGES * STAGE;
+  static constexpr int CUM_OFF = STAGE;
   static constexpr int KT_OFF = CUM_OFF + C * CS * 4;
   static constexpr int SB_OFF = KT_OFF + C * RS * 2;
   static constexpr int D_OFF = SB_OFF + MT * RS * 2;
@@ -257,52 +261,49 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
   for (int i = tid; i < N; i += THREADS) us[i] = u[(size_t)bh * N + i];
 
-  auto issue = [&](int chunk, int stage) {
-    unsigned char* sbase = smem + stage * P::STAGE;
+  // r, k, v or logw of a chunk into the stage by 16-byte cp.async copies
+  // (8 bf16 or 4 fp32 each); rows past the sequence are zero-filled
+  enum { R = 1, K = 2, V = 4, W = 8 };
+  auto issue = [&](int chunk, int parts) {
     const int t0 = chunk * C, nt = min(C, seq - t0);
-    for (int i = tid; i < C * N / 8; i += THREADS) {  // r, k: 8 bf16 a copy
-      const int row = i / (N / 8), cv = 8 * (i % (N / 8));
-      const bool live = row < nt;
-      const size_t src = live ? base + (size_t)(t0 + row) * N + cv : 0;
-      cp_async16(sbase + P::R_OFF + (row * RS + cv) * 2, r + src, live ? 16 : 0);
-      cp_async16(sbase + P::K_OFF + (row * RS + cv) * 2, k + src, live ? 16 : 0);
+    if (parts & (R | K)) {
+      for (int i = tid; i < C * N / 8; i += THREADS) {
+        const int row = i / (N / 8), cv = 8 * (i % (N / 8));
+        const bool live = row < nt;
+        const size_t src = live ? base + (size_t)(t0 + row) * N + cv : 0;
+        if (parts & R) cp_async16(smem + P::R_OFF + (row * RS + cv) * 2, r + src, live ? 16 : 0);
+        if (parts & K) cp_async16(smem + P::K_OFF + (row * RS + cv) * 2, k + src, live ? 16 : 0);
+      }
     }
-    for (int i = tid; i < C * MT / 8; i += THREADS) {  // v: the block's columns
-      const int row = i / (MT / 8), cv = 8 * (i % (MT / 8));
-      const bool live = row < nt;
-      const size_t src = live ? base + (size_t)(t0 + row) * N + c0 + cv : 0;
-      cp_async16(sbase + P::V_OFF + (row * VS + cv) * 2, v + src, live ? 16 : 0);
+    if (parts & V) {  // the block's columns
+      for (int i = tid; i < C * MT / 8; i += THREADS) {
+        const int row = i / (MT / 8), cv = 8 * (i % (MT / 8));
+        const bool live = row < nt;
+        const size_t src = live ? base + (size_t)(t0 + row) * N + c0 + cv : 0;
+        cp_async16(smem + P::V_OFF + (row * VS + cv) * 2, v + src, live ? 16 : 0);
+      }
     }
-    for (int i = tid; i < C * N / 4; i += THREADS) {  // logw: 4 fp32 a copy
-      const int row = i / (N / 4), cv = 4 * (i % (N / 4));
-      const bool live = row < nt;
-      const size_t src = live ? base + (size_t)(t0 + row) * N + cv : 0;
-      cp_async16(sbase + P::W_OFF + (row * N + cv) * 4, logw + src, live ? 16 : 0);
+    if (parts & W) {
+      for (int i = tid; i < C * N / 4; i += THREADS) {
+        const int row = i / (N / 4), cv = 4 * (i % (N / 4));
+        const bool live = row < nt;
+        const size_t src = live ? base + (size_t)(t0 + row) * N + cv : 0;
+        cp_async16(smem + P::W_OFF + (row * N + cv) * 4, logw + src, live ? 16 : 0);
+      }
     }
   };
 
   const int chunks = (seq + C - 1) / C;
-  if (STAGES == 2 && chunks > 0) {
-    issue(0, 0);
-    cp_async_commit();
-  }
+  if (chunks > 0) issue(0, R | K | V | W);
   for (int c = 0; c < chunks; ++c) {
-    const int stage = STAGES == 2 ? c & 1 : 0;
-    if (STAGES == 2) {
-      if (c + 1 < chunks) issue(c + 1, (c + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      issue(c, 0);
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
+    const bool more = c + 1 < chunks;
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();  // this chunk's stage and the state's bf16 copy are in
-    unsigned char* sbase = smem + stage * P::STAGE;
-    const __nv_bfloat16* rs = reinterpret_cast<const __nv_bfloat16*>(sbase + P::R_OFF);
-    const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(sbase + P::K_OFF);
-    const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(sbase + P::V_OFF);
-    float* ws = reinterpret_cast<float*>(sbase + P::W_OFF);  // logw, then w = e^{logw}
+    const __nv_bfloat16* rs = reinterpret_cast<const __nv_bfloat16*>(smem + P::R_OFF);
+    const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(smem + P::K_OFF);
+    const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(smem + P::V_OFF);
+    float* ws = reinterpret_cast<float*>(smem + P::W_OFF);  // logw, then w = e^{logw}
     const int t0 = c * C, nt = min(C, seq - t0);
 
     // cum per channel, SEGS segments of a channel scanned side by side
@@ -353,7 +354,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       }
       d += __shfl_xor_sync(0xffffffffu, d, 16);
       for (int t = 0; t < 16; ++t) {
-        float a = 0.f;
+        float a = 0.f, ap[4] = {0.f, 0.f, 0.f, 0.f};  // 4 chains, not one
         if (t > s) {
 #pragma unroll
           for (int c8 = 0; c8 < HN / 8; ++c8) {
@@ -366,12 +367,13 @@ __global__ void __launch_bounds__(THREADS, 2)
             const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              a = fmaf(bf_lo(rw[e]), gk[8 * c8 + 2 * e], a);
-              a = fmaf(bf_hi(rw[e]), gk[8 * c8 + 2 * e + 1], a);
+              ap[e] = fmaf(bf_lo(rw[e]), gk[8 * c8 + 2 * e], ap[e]);
+              ap[e] = fmaf(bf_hi(rw[e]), gk[8 * c8 + 2 * e + 1], ap[e]);
             }
 #pragma unroll
             for (int e = 0; e < 8; ++e) gk[8 * c8 + e] *= wv[e];
           }
+          a = (ap[0] + ap[1]) + (ap[2] + ap[3]);
         }
         a += __shfl_xor_sync(0xffffffffu, a, 16);
         if (h == 0) dg[t * 24 + s] = __float2bfloat16_rn(t > s ? a : (t == s ? d : 0.f));
@@ -439,9 +441,11 @@ __global__ void __launch_bounds__(THREADS, 2)
         }
       }
     }
-    __syncthreads();  // every warp is done with K~ and S_bf16
+    __syncthreads();  // every warp is done with K~, S_bf16, r and w
+    if (more) issue(c + 1, R | W);
     decayed_k<N, true>(kt, ks, cum);  // K^
     __syncthreads();
+    if (more) issue(c + 1, K);
 
     // the state: S <- 2^{cum[C-1]} S + K^^T V, and its bf16 copy
 #pragma unroll
@@ -478,7 +482,8 @@ __global__ void __launch_bounds__(THREADS, 2)
           }
       }
     }
-    __syncthreads();  // the stage may be refilled; S_bf16 is complete
+    __syncthreads();  // v may be refilled; S_bf16 is complete
+    if (more) issue(c + 1, V);
   }
 
 #pragma unroll
