@@ -227,16 +227,21 @@ def tick_loop_ops(ins: list) -> dict:
     return {k: v / ticks for k, v in counts.items()}
 
 
-def kernel_tick_ops(lib: Path, kernel: str) -> dict:
-    """tick_loop_ops of the one kernel in ``lib`` whose mangled name holds
-    ``kernel`` (e.g. ``sync_window_kernelILi5E``), read with cuobjdump."""
+def library_sass(lib: Path) -> str:
+    """``cuobjdump -sass`` of a built library."""
     import shutil
 
     from repro_torch._nvcc import nvcc_path
 
     tool = shutil.which("cuobjdump") or str(Path(nvcc_path()).with_name("cuobjdump"))
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+
+
+def kernel_tick_ops(lib: Path, kernel: str) -> dict:
+    """tick_loop_ops of the one kernel in ``lib`` whose mangled name holds
+    ``kernel`` (e.g. ``sync_window_kernelILi5E``), read with cuobjdump."""
+    sass = library_sass(lib)
     found = [ins for name, ins in sass_functions(sass).items()
              if kernel in name]
     if len(found) != 1:
@@ -1108,9 +1113,23 @@ def main() -> int:
           f"Dh<=64, {wgmma_smem_bytes(128)} B at Dh<=128; wgmma serialized by ptxas "
           f"(C7512) in: {', '.join(serialized) or 'none'}): "
           + ptxas_summary(flash_log, flash_kind), flush=True)
+    # the tensor-core kernel issues mma.sync (HMMA) and cp.async (LDGSTS);
+    # the CUDA-core one neither
+    wkv_ops = {}
+    for name, ins in sass_functions(library_sass(wkv_lib)).items():
+        kind = wkv_kind(name)
+        for op in ("HMMA", "LDGSTS"):
+            wkv_ops[kind, op] = wkv_ops.get((kind, op), 0) + sum(
+                o.startswith(op) for _, _, o, _ in ins)
+    for (kind, op), count in wkv_ops.items():
+        check((count > 0) == kind.startswith("bf16-mma"),
+              f"{wkv_lib.name}: {kind} holds {count} {op} instructions")
     print(f"phase 1 build: {wkv_lib.name} (dynamic shared memory a block: fp32 "
           f"{(3 * 32 * 64 + 5 * 32 * 32 + 64 + 32) * 4} B at N 64; bf16-mma "
           + ", ".join(f"{wkv_mma_smem_bytes(n)} B at N {n}" for n in (16, 32, 64, 128))
+          + "; SASS HMMA / LDGSTS " + ", ".join(
+              f"{kind} {wkv_ops[kind, 'HMMA']} / {wkv_ops[kind, 'LDGSTS']}"
+              for kind in sorted({k for k, _ in wkv_ops}))
           + "): " + ptxas_summary(wkv_lib.with_suffix(".log").read_text(), wkv_kind),
           flush=True)
 
