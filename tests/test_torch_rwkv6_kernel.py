@@ -363,7 +363,7 @@ def test_dtype_launches_its_kernel(cuda_device, dtype, name, other):
     args = (*(x.to(dtype) for x in args[:3]), *args[3:])
     K.wkv6_bhsn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         K.wkv6_bhsn(*args)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
