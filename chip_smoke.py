@@ -65,12 +65,13 @@ Phases (one line each):
  17. a 4 x 2048 bf16 prefill through the tensor-core kernel (32 launches of
      ``wkv6_fwd_bf16``, none of ``wkv6_fwd_f32``) against the same prefill
      with the plain chunked form, last logits and the emitted state to a
-     relative error below 5e-2; then, for each WKV6 kernel, its and the
-     plain form's times at the prefill shapes (bf16 r/k/v for the
-     tensor-core kernel, their fp32 cast for the CUDA-core one) and the
-     bound (the larger of the bytes over the memory rate and the chunked
-     matrix form's FLOPs over the dtype's peak); bf16 prefill and decode
-     step times.
+     relative error below 5e-2 (beside them, the same prefill with an
+     fp32-exact WKV, as the bf16 model's own spread); then, for each WKV6
+     kernel, its and the plain form's times at the prefill shapes (bf16
+     r/k/v for the tensor-core kernel, their fp32 cast for the CUDA-core
+     one) and the bound (the larger of the bytes over the memory rate and
+     the chunked matrix form's FLOPs over the dtype's peak); bf16 prefill
+     and decode step times.
 The line before the last holds every kernel's launches on its main path
 (phases 3-6; the phase-12 bf16 prefill for the tensor-core flash kernel,
 the phase-9 prefill and phase-11 serving for the CUDA-core one; the
@@ -802,16 +803,20 @@ def decay_base_omega(b, s, h, n, seed):
     return base + 0.1 * np.random.default_rng(seed).standard_normal((b, s, h, n))
 
 
-class PlainWKV:
-    """Within this block the model's WKV6 recurrence runs the plain chunked
-    form on the card (the yardstick of phases 14 and 17), not a kernel."""
+class SwapWKV:
+    """Within this block the model's WKV6 recurrence runs ``fn`` in place of
+    the kernel wrapper: by default the plain chunked form on the card (the
+    yardstick of phases 14 and 17)."""
+
+    def __init__(self, fn=None):
+        self.fn = fn
 
     def __enter__(self):
         from repro_torch.kernels.rwkv6 import ops
         from repro_torch.kernels.rwkv6.ref import wkv_chunked_bhsn
 
         self.ops, self.saved = ops, ops.wkv6_bhsn
-        ops.wkv6_bhsn = wkv_chunked_bhsn
+        ops.wkv6_bhsn = self.fn or wkv_chunked_bhsn
 
     def __exit__(self, *exc):
         self.ops.wkv6_bhsn = self.saved
@@ -913,7 +918,7 @@ def rwkv_slice(dev) -> list:
     check(prefill_launches == WK.wkv6_bhsn.launches == cfg.n_layers,
           f"fp32 prefill launched {f32} {prefill_launches} times (all WKV6 kernels "
           f"{WK.wkv6_bhsn.launches}), not {cfg.n_layers}")
-    with PlainWKV():
+    with SwapWKV():
         logits_p, cache_p = prefill32(params, {"tokens": toks})
     sync()
     check(WK.wkv6_bhsn.launches == prefill_launches, "plain prefill launched")
@@ -978,7 +983,7 @@ def rwkv_slice(dev) -> list:
           and WK.wkv6_bhsn.launches_by_kernel[f32] == 0,
           f"bf16 prefill launched {bf16} {bf16_launches} times and {f32} "
           f"{WK.wkv6_bhsn.launches_by_kernel[f32]} times, not {cfg.n_layers} and 0")
-    with PlainWKV():
+    with SwapWKV():
         logits_bp, cache_bp = prefill(params, batch)
     sync()
     check(WK.wkv6_bhsn.launches == bf16_launches, "plain bf16 prefill launched")
@@ -990,11 +995,24 @@ def rwkv_slice(dev) -> list:
     check(err17_logits < 5e-2 and max(err17_state.values()) < 5e-2,
           f"bf16 prefill kernel vs plain: logits rel err {err17_logits:.3e}, "
           f"state {err17_state}")
-    del logits_bp, cache_bp
+
+    # the bf16 model's own spread: the same prefill with a WKV exact to fp32
+    # (the CUDA-core kernel on the fp32 cast), against the same plain run
+    def exact_wkv(r, k, v, logw, u, state=None):
+        return WK.wkv6_bhsn(r.float(), k.float(), v.float(), logw, u, state)
+
+    with SwapWKV(exact_wkv):
+        logits_bx, cache_bx = prefill(params, batch)
+    sync()
+    floor_logits = rel_err(logits_bx, logits_bp)
+    floor_state = {name: rel_err(cache_bx[name], cache_bp[name]) for name in cache_bx}
+    del logits_bp, cache_bp, logits_bx, cache_bx
     print(f"phase 17 bf16 prefill {LM_BATCH} x {LM_SEQ}: {bf16} launches {bf16_launches}, "
-          f"{f32} {WK.wkv6_bhsn.launches_by_kernel[f32]}; last logits vs the plain chunked "
-          f"form rel err {err17_logits:.3e}, emitted state rel err " + ", ".join(
-              f"{k} {v:.3e}" for k, v in err17_state.items()) + " (limit 5e-2)", flush=True)
+          f"{f32} 0; last logits vs the plain chunked form rel err {err17_logits:.3e}, "
+          "emitted state rel err " + ", ".join(f"{k} {v:.3e}" for k, v in err17_state.items())
+          + f" (limit 5e-2); with an fp32-exact WKV in place of the kernel: logits "
+          f"{floor_logits:.3e}, state " + ", ".join(
+              f"{k} {v:.3e}" for k, v in floor_state.items()), flush=True)
 
     h, n = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
     args = wkv_inputs(dev, LM_BATCH, LM_SEQ, h, n, None, "bfloat16", False, seed=17,
