@@ -13,17 +13,18 @@
 //     the final one; out (BH, S, N) fp32;
 //   * N is 16, 32, 64 or 128; S is any length.
 //
-// What bounds it on this card: the bytes. At the prefill shapes (BH 160,
-// S 2048, N 64) the call moves ~0.3 GB and the chunked matrix form needs
-// ~8e9 FLOP, 8 us on the tensor cores against ~88 us for the bytes. So the
-// design spends nothing on the tensor cores' full rate (no wgmma, no TMA):
-// warp-level mma.sync.m16n8k16 (bf16 in, fp32 accumulate) for the
-// products, and the next chunk's r, k, v, logw copied by cp.async into the
-// stage as soon as this chunk's last reader of each is done. (A second
+// The least time for the work on this card is the bytes'. At the prefill
+// shapes (BH 160, S 2048, N 64) the call moves ~0.3 GB and the chunked
+// matrix form needs ~8e9 FLOP, 8 us on the tensor cores against ~88 us for
+// the bytes. So the design spends nothing on the tensor cores' full rate
+// (no wgmma, no TMA): warp-level mma.sync.m16n8k16 (bf16 in, fp32
+// accumulate) for the products, and the next chunk's r, k, v, logw copied
+// by cp.async into the stage as soon as this chunk's last reader of each is
+// done. (A second
 // stage costs an SM one of its blocks in flight and was slower on the
 // H100; PERF.md has the times.) Measured, the kernel is bound by the
 // instructions it issues, not by the bytes: the diagonal blocks on the CUDA
-// cores take about 40 % of a chunk.
+// cores take 35-40 % of a chunk (tools/wkv6_sections.py).
 //
 // The chunked form, exact for any decay (no clamp; the Pallas kernel
 // clamps the within-chunk decay at -30, which is wrong at rwkv6's own
