@@ -64,9 +64,11 @@ Phases (one line each):
  16. ``ServeEngine`` in bf16: 8 requests on 4 slots, 16 new tokens each;
  17. a 4 x 2048 bf16 prefill through the tensor-core kernel (32 launches of
      ``wkv6_fwd_bf16``, none of ``wkv6_fwd_f32``) against the same prefill
-     with the plain chunked form, last logits and the emitted state to a
-     relative error below 5e-2 (beside them, the same prefill with an
-     fp32-exact WKV, as the bf16 model's own spread); then, for each WKV6
+     with the plain chunked form: the emitted wkv state (the kernel's own
+     output) to a relative error below 5e-3; the last logits (also below
+     5e-2) and the token-shift leaves of the state to the error of the same
+     prefill with an fp32-exact WKV (the bf16 model's own spread) plus one
+     bf16 step; then, for each WKV6
      kernel, its and the plain form's times at the prefill shapes (bf16
      r/k/v for the tensor-core kernel, their fp32 cast for the CUDA-core
      one) and the bound (the larger of the bytes over the memory rate and
@@ -746,6 +748,9 @@ WKV_BF16_CASES = [
     (2, 65, 4, 32, 3.5, "bfloat16", False),
 ]
 WKV_TOL = {"float32": 5e-4, "bfloat16": 3e-2}  # test_kernels_rwkv6.py:45-47
+#: phase 17: the bf16 prefill's wkv state (the kernel's fp32 output) against
+#: plain, and one bf16 step relative to the largest value, at most
+WKV_STATE_TOL, BF16_STEP = 5e-3, 2.0 ** -7
 WKV_CHUNK = 32  # the Pallas kernel's chunk, for the matrix form's operation count
 
 
@@ -754,18 +759,6 @@ def wkv_kind(entry: str) -> str:
     kernel) for the instantiation named in a ptxas entry line."""
     m = re.search(r"wkv6_(mma_)?kernelILi(\d+)E", entry)
     return f"{'bf16-mma' if m[1] else 'fp32'}/N{m[2]}"
-
-
-def wkv_mma_smem_bytes(n: int) -> int:
-    """Dynamic shared memory of a tensor-core WKV6 block (``Plan<N>::BYTES``
-    of ``csrc/wkv6_mma.cu``): the stage's r, k (C rows of N + 8 bf16), v (C
-    rows of MT + 8 bf16) and logw (C x N fp32); then cum (C rows of N + 4
-    fp32), K~ (C rows of N + 8 bf16), the state's bf16 copy (MT rows of
-    N + 8), four 16 x 24 bf16 diagonal blocks, u and the scan's sums."""
-    mt, c = min(n, 64), 32 if n == 128 else 64
-    stage = 2 * c * (n + 8) * 2 + c * (mt + 8) * 2 + c * n * 4
-    return (stage + c * (n + 4) * 4 + c * (n + 8) * 2 + mt * (n + 8) * 2
-            + 4 * 16 * 24 * 2 + n * 4 + 128 // n * n * 4)
 
 
 def wkv_inputs(dev, b, s, h, n, omega_hi, dt, with_state, seed, omega=None):
@@ -990,11 +983,6 @@ def rwkv_slice(dev) -> list:
     check(bool(torch.isfinite(logits_b).all()), "bf16 prefill logits not finite")
     err17_logits = rel_err(logits_b, logits_bp)
     err17_state = {name: rel_err(cache_b[name], cache_bp[name]) for name in cache_b}
-    # bf16 keeps 8 mantissa bits (3.9e-3 a rounding) over 32 layers of a bf16
-    # residual stream: a lost block or a wrong decay shows far above this
-    check(err17_logits < 5e-2 and max(err17_state.values()) < 5e-2,
-          f"bf16 prefill kernel vs plain: logits rel err {err17_logits:.3e}, "
-          f"state {err17_state}")
 
     # the bf16 model's own spread: the same prefill with a WKV exact to fp32
     # (the CUDA-core kernel on the fp32 cast), against the same plain run
@@ -1007,12 +995,25 @@ def rwkv_slice(dev) -> list:
     floor_logits = rel_err(logits_bx, logits_bp)
     floor_state = {name: rel_err(cache_bx[name], cache_bp[name]) for name in cache_bx}
     del logits_bp, cache_bp, logits_bx, cache_bx
+    # The wkv leaf, the kernel's own fp32 output, is held tightly. The logits
+    # and the token-shift leaves (bf16 activations after 32 layers) lie a few
+    # bf16 steps from plain whatever WKV runs: each is held to the exact
+    # run's error plus one bf16 step (at most 2^-7 of the largest value), the
+    # logits also below 5e-2. A lost block or a wrong decay lands far above.
+    beyond = {name: (err, floor) for name, err, floor in
+              [("logits", err17_logits, floor_logits)]
+              + [(k, err17_state[k], floor_state[k]) for k in err17_state if k != "wkv"]
+              if err > floor + BF16_STEP}
+    check(err17_logits < 5e-2 and err17_state["wkv"] < WKV_STATE_TOL and not beyond,
+          f"bf16 prefill kernel vs plain: logits rel err {err17_logits:.3e}, state "
+          f"{err17_state}; beyond the fp32-exact WKV's error plus a bf16 step: {beyond}")
     print(f"phase 17 bf16 prefill {LM_BATCH} x {LM_SEQ}: {bf16} launches {bf16_launches}, "
           f"{f32} 0; last logits vs the plain chunked form rel err {err17_logits:.3e}, "
           "emitted state rel err " + ", ".join(f"{k} {v:.3e}" for k, v in err17_state.items())
-          + f" (limit 5e-2); with an fp32-exact WKV in place of the kernel: logits "
-          f"{floor_logits:.3e}, state " + ", ".join(
-              f"{k} {v:.3e}" for k, v in floor_state.items()), flush=True)
+          + f"; with an fp32-exact WKV in place of the kernel: logits {floor_logits:.3e}, "
+          "state " + ", ".join(f"{k} {v:.3e}" for k, v in floor_state.items())
+          + f" (limits: wkv {WKV_STATE_TOL:.0e}; logits and the token-shift leaves the "
+          f"exact run's plus {BF16_STEP:.3e}, logits also 5e-2)", flush=True)
 
     h, n = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
     args = wkv_inputs(dev, LM_BATCH, LM_SEQ, h, n, None, "bfloat16", False, seed=17,
@@ -1142,9 +1143,13 @@ def main() -> int:
     for (kind, op), count in wkv_ops.items():
         check((count > 0) == kind.startswith("bf16-mma"),
               f"{wkv_lib.name}: {kind} holds {count} {op} instructions")
-    print(f"phase 1 build: {wkv_lib.name} (dynamic shared memory a block: fp32 "
-          f"{(3 * 32 * 64 + 5 * 32 * 32 + 64 + 32) * 4} B at N 64; bf16-mma "
-          + ", ".join(f"{wkv_mma_smem_bytes(n)} B at N {n}" for n in (16, 32, 64, 128))
+    # the dynamic shared memory each entry launches a block with, as the
+    # built library reports it
+    wkv_dll = wkv_build.load()
+    print(f"phase 1 build: {wkv_lib.name} (dynamic shared memory a block: " + "; ".join(
+        f"{entry} " + ", ".join(f"{getattr(wkv_dll, entry + '_smem_bytes')(n)} B at N {n}"
+                                for n in (16, 32, 64, 128))
+        for entry in wkv_build.ENTRY_POINTS)
           + "; SASS HMMA / LDGSTS " + ", ".join(
               f"{kind} {wkv_ops[kind, 'HMMA']} / {wkv_ops[kind, 'LDGSTS']}"
               for kind in sorted({k for k, _ in wkv_ops}))

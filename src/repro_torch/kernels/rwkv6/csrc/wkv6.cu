@@ -200,3 +200,15 @@ extern "C" int wkv6_fwd_f32(const void* r, const void* k, const void* v, const v
     default: return cudaErrorInvalidValue;
   }
 }
+
+// The dynamic shared memory a block of head size n is launched with (0 for
+// a head size the kernel does not take).
+extern "C" int wkv6_fwd_f32_smem_bytes(int n) {
+  switch (n) {
+    case 16: return smem_floats<16>() * (int)sizeof(float);
+    case 32: return smem_floats<32>() * (int)sizeof(float);
+    case 64: return smem_floats<64>() * (int)sizeof(float);
+    case 128: return smem_floats<128>() * (int)sizeof(float);
+    default: return 0;
+  }
+}

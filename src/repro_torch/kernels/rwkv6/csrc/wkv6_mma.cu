@@ -20,11 +20,11 @@
 // (no wgmma, no TMA): warp-level mma.sync.m16n8k16 (bf16 in, fp32
 // accumulate) for the products, and the next chunk's r, k, v, logw copied
 // by cp.async into the stage as soon as this chunk's last reader of each is
-// done. (A second
-// stage costs an SM one of its blocks in flight and was slower on the
-// H100; PERF.md has the times.) Measured, the kernel is bound by the
-// instructions it issues, not by the bytes: the diagonal blocks on the CUDA
-// cores take 35-40 % of a chunk (tools/wkv6_sections.py).
+// done. (A second stage costs an SM one of its blocks in flight and was
+// slower on the H100; PERF.md has the times.) Measured, the kernel is bound
+// by the instructions it issues, not by the bytes: the diagonal blocks on
+// the CUDA cores take the largest share of a chunk (tools/wkv6_sections.py
+// times each stretch between barriers; PERF.md has the split).
 //
 // The chunked form, exact for any decay (no clamp; the Pallas kernel
 // clamps the within-chunk decay at -30, which is wrong at rwkv6's own
@@ -537,5 +537,17 @@ extern "C" int wkv6_fwd_bf16(const void* r, const void* k, const void* v, const 
     case 64: return launch<64>(r, k, v, logw, u, out, state, bh, seq, s);
     case 128: return launch<128>(r, k, v, logw, u, out, state, bh, seq, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory a block of head size n is launched with (0 for
+// a head size the kernel does not take).
+extern "C" int wkv6_fwd_bf16_smem_bytes(int n) {
+  switch (n) {
+    case 16: return Plan<16>::BYTES;
+    case 32: return Plan<32>::BYTES;
+    case 64: return Plan<64>::BYTES;
+    case 128: return Plan<128>::BYTES;
+    default: return 0;
   }
 }

@@ -4,7 +4,9 @@ Tests marked ``cuda`` build ``csrc/`` (``wkv6.cu``, fp32 on the CUDA cores;
 ``wkv6_mma.cu``, bf16 on the tensor cores) and hold each kernel against the
 plain chunked form ``ref.wkv_chunked_bhsn`` on the card, outputs and final
 state, to the reference's tolerances (5e-4 relative for fp32 inputs, 3e-2
-for bf16; ``tests/test_kernels_rwkv6.py``); without a CUDA device they skip.
+for bf16; ``tests/test_kernels_rwkv6.py``), and the bf16 kernel also against
+``mma_model``, the model of its arithmetic below, to 1e-3; without a CUDA
+device they skip.
 This file imports no JAX, so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_rwkv6_kernel.py
@@ -336,6 +338,20 @@ def test_bf16_kernel_matches_plain(cuda_device, case):
     assert out.dtype == torch.float32 and out.shape == args[0].shape
     assert torch.isfinite(out).all() and torch.isfinite(st).all()
     assert rel_err(out, want) < 3e-2 and rel_err(st, want_st) < 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16, ids=lambda c: model_case_id((*c, 64)))
+def test_bf16_kernel_matches_its_model(cuda_device, case):
+    """The tensor-core kernel against ``mma_model`` on the same bf16 inputs:
+    both round the same terms to bf16, so they differ only by the order of
+    the fp32 sums and ``ex2.approx``, and by the bf16 roundings those flip."""
+    args = bf16_inputs(*case, seed=21, device=cuda_device)
+    out, st = K.wkv6_bhsn(*args)
+    n = case[3]
+    want, want_st = mma_model(*(None if x is None else x.cpu() for x in args),
+                              chunk=32 if n == 128 else 64)
+    assert rel_err(out.cpu(), want) < 1e-3 and rel_err(st.cpu(), want_st) < 1e-3
 
 
 @pytest.mark.cuda

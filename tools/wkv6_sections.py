@@ -1,22 +1,20 @@
 #!/usr/bin/env python3
 """Where the tensor-core WKV6 kernel's time goes, on the card.
 
-For each given copy of ``wkv6_mma.cu`` this builds the source as it is and
-a copy with ``clock64()`` marks at its barriers (summed per warp into a
-``__device__`` array, read back with ``cudaMemcpyFromSymbol``: there is no
-``ncu`` on the machine with the card), runs both at the phase-17 shapes of
-``chip_smoke.py`` (bf16, BH 160, S 2048, N 64, rwkv6's decay_base spread),
-holds the output against the plain chunked form, prints the cycles a chunk
-each warp spends in each section, and times the uninstrumented builds with
-CUDA events in turns (a, b, ..., b, a) in one process.
+Builds ``csrc/wkv6_mma.cu`` as it is and a copy with a ``clock64()`` mark
+just before and just after each barrier (``__syncthreads();`` or
+``__syncwarp();`` on a line of its own) of the kernel's chunk loop, summed
+per warp into a ``__device__`` array and read back with
+``cudaMemcpyFromSymbol`` (there is no ``ncu`` on the machine with the card).
+Both run at the phase-17 shapes of ``chip_smoke.py`` (bf16, BH 160, S 2048,
+N 64, rwkv6's decay_base spread) and are held against the plain chunked
+form. It prints, per barrier, the cycles a chunk each warp spends in the
+work up to it and waiting at it (the work before the first barrier runs
+from the last one of the chunk before, through the loop's head and the
+``cp.async`` wait), and the two builds' CUDA-event times in turns, which
+give the marks' cost.
 
-    python3 tools/wkv6_sections.py SOURCE[:stages=K] ...
-
-``:stages=K`` rewrites the source's ``constexpr int STAGES`` first (the
-first design of the kernel had one). An earlier revision's source comes
-from git, e.g. ``git show REV:src/repro_torch/kernels/rwkv6/csrc/wkv6_mma.cu
-> build/wkv6_rev.cu``. The marks sit at the kernel's commented barriers; a
-source whose barrier comments differ is refused.
+    python3 tools/wkv6_sections.py
 """
 from __future__ import annotations
 
@@ -27,51 +25,50 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+SOURCE = ROOT / "src/repro_torch/kernels/rwkv6/csrc/wkv6_mma.cu"
 OUT = ROOT / "build" / "wkv6_sections"
-SECTIONS = ("load+sync", "scan", "K~", "diag", "output", "wait", "K^", "state", "end sync")
-#: (barrier comment, mark before or after it, section index); each comment
-#: has the spelling of the first design and of the present one
-MARKS = (
-    (("__syncthreads();  // this chunk's stage and the state's bf16 copy are in",), "after", 0),
-    (("    decayed_k<N, false>(kt, ks, cum);  // K~",), "before", 1),
-    (("decayed_k<N, false>(kt, ks, cum);  // K~\n    __syncthreads();",), "after", 2),
-    (("    // this warp's output tile: 16 tokens x MTW columns",), "before", 3),
-    (("    __syncthreads();  // every warp is done with K~, S_bf16, r and w",
-      "    __syncthreads();  // every warp is done with K~ and S_bf16"), "before", 4),
-    (("__syncthreads();  // every warp is done with K~, S_bf16, r and w",
-      "__syncthreads();  // every warp is done with K~ and S_bf16"), "after", 5),
-    (("decayed_k<N, true>(kt, ks, cum);  // K^\n    __syncthreads();",), "after", 6),
-    (("    __syncthreads();  // v may be refilled; S_bf16 is complete",
-      "    __syncthreads();  // the stage may be refilled; S_bf16 is complete"), "before", 7),
-    (("__syncthreads();  // v may be refilled; S_bf16 is complete",
-      "__syncthreads();  // the stage may be refilled; S_bf16 is complete"), "after", 8),
-)
+LOOP = "for (int c = 0; c < chunks; ++c) {"
+BARRIER = re.compile(r"^([ \t]*)(__syncthreads|__syncwarp)\(\);[ \t]*(?://[ \t]*(.*))?$", re.M)
+MAX_WARPS = 32
 
 
-def instrument(src: str) -> str:
-    def place(anchors, where, text):
-        nonlocal src
-        found = [a for a in anchors if src.count(a) == 1]
-        if not found:
-            raise SystemExit(f"no barrier comment {anchors[0]!r} in the source")
-        a = found[0]
-        src = src.replace(a, a + text if where == "after" else text + a)
+def instrument(src: str) -> tuple[str, list]:
+    """-> (the source with the marks, a label for each barrier: its line in
+    the source, its kind and its comment)."""
+    head, loop = src.split(LOOP)  # the kernel has one chunk loop
+    depth = 1
+    for end, ch in enumerate(loop):  # the brace that closes the loop
+        depth += (ch == "{") - (ch == "}")
+        if depth == 0:
+            break
+    labels = []
+    first_line = head.count("\n") + 1
 
-    for anchors, where, i in MARKS:
-        place(anchors, where, f"\n    MARK({i});\n")
-    place(("  float* st = state + (size_t)bh * N * N;\n",), "after",
-          "  long long prof[9] = {0}, t_last = clock64();\n"
-          "#define MARK(i) { const long long now = clock64(); prof[i] += now - t_last; "
-          "t_last = now; }\n")
-    last = "\n#pragma unroll\n  for (int m = 0; m < P::SPW; ++m) {\n    const int mt = warp + WARPS * m;"
-    head, tail = src.rsplit(last, 1)
-    src = (head + "\n  if (N == 64 && lane == 0)\n    for (int i = 0; i < 9; ++i) "
-           "atomicAdd(&g_prof[warp][i], (unsigned long long)prof[i]);" + last + tail)
-    place(("template <int N>\n__global__",), "before", "__device__ unsigned long long g_prof[4][9];\n")
+    def mark(m):
+        i = len(labels)
+        line = first_line + loop[:m.start()].count("\n")
+        labels.append(f"line {line} {m[2]}" + (f" ({m[3]})" if m[3] else ""))
+        return f"{m[1]}MARK({2 * i});\n{m[0]}\n{m[1]}MARK({2 * i + 1});"
+
+    body = BARRIER.sub(mark, loop[:end])
+    if not labels:
+        raise SystemExit(f"no barrier in the chunk loop of {SOURCE}")
+    nm = 2 * len(labels)
+    decl = (f"unsigned prof[{nm}] = {{0}};\n  long long t_last = clock64();\n"
+            "#define MARK(i) { const long long now = clock64(); "
+            "prof[i] += (unsigned)(now - t_last); t_last = now; }\n  ")
+    flush = ("\n  if ((threadIdx.x & 31) == 0) {\n"
+             f"    for (int i = 0; i < {nm}; ++i)\n"
+             "      atomicAdd(&g_prof[threadIdx.x >> 5][i], (unsigned long long)prof[i]);\n"
+             f"    atomicAdd(&g_prof[threadIdx.x >> 5][{nm}], (unsigned long long)chunks);\n  }}")
+    src = head + decl + LOOP + body + "}" + flush + loop[end + 1:]
+    last_include = list(re.finditer(r"^#include .*$", src, re.M))[-1].end()
+    src = (src[:last_include]
+           + f"\n__device__ unsigned long long g_prof[{MAX_WARPS}][{nm + 1}];"
+           + src[last_include:])
     return src + (
-        '\nextern "C" int read_prof(void* h) { return cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof)); }\n'
-        'extern "C" int zero_prof() { static unsigned long long z[4][9] = {};\n'
-        '  return cudaMemcpyToSymbol(g_prof, z, sizeof(z)); }\n')
+        '\nextern "C" int read_prof(void* h) { return cudaMemcpyFromSymbol(h, g_prof, '
+        'sizeof(g_prof)); }\n'), labels
 
 
 def build(src: str, name: str) -> ctypes.CDLL:
@@ -96,7 +93,7 @@ def main() -> int:
     import chip_smoke as CS
     from repro_torch.kernels.rwkv6.ref import wkv_chunked_bhsn
 
-    if not torch.cuda.is_available() or len(sys.argv) < 2:
+    if not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -117,34 +114,32 @@ def main() -> int:
         assert err == 0, err
         return o, st
 
-    libs = {}
-    for i, spec in enumerate(sys.argv[1:]):
-        path, _, opt = spec.partition(":")
-        src = Path(path).read_text()
-        if opt:
-            stages = int(opt.removeprefix("stages="))
-            src, hit = re.subn(r"constexpr int STAGES = \d;", f"constexpr int STAGES = {stages};", src)
-            assert hit == 1, f"{path} has no STAGES constant"
-        mt = int(re.search(r"int MT = N < (\d+) \? N : \d+;", src)[1])
-        blocks = bh * n // min(n, mt)
-        libs[spec] = build(src, f"v{i}")
-        inst = build(instrument(src), f"v{i}_marks")
-        o, st = call(libs[spec])
+    src = SOURCE.read_text()
+    marked_src, labels = instrument(src)
+    libs = {"as is": build(src, "plain"), "marked": build(marked_src, "marked")}
+    ok = True
+    for name, lib in libs.items():
+        o, st = call(lib)
         torch.cuda.synchronize()
-        print(f"{spec}: rel err vs plain {CS.rel_err(o, want):.3e}, state {CS.rel_err(st, want_st):.3e}")
-        inst.zero_prof()
-        call(inst)
-        torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * 36)()
-        inst.read_prof(buf)
-        cyc = np.array(buf[:], dtype=np.float64).reshape(4, 9) / blocks / -(-s // 64)  # C 64 at N 64
-        print(f"{spec}: cycles a chunk, warps 0/1/2/3: " + "; ".join(
-            f"{name} " + "/".join(f"{cyc[w, j]:.0f}" for w in range(4))
-            for j, name in enumerate(SECTIONS)) + f"; total {cyc.sum(1).mean():.0f}")
-    order = list(libs) + list(libs)[::-1]
+        e_o, e_st = CS.rel_err(o, want), CS.rel_err(st, want_st)
+        ok &= max(e_o, e_st) < CS.WKV_TOL["bfloat16"]
+        print(f"{name}: rel err vs plain {e_o:.3e}, state {e_st:.3e}")
+    nm = 2 * len(labels)
+    buf = (ctypes.c_ulonglong * (MAX_WARPS * (nm + 1)))()
+    assert libs["marked"].read_prof(buf) == 0
+    prof = np.array(buf[:], dtype=np.float64).reshape(MAX_WARPS, nm + 1)
+    prof = prof[prof[:, nm] > 0]
+    cyc = prof[:, :nm] / prof[:, nm:]  # per warp, a chunk
+    print(f"cycles a chunk, warps {'/'.join(map(str, range(len(cyc))))}, "
+          f"at the phase-17 shapes (one call after another):")
+    for i, label in enumerate(labels):
+        for j, what in ((2 * i, "work up to"), (2 * i + 1, "wait at")):
+            print(f"  {what} {label}: " + "/".join(f"{c:.0f}" for c in cyc[:, j]))
+    print(f"  total: " + "/".join(f"{c:.0f}" for c in cyc.sum(1)))
+    order = ["as is", "marked", "marked", "as is"]
     print("CUDA-event ms in turns: " + ", ".join(
-        f"{spec} {CS.time_ms(lambda: call(libs[spec]), 10):.4f}" for spec in order))
-    return 0
+        f"{name} {CS.time_ms(lambda: call(libs[name]), 10):.4f}" for name in order))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
