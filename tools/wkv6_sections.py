@@ -2,17 +2,18 @@
 """Where the tensor-core WKV6 kernel's time goes, on the card.
 
 Builds ``csrc/wkv6_mma.cu`` as it is and a copy with a ``clock64()`` mark
-just before and just after each barrier (``__syncthreads();`` or
-``__syncwarp();`` on a line of its own) of the kernel's chunk loop, summed
-per warp into a ``__device__`` array and read back with
-``cudaMemcpyFromSymbol`` (there is no ``ncu`` on the machine with the card).
-Both run at the phase-17 shapes of ``chip_smoke.py`` (bf16, BH 160, S 2048,
-N 64, rwkv6's decay_base spread) and are held against the plain chunked
-form. It prints, per barrier, the cycles a chunk each warp spends in the
-work up to it and waiting at it (the work before the first barrier runs
-from the last one of the chunk before, through the loop's head and the
-``cp.async`` wait), and the two builds' CUDA-event times in turns, which
-give the marks' cost.
+just before each barrier (``__syncthreads();`` or ``__syncwarp();`` on a
+line of its own) of the kernel's chunk loop, summed per warp into a
+``__device__`` array and read back with ``cudaMemcpyFromSymbol`` (there is
+no ``ncu`` on the machine with the card). Both run at the phase-17 shapes of
+``chip_smoke.py`` (bf16, BH 160, S 2048, N 64, rwkv6's decay_base spread)
+and are held against the plain chunked form. It prints the cycles a chunk
+each warp takes from its arrival at one barrier to its arrival at the next
+(so a stretch holds the wait at the barrier it starts from: a clock read
+placed just after a barrier is scheduled ahead of it), and the two builds'
+CUDA-event times in turns, which give the marks' cost. The first stretch
+runs from the chunk before's last barrier through the loop's head and the
+``cp.async`` wait.
 
     python3 tools/wkv6_sections.py
 """
@@ -45,15 +46,14 @@ def instrument(src: str) -> tuple[str, list]:
     first_line = head.count("\n") + 1
 
     def mark(m):
-        i = len(labels)
         line = first_line + loop[:m.start()].count("\n")
         labels.append(f"line {line} {m[2]}" + (f" ({m[3]})" if m[3] else ""))
-        return f"{m[1]}MARK({2 * i});\n{m[0]}\n{m[1]}MARK({2 * i + 1});"
+        return f"{m[1]}MARK({len(labels) - 1});\n{m[0]}"
 
     body = BARRIER.sub(mark, loop[:end])
     if not labels:
         raise SystemExit(f"no barrier in the chunk loop of {SOURCE}")
-    nm = 2 * len(labels)
+    nm = len(labels)
     decl = (f"unsigned prof[{nm}] = {{0}};\n  long long t_last = clock64();\n"
             "#define MARK(i) { const long long now = clock64(); "
             "prof[i] += (unsigned)(now - t_last); t_last = now; }\n  ")
@@ -124,18 +124,17 @@ def main() -> int:
         e_o, e_st = CS.rel_err(o, want), CS.rel_err(st, want_st)
         ok &= max(e_o, e_st) < CS.WKV_TOL["bfloat16"]
         print(f"{name}: rel err vs plain {e_o:.3e}, state {e_st:.3e}")
-    nm = 2 * len(labels)
+    nm = len(labels)
     buf = (ctypes.c_ulonglong * (MAX_WARPS * (nm + 1)))()
     assert libs["marked"].read_prof(buf) == 0
     prof = np.array(buf[:], dtype=np.float64).reshape(MAX_WARPS, nm + 1)
     prof = prof[prof[:, nm] > 0]
     cyc = prof[:, :nm] / prof[:, nm:]  # per warp, a chunk
-    print(f"cycles a chunk, warps {'/'.join(map(str, range(len(cyc))))}, "
-          f"at the phase-17 shapes (one call after another):")
+    print(f"cycles a chunk, warps {'/'.join(map(str, range(len(cyc))))}, at the "
+          "phase-17 shapes, from the arrival at the barrier before:")
     for i, label in enumerate(labels):
-        for j, what in ((2 * i, "work up to"), (2 * i + 1, "wait at")):
-            print(f"  {what} {label}: " + "/".join(f"{c:.0f}" for c in cyc[:, j]))
-    print(f"  total: " + "/".join(f"{c:.0f}" for c in cyc.sum(1)))
+        print(f"  up to {label}: " + "/".join(f"{c:.0f}" for c in cyc[:, i]))
+    print("  total: " + "/".join(f"{c:.0f}" for c in cyc.sum(1)))
     order = ["as is", "marked", "marked", "as is"]
     print("CUDA-event ms in turns: " + ", ".join(
         f"{name} {CS.time_ms(lambda: call(libs[name]), 10):.4f}" for name in order))
