@@ -375,18 +375,23 @@ def test_bf16_kernel_carries_the_state_across_calls(cuda_device):
     (torch.float32, "wkv6_kernel", "wkv6_mma_kernel"),
 ])
 def test_dtype_launches_its_kernel(cuda_device, dtype, name, other):
-    """The device kernels a call runs, as the profiler names them."""
+    """The device kernels a call runs, as the profiler names them. Now and
+    then a profiling session records no device activity at all; such a
+    session is run again, three times at most."""
     from torch.profiler import ProfilerActivity, profile
 
     args = inputs(1, 128, 2, 64, 0.5, "float32", True, seed=23, device=cuda_device)
     args = (*(x.to(dtype) for x in args[:3]), *args[3:])
     K.wkv6_bhsn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        K.wkv6_bhsn(*args)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            K.wkv6_bhsn(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
     assert any(name in n for n in names), names
     assert not any(other in n for n in names), names
 
