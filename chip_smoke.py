@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on an NVIDIA card and check it: the
 lease plane (phases 1-7), internlm2-1.8b prefill and serving through the
-flash-attention kernels (phases 8-12), and rwkv6-3b prefill and serving
-through the WKV6 kernels (phases 13-17).
+flash-attention kernels (phases 8-12), rwkv6-3b prefill and serving
+through the WKV6 kernels (phases 13-17), the differential referee against
+the lease kernels (phase 18) and the scenario sweep through the batched
+lease kernels (phase 19).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``); it exits nonzero
@@ -74,12 +76,28 @@ Phases (one line each):
      one) and the bound (the larger of the bytes over the memory rate and
      the chunked matrix form's FLOPs over the dtype's peak); bf16 prefill
      and decode step times.
+ 18. the differential referee on the card: 1000-tick traces of the
+     reference's four differential mixes (zero delay; crash, drift, delay
+     and drop; drift; renewal chaos), several seeds each, through the
+     port's event-driven ``replay_event_sim`` and through
+     ``replay_array(backend="cuda")``: owners bit-exact, at most one owner
+     per cell and tick;
+ 19. ``LeaseArrayEngine.sweep`` through the batched kernels: (a) the
+     reference bench's sweep (1024 scenarios x 32 cells x 16 ticks, A 3,
+     P 4), zero-delay (sync kernel) and with delay <= 2 and drops (delayed
+     kernel), both collect modes, bit-exact against the plain batched
+     version; (b) 64 chaos scenarios (phase 4's mix) x 2^14 cells x 128
+     ticks at A 5, P 8 in summary mode from a warmed engine, equal to 64
+     separate ``run_trace`` calls from the same state, max owner count <=
+     1, the engine unchanged; then each batched kernel's time, launches
+     and bound, and where one sweep's host time goes.
 The line before the last holds every kernel's launches on its main path
 (phases 3-6; the phase-12 bf16 prefill for the tensor-core flash kernel,
 the phase-9 prefill and phase-11 serving for the CUDA-core one; the
 phase-17 bf16 prefill for the tensor-core WKV6 kernel, the phase-14
-prefill and phase-16 serving for the CUDA-core one), time, plain time,
-bound and library time as JSON;
+prefill and phase-16 serving for the CUDA-core one; the phase-19 sweeps
+for the batched lease kernels), time, plain time, bound and library time
+as JSON;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -243,7 +261,7 @@ def library_sass(lib: Path) -> str:
 
 def kernel_tick_ops(lib: Path, kernel: str) -> dict:
     """tick_loop_ops of the one kernel in ``lib`` whose mangled name holds
-    ``kernel`` (e.g. ``sync_window_kernelILi5E``), read with cuobjdump."""
+    ``kernel`` (e.g. ``sync_window_kernelILi5ELi0E``), read with cuobjdump."""
     sass = library_sass(lib)
     found = [ins for name, ins in sass_functions(sass).items()
              if kernel in name]
@@ -302,11 +320,12 @@ def ptxas_summary(log: str, kind_of=lease_kind) -> str:
                      for k in sorted(regs))
 
 
-def run_trace_breakdown(run):
-    """Times one call of ``run`` (a ``run_trace``) and, inside it, the
-    scenario checks on the host, the copies of planes to the card and the
-    kernel, each wrapped with a device synchronisation. Returns
-    ({part: ms}, total ms)."""
+def run_trace_breakdown(run, kernel="lease_window_delayed"):
+    """Times one call of ``run`` (a ``run_trace`` or a ``sweep``) and,
+    inside it, the scenario checks on the host, the stacking of a sweep's
+    scenarios, the copies of planes to the card and the kernel (the entry
+    of ``ops`` named ``kernel``), each wrapped with a device
+    synchronisation. Returns ({part: ms}, total ms)."""
     import torch
 
     from repro_torch.lease_array import ops
@@ -325,9 +344,11 @@ def run_trace_breakdown(run):
         return call
 
     parts = ((Scenario, "validate_for", "plane checks"),
+             (Scenario, "stack", "stacking"),
              (ops, "_as_i32", "copies to the card"),
-             (ops, "lease_window_delayed", "kernel"))
-    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in parts]
+             (ops, kernel, "kernel"))
+    # the attributes as the owners hold them (None: inherited), restored after
+    saved = [(owner, attr, vars(owner).get(attr)) for owner, attr, _ in parts]
     for owner, attr, name in parts:
         setattr(owner, attr, timed(name, getattr(owner, attr)))
     try:
@@ -337,8 +358,11 @@ def run_trace_breakdown(run):
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3
     finally:
-        for owner, attr, fn in saved:
-            setattr(owner, attr, fn)
+        for owner, attr, raw in saved:
+            if raw is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, raw)
     return spent, total
 
 
@@ -1062,6 +1086,340 @@ def rwkv_slice(dev) -> list:
     print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
 
+#: phase 18: the reference's four differential mixes
+#: (tests/test_lease_array_{differential,restart,drift,extend}.py) at their
+#: geometries, 1000 ticks each: name -> (seeds, random_trace options)
+REFEREE_TICKS = 1000
+REFEREE_MIXES = {
+    "zero-delay": ((1234, 1, 2), dict(n_cells=16, n_acceptors=5, n_proposers=4,
+                                      lease_ticks=3, p_attempt=0.35,
+                                      p_release=0.06, p_down_flip=0.02)),
+    "crash-drift-delay-drop": ((42, 3, 4), dict(max_delay_ticks=2, p_drop=0.05,
+                                                drift_eps=0.25, asymmetric=True,
+                                                restarts=0.02)),
+    "drift": ((4242, 5, 6), dict(n_cells=8, n_acceptors=5, n_proposers=4,
+                                 lease_ticks=8, p_attempt=0.8, p_release=0.06,
+                                 p_down_flip=0.03, max_delay_ticks=1,
+                                 p_drop=0.08, drift_eps=0.25, round_ticks=3)),
+    "renew-chaos": ((1234, 7, 8), dict(n_cells=8, n_acceptors=3, n_proposers=4,
+                                       lease_ticks=6, p_attempt=0.12,
+                                       p_release=0.04, renew=0.5,
+                                       max_delay_ticks=1, p_drop=0.05,
+                                       drift_eps=0.25, round_ticks=5)),
+}
+#: phase 19a: the reference bench's sweep (benchmarks/bench_lease_array.py
+#: run_sweep): 1024 scenarios x 32 cells x 16 ticks, A 3, P 4
+BENCH_SWEEP = dict(scenarios=1024, n_cells=32, n_ticks=16, n_acceptors=3,
+                   n_proposers=4, lease_ticks=3, p_attempt=0.5, p_release=0.05,
+                   p_down_flip=0.05)
+#: phase 19b: 64 scenarios x 2^14 cells x 128 ticks at DEFAULT_CELL, phase
+#: 4's fault mix
+CHAOS_SWEEP_B, CHAOS_SWEEP_N = 64, 1 << 14
+
+
+def referee_phase(dev) -> None:
+    """Phase 18: owners of the port's event-driven referee against the
+    lease kernels (``replay_array(backend="cuda")``), bit-exact."""
+    import torch
+
+    from repro_torch.lease_array import kernel as K
+    from repro_torch.lease_array import random_trace, replay_array, replay_event_sim
+
+    t_phase = time.perf_counter()
+    K.reset_launches()
+    n, cell_ticks, sim_s, kernel_s = 0, 0, 0.0, 0.0
+    for name, (seeds, opts) in REFEREE_MIXES.items():
+        for seed in seeds:
+            tr = random_trace(seed, n_ticks=REFEREE_TICKS, **opts)
+            t0 = time.perf_counter()
+            ow, cn = replay_array(tr, backend="cuda", device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref = replay_event_sim(tr)
+            sim_s += time.perf_counter() - t1
+            kernel_s += t1 - t0
+            got = ow.cpu().numpy()
+            bad = int((got != ref).sum())
+            check(bad == 0, f"referee {name} seed {seed}: {bad} owners differ "
+                  f"from the event sim")
+            check(int(cn.max()) <= 1, f"referee {name} seed {seed}: §4 violated")
+            check((ref >= 0).any() and (ref < 0).any(),
+                  f"referee {name} seed {seed}: no ownership or no vacancy")
+            n += 1
+            cell_ticks += tr.n_ticks * tr.n_cells
+    launches = (K.lease_window_delayed.launches, K.lease_window_sync.launches)
+    check(min(launches) > 0, f"referee path launches (delayed, sync) {launches}")
+    print(f"phase 18 referee: {n} traces of {REFEREE_TICKS} ticks "
+          f"({', '.join(REFEREE_MIXES)}; {cell_ticks} cell-ticks), "
+          f"replay_array on the card equals replay_event_sim on every owner, "
+          f"max owner count <= 1; launches on this path: delayed {launches[0]}, "
+          f"sync {launches[1]}; event sim {sim_s:.1f} s, replay_array "
+          f"{kernel_s:.1f} s; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def sweep_slice(dev) -> list:
+    """Phase 19: ``sweep`` through the batched kernels. Returns their JSON
+    entries (launches: the phase's sweeps)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.lease_array import (
+        LeaseArrayEngine,
+        Scenario,
+        _build,
+        engine_from_reference,
+        engine_to_arrays,
+        random_trace,
+    )
+    from repro_torch.lease_array import kernel as K
+    from repro_torch.lease_array.netplane import NetPlaneState
+    from repro_torch.lease_array.ops import _device_planes, strip_default_planes
+    from repro_torch.lease_array.state import PackedLeaseState, pack_state
+
+    sync = torch.cuda.synchronize
+    max_err = {"lease_window_delayed_batched": 0, "lease_window_sync_batched": 0}
+
+    def equal(a, b, what, kernel):
+        for i, (x, y) in enumerate(zip(a, b)):
+            err = int((x.long() - y.long()).abs().max()) if x.numel() else 0
+            max_err[kernel] = max(max_err[kernel], err)
+            check(x.shape == y.shape and err == 0,
+                  f"{what}: output {i} differs (max |err| {err})")
+
+    def kernel_args(eng, stacked, delayed, collect):
+        """The batched kernel's and its plain version's arguments for a
+        sweep of ``stacked`` from ``eng``, as ``ops`` builds them."""
+        d = _device_planes(
+            strip_default_planes(stacked.planes), dev, eng._clk0(), eng._rst0(),
+            eng.t, n_proposers=eng.n_proposers, n_acceptors=eng.n_acceptors,
+            lease_q4=eng.lease_q4, restart_guard=eng.restart_guard,
+            sync=not delayed)
+        packed = PackedLeaseState(*(x.contiguous() for x in pack_state(eng.state)))
+        cols = [d[k] for k in ("attempts", "releases", "acc_up", "pclk", "aclk")]
+        kw = dict(majority=eng.majority, lease_q4=eng.lease_q4,
+                  n_proposers=eng.n_proposers, guard_q4=eng.guard_q4,
+                  collect=collect)
+        if not delayed:
+            return (packed, eng.t, *cols), kw
+        kw.update(round_q4=eng.round_q4,
+                  **{k: d.get(k) for k in K.DELAYED_OPTIONAL})
+        net = NetPlaneState(*(x.contiguous() for x in eng.net))
+        return (packed, net, eng.t, *cols, d["link"]), kw
+
+    def bench_traces(delayed):
+        g = {k: v for k, v in BENCH_SWEEP.items() if k != "scenarios"}
+        extra = dict(max_delay_ticks=2, p_drop=0.05) if delayed else {}
+        return [random_trace(s, **g, **extra)
+                for s in range(BENCH_SWEEP["scenarios"])]
+
+    # ------------------------------------ 19a. the bench's sweep geometry
+    t_phase = time.perf_counter()
+    bench = {}
+    for delayed in (False, True):
+        traces = bench_traces(delayed)
+        stacked = Scenario.stack([t.scenario() for t in traces])
+        eng = LeaseArrayEngine(BENCH_SWEEP["n_cells"], n_acceptors=3,
+                               n_proposers=4, lease_ticks=3,
+                               round_ticks=traces[0].round_ticks, device=dev)
+        bench[delayed] = (eng, stacked)
+    t0 = time.perf_counter()
+    eng_c, scs_c, before_c = chaos_sweep_setup(dev)
+    setup_c = time.perf_counter() - t0
+    K.reset_launches()  # the main path: phase 19's sweeps
+    results = {}
+    for delayed, (eng, stacked) in bench.items():
+        for collect in ("summary", "owners"):
+            results[delayed, collect] = eng.sweep(stacked, collect=collect)
+    t_main = time.perf_counter()
+    res_c = eng_c.sweep(scs_c)
+    sync()
+    main_s = time.perf_counter() - t_main
+    launches = {"lease_window_delayed_batched": K.lease_window_delayed_batched.launches,
+                "lease_window_sync_batched": K.lease_window_sync_batched.launches}
+    for k, v in launches.items():
+        check(v > 0, f"{k} was never launched on the sweep path")
+    check(K.lease_window_delayed.launches + K.lease_window_sync.launches == 0,
+          "a sweep launched an unbatched kernel")
+
+    plain_ms, times = {}, {}
+    for delayed, (eng, stacked) in bench.items():
+        kname = ("lease_window_delayed_batched" if delayed
+                 else "lease_window_sync_batched")
+        kfn = K.lease_window_delayed_batched if delayed else K.lease_window_sync_batched
+        pfn = (K.lease_window_delayed_batched_torch if delayed
+               else K.lease_window_sync_batched_torch)
+        for collect in ("owners", "summary"):
+            args, kw = kernel_args(eng, stacked, delayed, collect)
+            got = kfn(*args, **kw)
+            sync()
+            if delayed and collect == "summary":
+                # the plain batched summary is window_summary of the plain
+                # loop's rows, which the owners run just gave (one loop of
+                # 1024 scenarios, ~80 s on the card, saved)
+                want = K.window_summary(*rows)
+            else:
+                t0 = time.perf_counter()
+                want = pfn(*args, **kw)
+                sync()
+                plain_ms[kname, collect] = (time.perf_counter() - t0) * 1e3
+                rows = want
+            equal(got, want, f"bench sweep delayed={delayed} {collect}", kname)
+            times[kname, collect] = time_ms(lambda: kfn(*args, **kw), 20)
+            res = results[delayed, collect]
+            check(int(res.max_owner_count.max()) <= 1,
+                  f"bench sweep delayed={delayed}: §4 violated")
+            if collect == "owners":
+                equal((res.owners, res.counts), want,
+                      f"bench sweep delayed={delayed} path vs plain", kname)
+                smax, sown, sfin = K.window_summary(*want)
+            else:
+                smax, sown, sfin = want
+            # the reference's owned_frac: float32 owned count times the
+            # float32 reciprocal of T·N (its compiled jnp mean)
+            T, N = BENCH_SWEEP["n_ticks"], BENCH_SWEEP["n_cells"]
+            frac = sown.sum(-1).to(torch.float32) * torch.tensor(
+                np.float32(1) / np.float32(T * N), device=dev)
+            check(torch.equal(res.owned_frac, frac)
+                  and torch.equal(res.max_owner_count, smax.amax(-1))
+                  and torch.equal(res.final_owners, sfin),
+                  f"bench sweep delayed={delayed} {collect}: verdicts differ")
+        check(torch.equal(results[delayed, "summary"].owned_frac,
+                          results[delayed, "owners"].owned_frac),
+              "summary and owners sweeps disagree")
+        owned = float(results[delayed, "summary"].owned_frac.mean())
+        check(owned > 0.1, f"bench sweep delayed={delayed}: owned {owned}")
+        print(f"phase 19a sweep {BENCH_SWEEP['scenarios']} x "
+              f"{BENCH_SWEEP['n_cells']} cells x {BENCH_SWEEP['n_ticks']} "
+              f"ticks ({'delay <= 2, drops' if delayed else 'zero delay'}): "
+              f"{kname} bit-exact vs plain in summary and owners mode; "
+              f"kernel {times[kname, 'summary']:.4f} ms summary / "
+              f"{times[kname, 'owners']:.4f} ms owners; plain " + " / ".join(
+                  f"{plain_ms[kname, c]:.1f} ms {c}" for c in ("summary", "owners")
+                  if (kname, c) in plain_ms) + f"; owned {owned:.4f}", flush=True)
+    print(f"phase 19a took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -------------------------- 19b. the full-width chaos sweep, checked
+    t_phase = time.perf_counter()
+    after = engine_to_arrays(eng_c)
+    for k in before_c:
+        check(np.array_equal(before_c[k], after[k]), f"sweep changed the engine's {k}")
+    check(int(res_c.max_owner_count.max()) <= 1, "chaos sweep: §4 violated")
+    cfg = dict(lease_ticks=24, round_ticks=RENEW_ROUND, drift_eps=0.25, device=dev)
+    T, N = CHAOS_TICKS, CHAOS_SWEEP_N
+    inv = torch.tensor(np.float32(1) / np.float32(T * N), device=dev)
+    owned_counts = []
+    for b, sc in enumerate(scs_c):
+        twin = engine_from_reference(before_c, **cfg)
+        ow, cn = twin.run_trace(sc)
+        owned_counts.append((ow >= 0).sum())
+        check(int(res_c.max_owner_count[b]) == int(cn.max())
+              and torch.equal(res_c.final_owners[b], ow[-1])
+              and torch.equal(res_c.owned_frac[b],
+                              owned_counts[-1].to(torch.float32) * inv),
+              f"chaos sweep scenario {b} differs from its run_trace")
+    sync()
+    solo_s = time.perf_counter() - t_phase
+    stacked_c = Scenario.stack(scs_c)
+    args, kw = kernel_args(eng_c, stacked_c, True, "summary")
+    got = K.lease_window_delayed_batched(*args, **kw)
+    check(torch.equal(got[1].sum(-1), torch.stack(owned_counts)),
+          "chaos sweep: owned counts differ from the run_trace calls")
+    t0 = time.perf_counter()
+    want = K.lease_window_delayed_batched_torch(*args, **kw)
+    sync()
+    plain_chaos = (time.perf_counter() - t0) * 1e3
+    equal(got, want, "chaos sweep kernel vs plain", "lease_window_delayed_batched")
+    ticked = torch.zeros(1, dtype=torch.int64, device=dev)
+    K.lease_window_delayed_batched(*args, ticked=ticked, **kw)
+    sync()
+    ticked_cells = int(ticked)
+    ms_chaos = time_ms(lambda: K.lease_window_delayed_batched(*args, **kw), 5)
+    args_o, kw_o = kernel_args(eng_c, stacked_c, True, "owners")
+    ms_chaos_owners = time_ms(lambda: K.lease_window_delayed_batched(*args_o, **kw_o), 3)
+    del args_o, kw_o
+    spent, ms_sweep = run_trace_breakdown(lambda: eng_c.sweep(scs_c),
+                                          "lease_window_delayed_batched")
+    print(f"phase 19b chaos sweep {CHAOS_SWEEP_B} x {N} cells x {T} ticks "
+          f"(A {eng_c.n_acceptors}, P {eng_c.n_proposers}, from tick "
+          f"{eng_c.t}): summary equals {CHAOS_SWEEP_B} run_trace calls from the "
+          f"same state (max owner count, owned count, final owners), max owner "
+          f"count {int(res_c.max_owner_count.max())}, owned "
+          f"{float(res_c.owned_frac.mean()):.4f}, engine unchanged; kernel "
+          f"bit-exact vs plain; scenario generation {setup_c:.1f} s, the sweep "
+          f"{main_s:.2f} s, the run_trace calls {solo_s:.1f} s", flush=True)
+    print(f"phase 19b where one sweep's {ms_sweep:.1f} ms go: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in spent.items())
+          + f", the rest {ms_sweep - sum(spent.values()):.1f} ms (plane scans, "
+          f"clock and restart planes, reductions)", flush=True)
+
+    # bounds: the unbatched (kSingle) kernels' SASS-counted arithmetic per
+    # cell-tick (the same tick loop), times the cell-ticks that ran it
+    b_lib = _build.library_path(BENCH_SWEEP["n_acceptors"])
+    tick_s = kernel_tick_ops(b_lib, "sync_window_kernelILi3ELi0E")
+    Bb, Tb, Nb = BENCH_SWEEP["scenarios"], BENCH_SWEEP["n_ticks"], BENCH_SWEEP["n_cells"]
+    A3, P4 = BENCH_SWEEP["n_acceptors"], BENCH_SWEEP["n_proposers"]
+    ops_s = ops_ms(Bb * Tb * Nb, tick_s)
+    bytes_s = 4 * (2 * Bb * Tb * Nb + Bb * Tb * (2 * A3 + P4) + (2 * A3 + 2) * Nb
+                   + 3 * Bb * Nb)
+    bound_s = max(ops_s, bytes_s / HBM_BYTES_PER_S * 1e3)
+    by_s = "operations" if ops_s > bytes_s / HBM_BYTES_PER_S * 1e3 else "bytes"
+    # the chaos sweep runs the extend + restart variant
+    tick_d = kernel_tick_ops(_build.library_path(A),
+                             f"delayed_window_kernelILi{A}ELb1ELb0ELb1ELi0E")
+    ops_d = ops_ms(ticked_cells, tick_d)
+    B = CHAOS_SWEEP_B
+    bytes_d = 4 * (3 * B * T * N + B * T * (2 * A + 2 * P + P * A + 2 * A + 2 * P)
+                   + (8 * A + 8) * N + 3 * B * N)
+    bound_d = max(ops_d, bytes_d / HBM_BYTES_PER_S * 1e3)
+    by_d = "operations" if ops_d > bytes_d / HBM_BYTES_PER_S * 1e3 else "bytes"
+    ms_s = times["lease_window_sync_batched", "summary"]
+    print(f"phase 19 timing: delayed batched {ms_chaos:.3f} ms at the chaos sweep "
+          f"(summary; owners {ms_chaos_owners:.3f} ms; {ticked_cells} of "
+          f"{B * T * N} cell-ticks ran the tick math), bound {bound_d:.3f} ms "
+          f"({by_d}: ops {ops_d:.3f}, bytes {bytes_d / HBM_BYTES_PER_S * 1e3:.3f}),"
+          f" plain {plain_chaos:.1f} ms; sync batched {ms_s:.4f} ms at the bench "
+          f"sweep (summary), bound {bound_s:.4f} ms ({by_s}: ops {ops_s:.4f}, "
+          f"bytes {bytes_s / HBM_BYTES_PER_S * 1e3:.4f}); delayed batched at the "
+          f"bench sweep {times['lease_window_delayed_batched', 'summary']:.4f} ms; "
+          f"SASS ops per tick, sync {tick_s}, delayed {tick_d}", flush=True)
+    print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s (19b)", flush=True)
+    source = "src/repro_torch/lease_array/csrc/lease_window.cu"
+    return [
+        dict(name="lease_window_delayed_batched", route="cuda", source=source,
+             replaces="src/repro/lease_array/kernel.py:536",
+             launches=launches["lease_window_delayed_batched"],
+             max_abs_err=max_err["lease_window_delayed_batched"], ms=ms_chaos,
+             plain_ms=plain_chaos, bound_ms=bound_d, bound_by=by_d,
+             library_ms=None),
+        dict(name="lease_window_sync_batched", route="cuda", source=source,
+             replaces="src/repro/lease_array/kernel.py:447",
+             launches=launches["lease_window_sync_batched"],
+             max_abs_err=max_err["lease_window_sync_batched"], ms=ms_s,
+             plain_ms=plain_ms["lease_window_sync_batched", "summary"],
+             bound_ms=bound_s, bound_by=by_s, library_ms=None),
+    ]
+
+
+def chaos_sweep_setup(dev):
+    """Phase 19b's inputs: an engine at DEFAULT_CELL warmed by 16 chaos
+    ticks (acceptor restarts only, so each scenario's own proposer
+    restarts fit the restart-counter carve), its carried state as arrays,
+    and 64 chaos scenarios of phase 4's mix."""
+    from repro_torch.lease_array import LeaseArrayEngine, engine_to_arrays, random_trace
+
+    mix = dict(n_cells=CHAOS_SWEEP_N, n_acceptors=A, n_proposers=P,
+               lease_ticks=24, max_delay_ticks=4, p_drop=0.05, asymmetric=True,
+               drift_eps=0.25, restarts=0.002, renew=0.5, round_ticks=RENEW_ROUND)
+    eng = LeaseArrayEngine(CHAOS_SWEEP_N, n_acceptors=A, n_proposers=P,
+                           lease_ticks=24, round_ticks=RENEW_ROUND,
+                           drift_eps=0.25, device=dev)
+    warm = random_trace(70, n_ticks=16, **mix)
+    warm.prop_restarts[:] = 0
+    eng.run_trace(warm.scenario())
+    scs = [random_trace(700 + b, n_ticks=CHAOS_TICKS, **mix).scenario()
+           for b in range(CHAOS_SWEEP_B)]
+    return eng, scs, engine_to_arrays(eng)
+
 
 def main() -> int:
     import torch
@@ -1394,7 +1752,7 @@ def main() -> int:
     bytes_d = 4 * (state_words + stream_words + bcast_words)
     # the renewal launch is the extend-only variant <A, EXT, !CORRUPT, !RESTART>
     tick_d = kernel_tick_ops(_build.library_path(A),
-                             f"delayed_window_kernelILi{A}ELb1ELb0ELb0E")
+                             f"delayed_window_kernelILi{A}ELb1ELb0ELb0ELi0E")
     ops_ms_d = ops_ms(ticked_cells, tick_d)
     bound_d = max(bytes_d / HBM_BYTES_PER_S * 1e3, ops_ms_d)
     by_d = "operations" if ops_ms_d > bytes_d / HBM_BYTES_PER_S * 1e3 else "bytes"
@@ -1417,7 +1775,8 @@ def main() -> int:
     plain_s = (time.perf_counter() - t0) * 1e3
     bytes_s = 4 * (2 * (2 * A + 2) * FULL_N + SYNC_TICKS * FULL_N * 4
                    + SYNC_TICKS * (2 * A + P))
-    tick_s = kernel_tick_ops(_build.library_path(A), f"sync_window_kernelILi{A}E")
+    tick_s = kernel_tick_ops(_build.library_path(A),
+                             f"sync_window_kernelILi{A}ELi0E")
     ops_ms_s = ops_ms(SYNC_TICKS * FULL_N, tick_s)
     bound_s = max(bytes_s / HBM_BYTES_PER_S * 1e3, ops_ms_s)
     by_s = "operations" if ops_ms_s > bytes_s / HBM_BYTES_PER_S * 1e3 else "bytes"
@@ -1458,6 +1817,9 @@ def main() -> int:
     kernels.extend(lm_slice(dev))
     torch.cuda.empty_cache()  # the internlm weights are gone; rwkv6-3b's take 12.4 GB
     kernels.extend(rwkv_slice(dev))
+    torch.cuda.empty_cache()
+    referee_phase(dev)
+    kernels.extend(sweep_slice(dev))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ N independent PaxosLease cells x A acceptors x P proposers as dense int32
 tensors, advanced in lockstep — the PyTorch/CUDA counterpart of
 ``repro.lease_array``, bit-exact against it. Every fault dimension is a
 named plane of one ``Scenario`` (``scenario.py``); the engine consumes a
-Scenario whole (``run_trace``) or one ``TickInputs`` at a time (``step``).
+Scenario whole (``run_trace``), a stacked batch of them (``sweep``) or one
+``TickInputs`` at a time (``step``).
 
   scenario.py — the Scenario/TickInputs bundles + the plane registry
   state.py    — array layout, quarter-tick time base, ballots, the packed
@@ -14,16 +15,23 @@ Scenario whole (``run_trace``) or one ``TickInputs`` at a time (``step``).
   kernel.py   — the CUDA window kernels' wrappers and plain versions
   _build.py   — nvcc build + ctypes binding of csrc/lease_window.cu
   ops.py      — backend dispatch ("torch" | "cuda"), lease_window_scan
-  engine.py   — stateful driver: step and run_trace, on CUDA by default
+  engine.py   — the stateful engine: step, run_trace and sweep, on CUDA by
+                default
   trace.py    — random fault/timing traces (seed-compatible with repro's)
+                and the differential referee (replay_event_sim against
+                replay_array)
   carry.py    — engine state to/from numpy arrays (carry across packages)
 """
 from .carry import engine_from_reference, engine_to_arrays
-from .engine import LeaseArrayEngine
+from .engine import LeaseArrayEngine, SweepResult
 from .kernel import (
     lease_window_delayed,
+    lease_window_delayed_batched,
+    lease_window_delayed_batched_torch,
     lease_window_delayed_torch,
     lease_window_sync,
+    lease_window_sync_batched,
+    lease_window_sync_batched_torch,
     lease_window_sync_torch,
 )
 from .netplane import NetPlaneState, init_netplane, pack_link, pack_slot
@@ -51,7 +59,14 @@ from .state import (
     pack_state,
     unpack_state,
 )
-from .trace import Trace, random_trace
+from .trace import (
+    Trace,
+    cell_resource,
+    random_trace,
+    replay_array,
+    replay_event_sim,
+    trace_from_scenario,
+)
 
 __all__ = [
     "BACKENDS",
@@ -64,9 +79,11 @@ __all__ = [
     "PackedLeaseState",
     "PlaneSpec",
     "Scenario",
+    "SweepResult",
     "TickInputs",
     "Trace",
     "ballot_of",
+    "cell_resource",
     "check_pack_budget",
     "engine_from_reference",
     "engine_to_arrays",
@@ -76,9 +93,13 @@ __all__ = [
     "lease_plane_tick",
     "lease_quarters",
     "lease_window_delayed",
+    "lease_window_delayed_batched",
+    "lease_window_delayed_batched_torch",
     "lease_window_delayed_torch",
     "lease_window_scan",
     "lease_window_sync",
+    "lease_window_sync_batched",
+    "lease_window_sync_batched_torch",
     "lease_window_sync_torch",
     "make_tick",
     "max_pack_tick",
@@ -88,5 +109,8 @@ __all__ = [
     "plane_digest",
     "random_trace",
     "register_plane",
+    "replay_array",
+    "replay_event_sim",
+    "trace_from_scenario",
     "unpack_state",
 ]

@@ -17,7 +17,8 @@ from .._nvcc import BUILD_DIR, NVCC_FLAGS, compile_library
 CSRC = Path(__file__).with_name("csrc")
 #: C entry points and their ctypes signatures: (host pointer array, host
 #: int array, cudaStream_t) -> cudaError_t
-ENTRY_POINTS = ("lease_window_delayed", "lease_window_sync")
+ENTRY_POINTS = ("lease_window_delayed", "lease_window_sync",
+                "lease_window_delayed_batched", "lease_window_sync_batched")
 
 
 def sources() -> list[Path]:

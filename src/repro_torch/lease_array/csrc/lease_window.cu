@@ -44,6 +44,20 @@
 //     (no signed-shift UB); the host checks the pack budget first.
 // No TMA, no warp specialisation: the kernel streams a few int32 rows per
 // tick, which plain coalesced loads serve.
+//
+// The batched entries (lease_window_{delayed,sync}_batched) are the
+// counterpart of both Pallas kernels under jax.vmap in the reference's
+// sweep (_sweep_fn, src/repro/lease_array/engine.py:270-327): blockIdx.y is
+// the scenario. Its planes ([B, T, ...], contiguous) are read at a stride
+// of one scenario; the start state is the engine's, shared by every
+// scenario (stride 0); no final state is written. A block holds cells of
+// one scenario only, so the quiescence vote stays per block. With
+// kSummary no [B, T, N] row is written: each cell keeps its max owner
+// count, its owned-tick count and its final owner in registers and writes
+// three [B, N] words at the end. The unbatched entries instantiate the
+// kernels with kSingle, which compiles to the code they had before the
+// batch axis existed. A block has min(128, N rounded up to 32)
+// threads, so the sweeps' small cell counts (8, 32) leave few lanes dead.
 
 #include <cuda_runtime.h>
 
@@ -61,6 +75,12 @@ namespace {
 constexpr int kA = LEASE_ACCEPTORS;
 
 constexpr int kBlock = 128;
+// most scenarios one batched launch takes (gridDim.y)
+constexpr int kMaxBatch = 65535;
+// what a launch writes (the kernels' OUT template parameter): the owner
+// and count rows and the final state of one scenario; the rows of each of
+// B scenarios; or each of B scenarios' per-cell summary
+constexpr int kSingle = 0, kRows = 1, kSummary = 2;
 constexpr int kPackShift = 15;
 constexpr int kPackMask = (1 << kPackShift) - 1;
 constexpr int kNoProposer = -1;
@@ -128,9 +148,12 @@ struct DelayedArgs {
   const int* deaf;    // [T, A]
   const int* prst;    // [T, P]
   const int* prc;     // [T, P]
-  int* owners;        // [T, N]
+  int* owners;        // [T, N] ([B, T, N] batched), or null with kSummary
   int* counts;        // [T, N]
   unsigned long long* ticked;  // cell-ticks that ran the tick math, or null
+  int* max_count;     // kSummary: [B, N] max owner count over the ticks
+  int* owned;         // kSummary: [B, N] ticks with an owner
+  int* final_owner;   // kSummary: [B, N] owner row after the last tick
 };
 
 template <int A>
@@ -394,14 +417,48 @@ __device__ __forceinline__ bool stage(int* dst, const int* src, int w0,
   return nonzero;
 }
 
-template <int A, bool EXT, bool CORRUPT, bool RESTART>
+// Moves the per-scenario planes of a batched launch's DelayedArgs to
+// scenario blockIdx.y.
+template <int A, bool EXT, bool CORRUPT, bool RESTART, int OUT>
+__device__ __forceinline__ void to_scenario(DelayedArgs& g, const Params& p) {
+  const size_t b = blockIdx.y, T = static_cast<size_t>(p.T);
+  const size_t P = static_cast<size_t>(p.P);
+  const size_t tn = T * static_cast<size_t>(p.N);
+  g.att += b * tn;
+  g.rel += b * tn;
+  if (EXT) g.ext += b * tn;
+  g.up += b * T * A;
+  g.pclk += b * T * P;
+  g.aclk += b * T * A;
+  g.link += b * T * P * A;
+  if (CORRUPT) {
+    g.stale += b * T * A;
+    g.equiv += b * T * A;
+  }
+  if (RESTART) {
+    g.arst += b * T * A;
+    g.deaf += b * T * A;
+    g.prst += b * T * P;
+    g.prc += b * T * P;
+  }
+  if (OUT == kRows) {
+    g.owners += b * tn;
+    g.counts += b * tn;
+  }
+}
+
+template <int A, bool EXT, bool CORRUPT, bool RESTART, int OUT>
 __global__ void __launch_bounds__(kBlock)
-    delayed_window_kernel(DelayedArgs g, Params p) {
+    delayed_window_kernel(DelayedArgs args, Params p) {
   extern __shared__ int smem[];
+  DelayedArgs moved = args;
+  if (OUT != kSingle) to_scenario<A, EXT, CORRUPT, RESTART, OUT>(moved, p);
+  const DelayedArgs& g = OUT == kSingle ? args : moved;
   const int P = p.P, tw = p.tw;
   const size_t N = static_cast<size_t>(p.N);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = n < p.N;
+  int max_count = 0, owned = 0;  // kSummary only
 
   // shared-memory columns for one window, tick-major inside each group
   int* s_up = smem;
@@ -473,10 +530,15 @@ __global__ void __launch_bounds__(kBlock)
       // reads the same row
       if (live) {
         const int cnt = s.ownp > 0 ? 1 : 0;
-        for (int tau = 0; tau < nt; ++tau) {
-          const size_t i = static_cast<size_t>(w0 + tau) * N + n;
-          g.owners[i] = s.own_id;
-          g.counts[i] = cnt;
+        if (OUT == kSummary) {
+          max_count = max(max_count, cnt);
+          owned += s.own_id >= 0 ? nt : 0;
+        } else {
+          for (int tau = 0; tau < nt; ++tau) {
+            const size_t i = static_cast<size_t>(w0 + tau) * N + n;
+            g.owners[i] = s.own_id;
+            g.counts[i] = cnt;
+          }
         }
       }
       continue;
@@ -503,12 +565,24 @@ __global__ void __launch_bounds__(kBlock)
       const int ext = EXT ? __ldg(g.ext + i) : kNoProposer;
       const int cnt = delayed_tick<A, EXT, CORRUPT, RESTART>(
           s, p.t0 + w0 + tau, __ldg(g.att + i), __ldg(g.rel + i), ext, k, p);
-      g.owners[i] = s.own_id;
-      g.counts[i] = cnt;
+      if (OUT == kSummary) {
+        max_count = max(max_count, cnt);
+        owned += s.own_id >= 0 ? 1 : 0;
+      } else {
+        g.owners[i] = s.own_id;
+        g.counts[i] = cnt;
+      }
     }
   }
 
-  if (live) {
+  if (OUT == kSummary && live) {
+    const size_t j = static_cast<size_t>(blockIdx.y) * N + n;
+    g.max_count[j] = max_count;
+    g.owned[j] = owned;
+    g.final_owner[j] = s.own_id;
+  }
+  // a batched launch writes no final state (a sweep is read-only)
+  if (OUT == kSingle && live) {
 #pragma unroll
     for (int a = 0; a < A; ++a) {
       const size_t i = static_cast<size_t>(a) * N + n;
@@ -541,8 +615,11 @@ struct SyncArgs {
   const int* up;     // [T, A]
   const int* pclk;   // [T, P]
   const int* aclk;   // [T, A]
-  int* owners;       // [T, N]
+  int* owners;       // [T, N] ([B, T, N] batched), or null with kSummary
   int* counts;       // [T, N]
+  int* max_count;    // kSummary: [B, N], as in DelayedArgs
+  int* owned;        // kSummary: [B, N]
+  int* final_owner;  // kSummary: [B, N]
 };
 
 // One tick of ref.sync_tick_math for one cell; returns the §4 owner count.
@@ -600,14 +677,31 @@ __device__ __forceinline__ int sync_tick(int (&promised)[A],
   return (ownp > 0 ? 1 : 0) + (viol ? 1 : 0);
 }
 
-template <int A>
+template <int A, int OUT>
 __global__ void __launch_bounds__(kBlock)
-    sync_window_kernel(SyncArgs g, Params p) {
+    sync_window_kernel(SyncArgs args, Params p) {
   extern __shared__ int smem[];
   const int P = p.P, tw = p.tw;
   const size_t N = static_cast<size_t>(p.N);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = n < p.N;
+  // a batched launch reads scenario blockIdx.y's planes
+  SyncArgs moved = args;
+  if (OUT != kSingle) {
+    SyncArgs& g = moved;
+    const size_t b = blockIdx.y, T = static_cast<size_t>(p.T);
+    g.att += b * T * N;
+    g.rel += b * T * N;
+    g.up += b * T * A;
+    g.pclk += b * T * static_cast<size_t>(P);
+    g.aclk += b * T * A;
+    if (OUT == kRows) {
+      g.owners += b * T * N;
+      g.counts += b * T * N;
+    }
+  }
+  const SyncArgs& g = OUT == kSingle ? args : moved;
+  int max_count = 0, owned = 0;  // kSummary only
   int* s_up = smem;
   int* s_pclk = s_up + tw * A;
   int* s_aclk = s_pclk + tw * P;
@@ -636,11 +730,22 @@ __global__ void __launch_bounds__(kBlock)
                                    p.t0 + w0 + tau, __ldg(g.att + i),
                                    __ldg(g.rel + i), s_up + tau * A,
                                    s_pclk + tau * P, s_aclk + tau * A, p);
-      g.owners[i] = own_id;
-      g.counts[i] = cnt;
+      if (OUT == kSummary) {
+        max_count = max(max_count, cnt);
+        owned += own_id >= 0 ? 1 : 0;
+      } else {
+        g.owners[i] = own_id;
+        g.counts[i] = cnt;
+      }
     }
   }
-  if (live) {
+  if (OUT == kSummary && live) {
+    const size_t j = static_cast<size_t>(blockIdx.y) * N + n;
+    g.max_count[j] = max_count;
+    g.owned[j] = owned;
+    g.final_owner[j] = own_id;
+  }
+  if (OUT == kSingle && live) {
 #pragma unroll
     for (int a = 0; a < A; ++a) {
       g.out[0][static_cast<size_t>(a) * N + n] = promised[a];
@@ -659,49 +764,54 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int A, bool EXT, bool CORRUPT, bool RESTART>
-cudaError_t launch_delayed(const DelayedArgs& g, const Params& p,
+// Threads a block: kBlock, or N rounded up to a warp when that is less.
+inline int block_threads(int N) { return N < kBlock ? (N + 31) / 32 * 32 : kBlock; }
+
+template <int A, bool EXT, bool CORRUPT, bool RESTART, int OUT>
+cudaError_t launch_delayed(const DelayedArgs& g, const Params& p, int batch,
                            cudaStream_t stream) {
   const size_t per_tick = 2 * A + p.P + p.P * A + (CORRUPT ? 2 * A : 0) +
                           (RESTART ? 2 * A + 2 * p.P : 0);
   const size_t bytes = per_tick * p.tw * sizeof(int);
-  auto kernel = delayed_window_kernel<A, EXT, CORRUPT, RESTART>;
+  auto kernel = delayed_window_kernel<A, EXT, CORRUPT, RESTART, OUT>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  const int blocks = (p.N + kBlock - 1) / kBlock;
-  kernel<<<blocks, kBlock, bytes, stream>>>(g, p);
+  const int threads = block_threads(p.N);
+  const dim3 grid((p.N + threads - 1) / threads, batch);
+  kernel<<<grid, threads, bytes, stream>>>(g, p);
   return cudaGetLastError();
 }
 
 // the optional planes become template flags: a launch without them runs
 // no code for them
-template <int A>
-cudaError_t launch_delayed(const DelayedArgs& g, const Params& p,
+template <int A, int OUT>
+cudaError_t launch_delayed(const DelayedArgs& g, const Params& p, int batch,
                            cudaStream_t stream) {
   const int variant = (g.ext != nullptr ? 1 : 0) |
                       (g.stale != nullptr ? 2 : 0) |
                       (g.arst != nullptr ? 4 : 0);
   switch (variant) {
-    case 0: return launch_delayed<A, false, false, false>(g, p, stream);
-    case 1: return launch_delayed<A, true, false, false>(g, p, stream);
-    case 2: return launch_delayed<A, false, true, false>(g, p, stream);
-    case 3: return launch_delayed<A, true, true, false>(g, p, stream);
-    case 4: return launch_delayed<A, false, false, true>(g, p, stream);
-    case 5: return launch_delayed<A, true, false, true>(g, p, stream);
-    case 6: return launch_delayed<A, false, true, true>(g, p, stream);
-    default: return launch_delayed<A, true, true, true>(g, p, stream);
+    case 0: return launch_delayed<A, false, false, false, OUT>(g, p, batch, stream);
+    case 1: return launch_delayed<A, true, false, false, OUT>(g, p, batch, stream);
+    case 2: return launch_delayed<A, false, true, false, OUT>(g, p, batch, stream);
+    case 3: return launch_delayed<A, true, true, false, OUT>(g, p, batch, stream);
+    case 4: return launch_delayed<A, false, false, true, OUT>(g, p, batch, stream);
+    case 5: return launch_delayed<A, true, false, true, OUT>(g, p, batch, stream);
+    case 6: return launch_delayed<A, false, true, true, OUT>(g, p, batch, stream);
+    default: return launch_delayed<A, true, true, true, OUT>(g, p, batch, stream);
   }
 }
 
-template <int A>
-cudaError_t launch_sync(const SyncArgs& g, const Params& p,
+template <int A, int OUT>
+cudaError_t launch_sync(const SyncArgs& g, const Params& p, int batch,
                         cudaStream_t stream) {
   const size_t bytes = (2 * A + p.P) * static_cast<size_t>(p.tw) * sizeof(int);
-  auto kernel = sync_window_kernel<A>;
+  auto kernel = sync_window_kernel<A, OUT>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  const int blocks = (p.N + kBlock - 1) / kBlock;
-  kernel<<<blocks, kBlock, bytes, stream>>>(g, p);
+  const int threads = block_threads(p.N);
+  const dim3 grid((p.N + threads - 1) / threads, batch);
+  kernel<<<grid, threads, bytes, stream>>>(g, p);
   return cudaGetLastError();
 }
 
@@ -720,15 +830,7 @@ Params params_from(const int* ints) {
   return p;
 }
 
-}  // namespace
-
-// C entry points (bound with ctypes). `ptrs` is a host array of device
-// pointers in the order documented in kernel.py; `ints` holds
-// (N, T, A, P, t0, tw, majority, lease_q4, round_q4, guard_q4, skip_stable),
-// A equal to this library's LEASE_ACCEPTORS. Each returns
-// cudaGetLastError() after its launch (0 = launched).
-extern "C" int lease_window_delayed(const void* const* ptrs, const int* ints,
-                                    void* stream) {
+DelayedArgs delayed_args(const void* const* ptrs) {
   DelayedArgs g;
   for (int i = 0; i < 16; ++i) {
     g.in[i] = static_cast<const int*>(ptrs[i]);
@@ -750,14 +852,11 @@ extern "C" int lease_window_delayed(const void* const* ptrs, const int* ints,
   g.owners = static_cast<int*>(const_cast<void*>(ptrs[45]));
   g.counts = static_cast<int*>(const_cast<void*>(ptrs[46]));
   g.ticked = static_cast<unsigned long long*>(const_cast<void*>(ptrs[47]));
-  const Params p = params_from(ints);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ints[2] != kA) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_delayed<kA>(g, p, st));
+  g.max_count = g.owned = g.final_owner = nullptr;
+  return g;
 }
 
-extern "C" int lease_window_sync(const void* const* ptrs, const int* ints,
-                                 void* stream) {
+SyncArgs sync_args(const void* const* ptrs) {
   SyncArgs g;
   for (int i = 0; i < 4; ++i) {
     g.in[i] = static_cast<const int*>(ptrs[i]);
@@ -770,8 +869,75 @@ extern "C" int lease_window_sync(const void* const* ptrs, const int* ints,
   g.aclk = static_cast<const int*>(ptrs[12]);
   g.owners = static_cast<int*>(const_cast<void*>(ptrs[13]));
   g.counts = static_cast<int*>(const_cast<void*>(ptrs[14]));
+  g.max_count = g.owned = g.final_owner = nullptr;
+  return g;
+}
+
+// A batched launch writes no final state; in summary mode no owner or
+// count rows either, the three [B, N] summary planes instead.
+template <typename Args>
+bool batch_args(Args& g, const void* const* summary, int batch,
+                int collect_summary) {
+  if (batch < 1 || batch > kMaxBatch) return false;
+  if (collect_summary) {
+    g.owners = g.counts = nullptr;
+    g.max_count = static_cast<int*>(const_cast<void*>(summary[0]));
+    g.owned = static_cast<int*>(const_cast<void*>(summary[1]));
+    g.final_owner = static_cast<int*>(const_cast<void*>(summary[2]));
+  }
+  return true;
+}
+
+}  // namespace
+
+// C entry points (bound with ctypes). `ptrs` is a host array of device
+// pointers in the order documented in kernel.py; `ints` holds
+// (N, T, A, P, t0, tw, majority, lease_q4, round_q4, guard_q4, skip_stable),
+// A equal to this library's LEASE_ACCEPTORS. Each returns
+// cudaGetLastError() after its launch (0 = launched).
+extern "C" int lease_window_delayed(const void* const* ptrs, const int* ints,
+                                    void* stream) {
+  const DelayedArgs g = delayed_args(ptrs);
   const Params p = params_from(ints);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[2] != kA) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_sync<kA>(g, p, st));
+  return static_cast<int>(launch_delayed<kA, kSingle>(g, p, 1, st));
+}
+
+extern "C" int lease_window_sync(const void* const* ptrs, const int* ints,
+                                 void* stream) {
+  const SyncArgs g = sync_args(ptrs);
+  const Params p = params_from(ints);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ints[2] != kA) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_sync<kA, kSingle>(g, p, 1, st));
+}
+
+// The batched entries: the same pointer layout with the 16 (delayed) or 4
+// (sync) state-out slots ignored, then max_count, owned, final_owner
+// ([B, N] each; read only in summary mode) at ptrs[48..50] (delayed) or
+// ptrs[15..17] (sync); the per-scenario planes and, unless summary, the
+// owner and count rows are [B, T, ...]. `ints` continues with
+// (B, collect_summary).
+extern "C" int lease_window_delayed_batched(const void* const* ptrs,
+                                            const int* ints, void* stream) {
+  DelayedArgs g = delayed_args(ptrs);
+  const Params p = params_from(ints);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ints[2] != kA || !batch_args(g, ptrs + 48, ints[11], ints[12]))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      ints[12] ? launch_delayed<kA, kSummary>(g, p, ints[11], st)
+               : launch_delayed<kA, kRows>(g, p, ints[11], st));
+}
+
+extern "C" int lease_window_sync_batched(const void* const* ptrs,
+                                         const int* ints, void* stream) {
+  SyncArgs g = sync_args(ptrs);
+  const Params p = params_from(ints);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ints[2] != kA || !batch_args(g, ptrs + 15, ints[11], ints[12]))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(ints[12] ? launch_sync<kA, kSummary>(g, p, ints[11], st)
+                                   : launch_sync<kA, kRows>(g, p, ints[11], st));
 }

@@ -1,11 +1,16 @@
 """LeaseArrayEngine: a stateful driver over the vectorized lease plane.
 
-Two modes:
+Three modes:
   - ``step(tick)``          — advance one tick (a ``TickInputs``);
   - ``run_trace(scenario)`` — a whole [T]-tick ``Scenario`` in ONE dispatch:
                               one launch of the CUDA window kernel on the
                               card (``backend="cuda"``), or the plain
-                              PyTorch tick loop (``backend="torch"``).
+                              PyTorch tick loop (``backend="torch"``);
+  - ``sweep(scenarios)``    — a BATCH of scenarios in ONE dispatch (one
+                              launch of a batched window kernel, one grid
+                              row per scenario), each replayed from the
+                              engine's current state, which it leaves as it
+                              is; per-scenario §4 verification built in.
 
 The engine lives on one device, CUDA unless the caller passes
 ``device="cpu"``; without a CUDA device the default raises. The backend
@@ -29,20 +34,35 @@ once a trace would cross ``state.max_pack_tick`` (≈ 4k ticks at P = 8).
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
 
+from .kernel import COLLECT, window_summary
 from .netplane import NetPlaneState, init_netplane
 from .ops import (
     BACKENDS,
+    _as_i32,
+    _host,
+    _sweep_scan_impl,
     _window_scan_impl,
     default_backend,
     lease_plane_tick,
     strip_default_planes,
 )
 from .ref import owner_row
-from .scenario import Scenario, TickInputs
+from .scenario import (
+    CORRUPTION_PLANES,
+    EXTEND_PLANES,
+    PLANES,
+    RESTART_PLANES,
+    Scenario,
+    TickInputs,
+    plane_digest,
+)
 from .state import (
+    DEFAULT_RATE,
     I32,
     NO_PROPOSER,
     QUARTERS,
@@ -50,8 +70,82 @@ from .state import (
     guarded_lease_q4,
     init_state,
     lease_quarters,
+    rate1_clock,
     resolve_device,
 )
+
+
+def _scenario_scanner(
+    majority: int, lease_q4: int, round_q4: int, backend: str, sync: bool,
+    guard_q4: int = None,
+):
+    """(state, net, t0, clk0, planes) -> (state, net, owners, counts).
+
+    The per-tick scanner: a loop whose body is ONE ``lease_plane_tick``, so
+    every plane crosses a dispatch every tick. Kept as the dispatch-overhead
+    baseline and the cross-check that the fused window scan (what
+    ``run_trace`` uses) changes nothing but speed; both run the same packed
+    tick math, so they agree bit-for-bit. The local-clock columns
+    ``clk0 = (prop [P], acc [A])`` ride the loop here (the fused path
+    precomputes them as prefix-sum planes instead). It carries no restart
+    history from tick to tick, so it refuses restart scenarios.
+    """
+    if guard_q4 is None:
+        guard_q4 = lease_q4
+
+    def scan(state, net, t0, clk0, planes):
+        for k in RESTART_PLANES:
+            v = planes.get(k)
+            if v is not None and _host(v).any():
+                raise ValueError(
+                    "the per-tick scanner cannot accumulate restart "
+                    "history across ticks; replay restart scenarios "
+                    "through run_trace/lease_window_scan instead"
+                )
+        # all-default corruption/restart/extends planes are the honest
+        # path: dropped here (same contract as ops.lease_window_scan)
+        planes = strip_default_planes(planes)
+        dev = state.highest_promised.device
+        t0 = int(t0)
+        if clk0 is None:  # the rate-1 reading at t0, like ops' default
+            pc = rate1_clock(t0, state.n_proposers, device=dev)
+            ac = rate1_clock(t0, state.highest_promised.shape[0], device=dev)
+        else:
+            pc, ac = (_as_i32(c, dev) for c in clk0)
+        rows, counts = [], []
+        for tau in range(int(planes["attempts"].shape[0])):
+            xs = {k: v[tau] for k, v in planes.items()}
+            state, net, count = lease_plane_tick(
+                state, net, t0 + tau, TickInputs(xs),
+                majority=majority, lease_q4=lease_q4, round_q4=round_q4,
+                guard_q4=guard_q4, clk0=(pc, ac), backend=backend, sync=sync,
+            )
+            # a rate plane missing from a hand-rolled dict means the
+            # drift-free step, like ops._local_clock_planes' contract
+            pc = pc + (_as_i32(xs["prop_rate"], dev) if "prop_rate" in xs
+                       else DEFAULT_RATE)
+            ac = ac + (_as_i32(xs["acc_rate"], dev) if "acc_rate" in xs
+                       else DEFAULT_RATE)
+            rows.append(owner_row(state))
+            counts.append(count)
+        return state, net, torch.stack(rows), torch.stack(counts)
+
+    return scan
+
+
+class SweepResult(NamedTuple):
+    """Per-scenario results of one :meth:`LeaseArrayEngine.sweep` dispatch,
+    as tensors on the engine's device.
+
+    ``max_owner_count`` is the §4 verdict: >1 anywhere means some tick of
+    that scenario would have produced a second simultaneous believer.
+    """
+
+    max_owner_count: torch.Tensor  # [B] int32 max owner count over T x N
+    owned_frac: torch.Tensor       # [B] float32 fraction of (tick, cell) slots owned
+    final_owners: torch.Tensor     # [B, N] owner row after the last tick
+    owners: Optional[torch.Tensor] = None  # [B, T, N] iff collect="owners"
+    counts: Optional[torch.Tensor] = None  # [B, T, N] iff collect="owners"
 
 
 class LeaseArrayEngine:
@@ -127,16 +221,23 @@ class LeaseArrayEngine:
     # -------------------------------------------------------- packing budget
     def _max_restarts(self, prop_restart=None) -> int:
         """The pack-budget ``max_restarts`` charge for a dispatch that may
-        add ``prop_restart`` ([T, P] or a single [P] row) to the carried
-        counters — 0 while the engine has never seen a restart, else at
-        least 1 so the RESTART_SHIFT carve is charged once restart mode is
-        on."""
+        add ``prop_restart`` ([T, P], a sweep's [B, T, P] or a single [P]
+        row) to the carried counters — 0 while the engine has never seen a
+        restart, else at least 1 so the RESTART_SHIFT carve is charged once
+        restart mode is on."""
         rc_end = self._rc.astype(np.int64)
         seen = self._restart_active
         if prop_restart is not None:
             prst = np.asarray(prop_restart, np.int64)
             if prst.size:
-                rc_end = rc_end + prst.reshape(-1, self.n_proposers).sum(axis=0)
+                if prst.ndim >= 3:
+                    # [B, T, P] stack: each scenario replays independently,
+                    # so charge the worst per-scenario total, not the sum
+                    add = (prst.reshape(prst.shape[0], -1, self.n_proposers)
+                           .sum(axis=1).max(axis=0))
+                else:
+                    add = prst.reshape(-1, self.n_proposers).sum(axis=0)
+                rc_end = rc_end + add
                 seen = seen or bool(prst.any())
         if not seen:
             return 0
@@ -281,9 +382,10 @@ class LeaseArrayEngine:
         )
         return scenario
 
-    def _pick_model(self, netplane, delayed: bool) -> bool:
-        """Returns sync=True/False; the engine flips onto the netplane
-        permanently when the delayed model is picked."""
+    def _pick_model(self, netplane, delayed: bool, *, mutate: bool = True) -> bool:
+        """Returns sync=True/False. With ``mutate`` the engine flips onto
+        the netplane permanently when the delayed model is picked
+        (run_trace); a read-only caller (sweep) passes ``mutate=False``."""
         if netplane is False and (delayed or self._netplane_active):
             raise ValueError(
                 "netplane=False but the scenario carries nonzero delay/drop, "
@@ -291,7 +393,7 @@ class LeaseArrayEngine:
                 "flight); the synchronous model cannot honor them"
             )
         wants_net = bool(netplane) or (netplane is None and delayed)
-        if wants_net:
+        if mutate and wants_net:
             self._netplane_active = True
         return not (wants_net or self._netplane_active)
 
@@ -350,6 +452,129 @@ class LeaseArrayEngine:
         self._advance_clocks(scenario.prop_rate, scenario.acc_rate)
         self.last_owner_count = counts[-1]
         return owners, counts
+
+    # ----------------------------------------------------------- the sweep
+    def sweep(
+        self, scenarios, *, netplane=None, collect: str = "summary",
+        verify: bool = True, backend: Optional[str] = None, tags=None,
+    ) -> SweepResult:
+        """Replay a BATCH of scenarios in ONE dispatch — "replay 10k fault
+        scenarios" as a single call.
+
+        ``scenarios`` is a list of same-geometry same-length
+        :class:`Scenario`\\ s (each checked with ``validate_for``, then
+        stacked) or an already-stacked ``Scenario.stack`` bundle ([B, T, ...]
+        planes). Every scenario starts from THIS engine's current state,
+        tick, clocks and restart history; the engine itself is NOT advanced
+        (a sweep is a fan-out query, not a state transition). On
+        ``backend="cuda"`` the batch is one launch of a batched window
+        kernel (``kernel.lease_window_*_batched``); ``"torch"`` runs the
+        plain window loop scenario by scenario. ``backend=None`` is the
+        engine's.
+
+        ``collect="summary"`` (default) reduces inside the kernel — only
+        [B]-shaped verdicts and the [B, N] final owner rows come back, and no
+        [B, T, N] tensor is made on the device; ``collect="owners"`` also
+        returns the full owners/counts cubes. ``collect="margins"`` (the
+        falsifier's §4 margins) is not ported yet and raises
+        NotImplementedError. With ``verify=True`` a per-scenario §4
+        violation (max owner count > 1) raises AssertionError naming each
+        offender's ``plane_digest`` (and its ``tags[i]`` when the caller
+        passes per-scenario ``tags``), so a violation reproduces standalone.
+        """
+        if collect == "margins":
+            raise NotImplementedError(
+                "sweep(collect='margins') needs the margin scan "
+                "(ops._margin_scan_impl of the reference), which the port "
+                "does not have yet; use 'summary' or 'owners'"
+            )
+        if collect not in COLLECT:
+            raise ValueError(f"unknown collect mode {collect!r}")
+        if isinstance(scenarios, (list, tuple)):
+            if not scenarios:
+                raise ValueError("sweep needs at least one scenario")
+            for sc in scenarios:
+                sc.validate_for(
+                    n_cells=self.n_cells, n_acceptors=self.n_acceptors,
+                    n_proposers=self.n_proposers,
+                )
+            stacked = Scenario.stack(scenarios)
+        else:
+            stacked = scenarios
+        planes = stacked.planes
+        # one host read per fault plane (the delay plane feeds both the
+        # model choice and the pack-budget check)
+        dmax = int(_host(planes["delay"]).max(initial=0))
+        delayed = dmax > 0 or bool(_host(planes["drop"]).any())
+        rmax = max([QUARTERS] + [
+            int(_host(planes[k]).max(initial=0))
+            for k in ("prop_rate", "acc_rate")
+        ])
+        corrupt = any(_host(planes[k]).any()
+                      for k in CORRUPTION_PLANES if k in planes)
+        # the engine's restart history keeps restart mode on regardless
+        restarted = self._restart_active or any(
+            _host(planes[k]).any() for k in RESTART_PLANES if k in planes)
+        extended = any((_host(planes[k]) != PLANES[k].default).any()
+                       for k in EXTEND_PLANES if k in planes)
+        T = int(planes["attempts"].shape[1])
+        if T == 0:
+            raise ValueError("sweep scenarios must have at least one tick")
+        # a sweep is read-only: pick the model without flipping the engine
+        # (corruption, restart and extends planes only exist in the
+        # delayed tick)
+        sync = self._pick_model(
+            netplane, delayed or corrupt or restarted or extended,
+            mutate=False,
+        )
+        mr = self._max_restarts(planes.get("prop_restart"))
+        self._check_pack_budget(self.t + T, dmax, rmax, mr)
+        backend = backend or self.backend
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"unknown lease-plane backend {backend!r}; one of {BACKENDS}"
+            )
+        out = _sweep_scan_impl(
+            self.state, self.net, self.t, self._clk0(), self._rst0(),
+            strip_default_planes(planes),
+            majority=self.majority, lease_q4=self.lease_q4,
+            round_q4=self.round_q4, guard_q4=self.guard_q4, backend=backend,
+            sync=sync, window=self.window, collect=collect,
+            restart_guard=self.restart_guard, skip_stable=self.skip_stable,
+        )
+        owners = counts = None
+        if collect == "owners":
+            owners, counts = out
+            out = window_summary(owners, counts)
+        max_count, owned, final = out
+        # float32 owned slots times the float32 reciprocal of T·N: what
+        # the reference's jnp mean compiles to (XLA turns the division by a
+        # constant into that product), bit for bit
+        inv_slots = torch.tensor(np.float32(1) / np.float32(T * self.n_cells),
+                                 device=owned.device)
+        result = SweepResult(
+            max_owner_count=max_count.amax(dim=-1),
+            owned_frac=owned.sum(dim=-1).to(torch.float32) * inv_slots,
+            final_owners=final, owners=owners, counts=counts,
+        )
+        if verify:
+            bad = torch.nonzero(result.max_owner_count > 1).flatten().tolist()
+            if bad:
+                # name each offender by its content digest (+ the caller's
+                # lineage tag): batch indices alone don't reproduce
+                # standalone
+                ids = []
+                for i in bad[:8]:
+                    label = (f"#{i} digest="
+                             f"{plane_digest({k: _host(v)[i] for k, v in planes.items()})}")
+                    if tags is not None and i < len(tags):
+                        label += f" tag={tags[i]}"
+                    ids.append(label)
+                raise AssertionError(
+                    f"§4 at-most-one-owner violated in {len(bad)} "
+                    f"scenario(s) of the sweep: " + "; ".join(ids)
+                )
+        return result
 
     # ------------------------------------------------------------- queries
     def owners(self) -> torch.Tensor:

@@ -17,6 +17,16 @@ bit-exact against. It runs every tick: the kernel's window staging and
 quiescence skip (``window``, ``skip_stable``) must not change a result, so
 the plain version has neither, as ``repro``'s jnp path has neither. Each of
 the four functions counts its calls in its ``launches`` attribute.
+
+Each kernel also has a batched entry, the counterpart of the Pallas kernels
+under ``jax.vmap`` in the reference's sweep: ``lease_window_delayed_batched``
+/ ``lease_window_sync_batched`` replay B scenarios ([B, T, ...] planes) from
+one shared start state in ONE launch (one grid row per scenario), write no
+final state, and either return the [B, T, N] owner/count rows
+(``collect="owners"``) or reduce them inside the kernel to three [B, N]
+planes (``collect="summary"``: max owner count, owned ticks, final owner;
+see :func:`window_summary`). Their plain versions (``*_batched_torch``) run
+the plain window loop scenario by scenario and reduce in torch.
 """
 from __future__ import annotations
 
@@ -37,6 +47,8 @@ MAX_SMEM = 232448
 #: most acceptors the kernels are instantiated for (netplane's
 #: MAX_VOTE_ACCEPTORS)
 MAX_ACCEPTORS = PACK_SHIFT
+#: most scenarios one batched launch takes (a grid's y extent)
+MAX_BATCH = 65535
 
 
 # ------------------------------------------------------------------ plain
@@ -152,6 +164,86 @@ def lease_window_delayed_torch(
 
 lease_window_delayed_torch.launches = 0
 
+COLLECT = ("summary", "owners")
+
+
+def window_summary(owners: torch.Tensor, counts: torch.Tensor):
+    """The per-cell summary of [..., T, N] owner/count rows, as the batched
+    kernels write it in ``collect="summary"``: (max owner count, ticks with
+    an owner, owner row after the last tick), each [..., N] int32."""
+    return (counts.amax(dim=-2), (owners >= 0).sum(dim=-2, dtype=I32),
+            owners[..., -1, :].clone())
+
+
+def _batched_plain(window_fn, collect: str, planes: tuple, **kw):
+    """Runs ``window_fn`` (a plain window loop) on each scenario's planes
+    (``planes``: [B, T, ...] tensors, or None for an absent one) and stacks
+    the rows or their per-scenario summary."""
+    if collect not in COLLECT:
+        raise ValueError(f"unknown collect mode {collect!r}; one of {COLLECT}")
+    outs = []
+    for b in range(planes[0].shape[0]):
+        *_, owners, counts = window_fn(
+            *(None if x is None else x[b] for x in planes), **kw)
+        outs.append((owners, counts) if collect == "owners"
+                    else window_summary(owners, counts))
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def lease_window_sync_batched_torch(
+    packed: PackedLeaseState, t0: int, attempts, releases, acc_up, pclk, aclk,
+    *, majority: int, lease_q4: int, n_proposers: int, guard_q4: int = None,
+    collect: str = "summary",
+):
+    """Plain version of :func:`lease_window_sync_batched`: the plain sync
+    window loop on each scenario from ``packed``. Returns (owners, counts)
+    [B, T, N] or the :func:`window_summary` planes [B, N]."""
+    out = _batched_plain(
+        lambda *pl: lease_window_sync_torch(packed, t0, *pl, majority=majority,
+                                            lease_q4=lease_q4,
+                                            n_proposers=n_proposers,
+                                            guard_q4=guard_q4),
+        collect, (attempts, releases, acc_up, pclk, aclk))
+    lease_window_sync_batched_torch.launches += 1
+    return out
+
+
+lease_window_sync_batched_torch.launches = 0
+
+#: the optional [B, T, ...] planes of the delayed batched entries, in the
+#: order of the unbatched keyword arguments
+DELAYED_OPTIONAL = ("extends", "stale", "equiv", "acc_restart", "acc_deaf",
+                    "prop_restart", "prop_rc")
+
+
+def lease_window_delayed_batched_torch(
+    packed: PackedLeaseState, net: NetPlaneState, t0: int, attempts, releases,
+    acc_up, pclk, aclk, link, *, majority: int, lease_q4: int, round_q4: int,
+    n_proposers: int, guard_q4: int = None, collect: str = "summary",
+    **optional,
+):
+    """Plain version of :func:`lease_window_delayed_batched`: the plain
+    delayed window loop on each scenario from ``(packed, net)``. Optional
+    planes (``DELAYED_OPTIONAL``) are [B, T, ...] or None. Returns (owners,
+    counts) [B, T, N] or the :func:`window_summary` planes [B, N]."""
+    names = [k for k in DELAYED_OPTIONAL if optional.get(k) is not None]
+    if bad := set(optional) - set(DELAYED_OPTIONAL):
+        raise TypeError(f"unknown optional planes {sorted(bad)}")
+
+    def one(att, rel, up, pc, ac, lk, *opt):
+        return lease_window_delayed_torch(
+            packed, net, t0, att, rel, up, pc, ac, lk, majority=majority,
+            lease_q4=lease_q4, round_q4=round_q4, n_proposers=n_proposers,
+            guard_q4=guard_q4, **dict(zip(names, opt)))
+
+    out = _batched_plain(one, collect, (attempts, releases, acc_up, pclk, aclk,
+                                        link, *(optional[k] for k in names)))
+    lease_window_delayed_batched_torch.launches += 1
+    return out
+
+
+lease_window_delayed_batched_torch.launches = 0
+
 
 # ------------------------------------------------------------------- CUDA
 def _check(x: torch.Tensor, name: str, shape: tuple, device) -> torch.Tensor:
@@ -176,6 +268,25 @@ def _cuda_device(t: torch.Tensor) -> torch.device:
             f"{t.device} (the plain *_torch versions run anywhere)"
         )
     return t.device
+
+
+def _check_batch(B: int, collect: str) -> None:
+    if collect not in COLLECT:
+        raise ValueError(f"unknown collect mode {collect!r}; one of {COLLECT}")
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"a batched launch takes 1..{MAX_BATCH} scenarios; "
+                         f"got {B}")
+
+
+def _batch_outputs(B: int, T: int, N: int, collect: str, dev):
+    """The batched kernels' outputs and their pointers: (owners, counts)
+    [B, T, N] rows, or the three [B, N] summary planes."""
+    if collect == "owners":
+        out = tuple(torch.empty((B, T, N), dtype=I32, device=dev)
+                    for _ in range(2))
+        return out, [*map(_ptr, out), 0, 0, 0]
+    out = tuple(torch.empty((B, N), dtype=I32, device=dev) for _ in range(3))
+    return out, [0, 0, *map(_ptr, out)]
 
 
 def _check_geometry(A: int, P: int, tw: int, per_tick: int) -> None:
@@ -211,6 +322,75 @@ def _launch(name: str, ptrs: list, ints: list, device) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _check_sync_inputs(packed, cols, lead: tuple, P: int, window: int):
+    """Checks a sync launch's state and [*lead, T, ...] planes (cols:
+    attempts, releases, acc_up, pclk, aclk). Returns (device, A, N, T, tw)."""
+    dev = _cuda_device(packed.promised)
+    A, N = packed.promised.shape
+    T = cols[0].shape[len(lead)]
+    tw = max(1, min(int(window), T))
+    _check_geometry(A, P, tw, 2 * A + P)
+    for name, x, shape in zip(
+        PackedLeaseState._fields, packed, ((A, N), (A, N), (1, N), (1, N))
+    ):
+        _check(x, name, shape, dev)
+    for name, x, rows in zip(("attempts", "releases", "acc_up", "pclk", "aclk"),
+                             cols, (N, N, A, P, A)):
+        _check(x, name, (*lead, T, rows), dev)
+    return dev, A, N, T, tw
+
+
+def _check_delayed_inputs(packed, net, cols, link, opt: dict, lead: tuple,
+                          P: int, window: int, ticked):
+    """Checks a delayed launch's state, net and [*lead, T, ...] planes
+    (cols as for sync, then the link plane and the ``DELAYED_OPTIONAL``
+    planes in ``opt``), and fills the absent columns of a present group
+    (corruption, restart) with zeros, in place in ``opt``. Returns
+    (device, A, N, T, tw)."""
+    dev = _cuda_device(packed.promised)
+    A, N = packed.promised.shape
+    T = cols[0].shape[len(lead)]
+    tw = max(1, min(int(window), T)) if T else 1
+    corrupt = opt["stale"] is not None or opt["equiv"] is not None
+    restart = any(opt[k] is not None
+                  for k in ("acc_restart", "acc_deaf", "prop_restart", "prop_rc"))
+    _check_geometry(
+        A, P, tw,
+        2 * A + P + P * A + (2 * A if corrupt else 0)
+        + (2 * A + 2 * P if restart else 0),
+    )
+    for name, x, shape in zip(
+        PackedLeaseState._fields, packed, ((A, N), (A, N), (1, N), (1, N))
+    ):
+        _check(x, name, shape, dev)
+    for name, x in zip(NetPlaneState._fields, net):
+        _check(x, name, (A, N) if name in NetPlaneState._fields[:6] else (1, N),
+               dev)
+    for name, x, rows in zip(("attempts", "releases", "acc_up", "pclk", "aclk"),
+                             cols, (N, N, A, P, A)):
+        _check(x, name, (*lead, T, rows), dev)
+    if opt["extends"] is not None:
+        _check(opt["extends"], "extends", (*lead, T, N), dev)
+    _check(link, "link", (*lead, T, P, A), dev)
+    groups = ((corrupt, (("stale", A), ("equiv", A))),
+              (restart, (("acc_restart", A), ("acc_deaf", A),
+                         ("prop_restart", P), ("prop_rc", P))))
+    for present, names in groups:
+        if present:  # the absent columns of a present group are 0
+            for name, rows in names:
+                opt[name] = (
+                    torch.zeros((*lead, T, rows), dtype=I32, device=dev)
+                    if opt[name] is None
+                    else _check(opt[name], name, (*lead, T, rows), dev))
+    if ticked is not None and (
+        ticked.dtype != torch.int64 or ticked.device != dev
+        or ticked.numel() != 1
+    ):
+        raise ValueError("ticked must be a one-element int64 tensor on the "
+                         "state's device")
+    return dev, A, N, T, tw
+
+
 def lease_window_sync(
     packed: PackedLeaseState,
     t0: int,
@@ -228,30 +408,16 @@ def lease_window_sync(
 ) -> tuple[PackedLeaseState, torch.Tensor, torch.Tensor]:
     """Replay T synchronous ticks in ONE launch of the CUDA sync window
     kernel. Returns (packed', owners [T, N], counts [T, N])."""
-    dev = _cuda_device(packed.promised)
-    A, N = packed.promised.shape
-    P = n_proposers
-    T = attempts.shape[0]
-    tw = max(1, min(int(window), T))
-    _check_geometry(A, P, tw, 2 * A + P)
-    for name, x, shape in zip(
-        PackedLeaseState._fields, packed, ((A, N), (A, N), (1, N), (1, N))
-    ):
-        _check(x, name, shape, dev)
-    _check(attempts, "attempts", (T, N), dev)
-    _check(releases, "releases", (T, N), dev)
-    _check(acc_up, "acc_up", (T, A), dev)
-    _check(pclk, "pclk", (T, P), dev)
-    _check(aclk, "aclk", (T, A), dev)
+    cols = (attempts, releases, acc_up, pclk, aclk)
+    dev, A, N, T, tw = _check_sync_inputs(packed, cols, (), n_proposers, window)
     out = PackedLeaseState(*(torch.empty_like(x) for x in packed))
     owners = torch.empty((T, N), dtype=I32, device=dev)
     counts = torch.empty((T, N), dtype=I32, device=dev)
     if N == 0 or T == 0:
         return PackedLeaseState(*(x.clone() for x in packed)), owners, counts
-    ptrs = [*map(_ptr, packed), *map(_ptr, out), _ptr(attempts),
-            _ptr(releases), _ptr(acc_up), _ptr(pclk), _ptr(aclk),
+    ptrs = [*map(_ptr, packed), *map(_ptr, out), *map(_ptr, cols),
             _ptr(owners), _ptr(counts)]
-    ints = [N, T, A, P, int(t0), tw, majority, lease_q4, 0,
+    ints = [N, T, A, n_proposers, int(t0), tw, majority, lease_q4, 0,
             lease_q4 if guard_q4 is None else guard_q4, 0]
     with torch.cuda.device(dev):
         _launch("lease_window_sync", ptrs, ints, dev)
@@ -293,56 +459,12 @@ def lease_window_delayed(
     kernel. Optional planes follow :func:`lease_window_delayed_torch`
     (``None`` = absent: the kernel does no work for it). Returns
     (packed', net', owners [T, N], counts [T, N])."""
-    dev = _cuda_device(packed.promised)
-    A, N = packed.promised.shape
-    P = n_proposers
-    T = attempts.shape[0]
-    tw = max(1, min(int(window), T)) if T else 1
-    corrupt = stale is not None or equiv is not None
-    restart = any(
-        x is not None for x in (acc_restart, acc_deaf, prop_restart, prop_rc)
-    )
-    _check_geometry(
-        A, P, tw,
-        2 * A + P + P * A + (2 * A if corrupt else 0)
-        + (2 * A + 2 * P if restart else 0),
-    )
-    for name, x, shape in zip(
-        PackedLeaseState._fields, packed, ((A, N), (A, N), (1, N), (1, N))
-    ):
-        _check(x, name, shape, dev)
-    for name, x in zip(NetPlaneState._fields, net):
-        _check(x, name, (A, N) if name in NetPlaneState._fields[:6] else (1, N),
-               dev)
-    _check(attempts, "attempts", (T, N), dev)
-    _check(releases, "releases", (T, N), dev)
-    if extends is not None:
-        _check(extends, "extends", (T, N), dev)
-    _check(acc_up, "acc_up", (T, A), dev)
-    _check(pclk, "pclk", (T, P), dev)
-    _check(aclk, "aclk", (T, A), dev)
-    _check(link, "link", (T, P, A), dev)
-    if corrupt or restart:  # the absent columns of a present group are 0
-        za = torch.zeros((T, A), dtype=I32, device=dev)
-        zp = torch.zeros((T, P), dtype=I32, device=dev)
-    if corrupt:
-        stale = za if stale is None else _check(stale, "stale", (T, A), dev)
-        equiv = za if equiv is None else _check(equiv, "equiv", (T, A), dev)
-    if restart:
-        acc_restart = za if acc_restart is None else _check(
-            acc_restart, "acc_restart", (T, A), dev)
-        acc_deaf = za if acc_deaf is None else _check(
-            acc_deaf, "acc_deaf", (T, A), dev)
-        prop_restart = zp if prop_restart is None else _check(
-            prop_restart, "prop_restart", (T, P), dev)
-        prop_rc = zp if prop_rc is None else _check(
-            prop_rc, "prop_rc", (T, P), dev)
-    if ticked is not None and (
-        ticked.dtype != torch.int64 or ticked.device != dev
-        or ticked.numel() != 1
-    ):
-        raise ValueError("ticked must be a one-element int64 tensor on the "
-                         "state's device")
+    cols = (attempts, releases, acc_up, pclk, aclk)
+    opt = dict(extends=extends, stale=stale, equiv=equiv,
+               acc_restart=acc_restart, acc_deaf=acc_deaf,
+               prop_restart=prop_restart, prop_rc=prop_rc)
+    dev, A, N, T, tw = _check_delayed_inputs(packed, net, cols, link, opt, (),
+                                             n_proposers, window, ticked)
     out_lease = PackedLeaseState(*(torch.empty_like(x) for x in packed))
     out_net = NetPlaneState(*(torch.empty_like(x) for x in net))
     owners = torch.empty((T, N), dtype=I32, device=dev)
@@ -355,11 +477,10 @@ def lease_window_delayed(
         *map(_ptr, out_lease), *map(_ptr, out_net),
         _ptr(attempts), _ptr(releases), _ptr(extends),
         _ptr(acc_up), _ptr(pclk), _ptr(aclk), _ptr(link),
-        _ptr(stale), _ptr(equiv),
-        _ptr(acc_restart), _ptr(acc_deaf), _ptr(prop_restart), _ptr(prop_rc),
+        *(_ptr(opt[k]) for k in DELAYED_OPTIONAL[1:]),
         _ptr(owners), _ptr(counts), _ptr(ticked),
     ]
-    ints = [N, T, A, P, int(t0), tw, majority, lease_q4, round_q4,
+    ints = [N, T, A, n_proposers, int(t0), tw, majority, lease_q4, round_q4,
             lease_q4 if guard_q4 is None else guard_q4, int(bool(skip_stable))]
     with torch.cuda.device(dev):
         _launch("lease_window_delayed", ptrs, ints, dev)
@@ -370,8 +491,115 @@ def lease_window_delayed(
 lease_window_delayed.launches = 0
 
 
+def lease_window_sync_batched(
+    packed: PackedLeaseState,
+    t0: int,
+    attempts: torch.Tensor,   # [B, T, N] int32
+    releases: torch.Tensor,   # [B, T, N] int32
+    acc_up: torch.Tensor,     # [B, T, A] int32
+    pclk: torch.Tensor,       # [B, T, P] int32
+    aclk: torch.Tensor,       # [B, T, A] int32
+    *,
+    majority: int,
+    lease_q4: int,
+    n_proposers: int,
+    guard_q4: int = None,
+    window: int = 16,
+    collect: str = "summary",
+):
+    """Replay B scenarios of T synchronous ticks from one start state in
+    ONE launch of the CUDA sync window kernel (no final state). Returns
+    (owners, counts) [B, T, N] with ``collect="owners"``, else the
+    :func:`window_summary` planes [B, N]."""
+    B = attempts.shape[0]
+    _check_batch(B, collect)
+    cols = (attempts, releases, acc_up, pclk, aclk)
+    dev, A, N, T, tw = _check_sync_inputs(packed, cols, (B,), n_proposers,
+                                          window)
+    out, out_ptrs = _batch_outputs(B, T, N, collect, dev)
+    if N == 0 or T == 0:
+        return out
+    ptrs = [*map(_ptr, packed), 0, 0, 0, 0, *map(_ptr, cols), *out_ptrs]
+    ints = [N, T, A, n_proposers, int(t0), tw, majority, lease_q4, 0,
+            lease_q4 if guard_q4 is None else guard_q4, 0, B,
+            int(collect == "summary")]
+    with torch.cuda.device(dev):
+        _launch("lease_window_sync_batched", ptrs, ints, dev)
+    lease_window_sync_batched.launches += 1
+    return out
+
+
+lease_window_sync_batched.launches = 0
+
+
+def lease_window_delayed_batched(
+    packed: PackedLeaseState,
+    net: NetPlaneState,
+    t0: int,
+    attempts: torch.Tensor,   # [B, T, N] int32
+    releases: torch.Tensor,   # [B, T, N] int32
+    acc_up: torch.Tensor,     # [B, T, A] int32
+    pclk: torch.Tensor,       # [B, T, P] int32
+    aclk: torch.Tensor,       # [B, T, A] int32
+    link: torch.Tensor,       # [B, T, P, A] int32
+    *,
+    majority: int,
+    lease_q4: int,
+    round_q4: int,
+    n_proposers: int,
+    guard_q4: int = None,
+    window: int = 16,
+    skip_stable: bool = True,
+    collect: str = "summary",
+    extends=None,
+    stale=None,
+    equiv=None,
+    acc_restart=None,
+    acc_deaf=None,
+    prop_restart=None,
+    prop_rc=None,
+    ticked: torch.Tensor = None,  # [1] int64: cell-ticks that ran the tick math, all scenarios
+):
+    """Replay B scenarios of T delayed-model ticks from one start state
+    ``(packed, net)`` in ONE launch of the CUDA delayed window kernel (no
+    final state). Optional planes are [B, T, ...] or None, as in
+    :func:`lease_window_delayed`. Returns (owners, counts) [B, T, N] with
+    ``collect="owners"``, else the :func:`window_summary` planes [B, N]."""
+    B = attempts.shape[0]
+    _check_batch(B, collect)
+    cols = (attempts, releases, acc_up, pclk, aclk)
+    opt = dict(extends=extends, stale=stale, equiv=equiv,
+               acc_restart=acc_restart, acc_deaf=acc_deaf,
+               prop_restart=prop_restart, prop_rc=prop_rc)
+    dev, A, N, T, tw = _check_delayed_inputs(packed, net, cols, link, opt,
+                                             (B,), n_proposers, window, ticked)
+    out, out_ptrs = _batch_outputs(B, T, N, collect, dev)
+    if N == 0 or T == 0:
+        return out
+    ptrs = [
+        *map(_ptr, packed), *map(_ptr, net), *([0] * 16),
+        _ptr(attempts), _ptr(releases), _ptr(extends),
+        _ptr(acc_up), _ptr(pclk), _ptr(aclk), _ptr(link),
+        *(_ptr(opt[k]) for k in DELAYED_OPTIONAL[1:]),
+        *out_ptrs[:2], _ptr(ticked), *out_ptrs[2:],
+    ]
+    ints = [N, T, A, n_proposers, int(t0), tw, majority, lease_q4, round_q4,
+            lease_q4 if guard_q4 is None else guard_q4, int(bool(skip_stable)),
+            B, int(collect == "summary")]
+    with torch.cuda.device(dev):
+        _launch("lease_window_delayed_batched", ptrs, ints, dev)
+    lease_window_delayed_batched.launches += 1
+    return out
+
+
+lease_window_delayed_batched.launches = 0
+
+
 def reset_launches() -> None:
-    """Zero the launch counts of both kernels and both plain versions."""
+    """Zero the launch counts of every kernel entry and plain version."""
     for fn in (lease_window_delayed, lease_window_sync,
-               lease_window_delayed_torch, lease_window_sync_torch):
+               lease_window_delayed_torch, lease_window_sync_torch,
+               lease_window_delayed_batched, lease_window_sync_batched,
+               lease_window_delayed_batched_torch,
+               lease_window_sync_batched_torch):
         fn.launches = 0

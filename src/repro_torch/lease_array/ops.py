@@ -31,9 +31,14 @@ import numpy as np
 import torch
 
 from .kernel import (
+    DELAYED_OPTIONAL,
     lease_window_delayed,
+    lease_window_delayed_batched,
+    lease_window_delayed_batched_torch,
     lease_window_delayed_torch,
     lease_window_sync,
+    lease_window_sync_batched,
+    lease_window_sync_batched_torch,
     lease_window_sync_torch,
 )
 from .netplane import NetPlaneState, pack_link
@@ -85,21 +90,24 @@ def _all_equal(v, value: int) -> bool:
 
 
 def _local_clock_planes(t0: int, T: int, clk0, planes: dict, n_proposers: int,
-                        n_acceptors: int, device):
+                        n_acceptors: int, device, lead: tuple = ()):
     """Absolute per-tick local-clock planes ``(pclk [T, P], aclk [T, A])``:
     ``clk0`` (each node's accumulated local quarter-ticks at ``t0``) plus
     the exclusive prefix sum of the scenario's rate planes. ``clk0=None``
     is the rate-1 reading ``4·t0`` on every node; a rate plane missing from
-    the dict means the drift-free DEFAULT_RATE step."""
+    the dict means the drift-free DEFAULT_RATE step. With a ``lead`` batch
+    shape (a sweep's ``(B,)``) the rate planes are ``lead + [T, ...]`` and
+    so are the clock planes, each scenario's from the same ``clk0``."""
 
     def one(rate, rows: int, c0):
         c0 = (rate1_clock(t0, rows, device=device) if c0 is None
               else _as_i32(c0, device))
         if rate is None:
             steps = QUARTERS * torch.arange(T, dtype=I32, device=device)
-            return c0[None, :] + steps[:, None]
+            clk = c0[None, :] + steps[:, None]
+            return clk.expand(*lead, T, rows).contiguous() if lead else clk
         rate = _as_i32(rate, device)
-        return c0[None, :] + torch.cumsum(rate, dim=0, dtype=I32) - rate
+        return c0[None, :] + torch.cumsum(rate, dim=-2, dtype=I32) - rate
 
     pc0, ac0 = (None, None) if clk0 is None else clk0
     return (
@@ -121,20 +129,92 @@ def _restart_planes(rst0, arst, prst, aclk, lease_q4: int, guard: bool):
 
     ``rst0`` is the (rc0 [P], deaf_until0 [A]) restart history at t0
     (None = fresh). ``guard=False`` (the §4 negative control) zeroes the
-    deaf window."""
+    deaf window. The planes may carry a leading batch axis (a sweep's)."""
     device = aclk.device
     rc0, du0 = (None, None) if rst0 is None else rst0
-    rc = torch.cumsum(prst, dim=0, dtype=I32)
+    rc = torch.cumsum(prst, dim=-2, dtype=I32)
     if rc0 is not None:
         rc = rc + _as_i32(rc0, device)[None, :]
     minted = torch.where(arst > 0, aclk + lease_q4, 0)
-    du = torch.cummax(minted, dim=0).values
+    du = torch.cummax(minted, dim=-2).values
     if du0 is not None:
         du = torch.maximum(du, _as_i32(du0, device)[None, :])
     deaf_rem = (du - aclk).clamp(min=0)
     if not guard:
         deaf_rem = torch.zeros_like(deaf_rem)
     return rc, (deaf_rem > 0).to(I32), deaf_rem
+
+
+def _device_planes(planes: dict, dev, clk0, rst0, t0: int, *, n_proposers: int,
+                   n_acceptors: int, lease_q4: int, restart_guard: bool,
+                   sync: bool) -> dict:
+    """The scenario planes of one dispatch as int32 tensors on ``dev``, in
+    the window kernels' argument form: attempts, releases, acc_up, the
+    local-clock planes pclk/aclk, the fused link plane (delayed model
+    only), and the optional ``extends``/``stale``/``equiv``/restart columns
+    (None when absent: absent means honest). ``planes`` are [T, ...], or
+    [B, T, ...] for a sweep (every plane batched alike)."""
+    P, A = n_proposers, n_acceptors
+    attempts = _as_i32(planes["attempts"], dev)
+    *lead, T, _ = attempts.shape
+    lead = tuple(lead)
+    pclk, aclk = _local_clock_planes(t0, T, clk0, planes, P, A, dev, lead)
+    out = dict(attempts=attempts, releases=_as_i32(planes["releases"], dev),
+               acc_up=_as_i32(planes["acc_up"], dev), pclk=pclk, aclk=aclk)
+    # the adversarial corruption planes: absent means honest
+    stale = planes.get("acc_stale")
+    equiv = planes.get("acc_equiv")
+    if stale is not None or equiv is not None:
+        if sync:
+            raise ValueError(
+                "corruption planes (acc_stale/acc_equiv) need the delayed "
+                "model; the synchronous tick cannot honor them"
+            )
+        za = torch.zeros((*lead, T, A), dtype=I32, device=dev)
+        out["stale"] = za if stale is None else _as_i32(stale, dev)
+        out["equiv"] = za if equiv is None else _as_i32(equiv, dev)
+    # the §6 extends plane: same omit-means-honest contract
+    ext = planes.get("extends")
+    if ext is not None:
+        if sync:
+            raise ValueError(
+                "the extends plane (§6 owner extension) needs the delayed "
+                "model; the synchronous tick cannot honor it"
+            )
+        out["extends"] = _as_i32(ext, dev)
+    # the crash/restart planes: a restart history (rst0) keeps restart mode
+    # on across dispatches even when these planes are quiet
+    arst = planes.get("acc_restart")
+    prst = planes.get("prop_restart")
+    if arst is not None or prst is not None or rst0 is not None:
+        if sync:
+            raise ValueError(
+                "restart planes (acc_restart/prop_restart) need the "
+                "delayed model; the synchronous tick cannot honor them"
+            )
+        arst = (torch.zeros((*lead, T, A), dtype=I32, device=dev)
+                if arst is None else _as_i32(arst, dev))
+        prst = (torch.zeros((*lead, T, P), dtype=I32, device=dev)
+                if prst is None else _as_i32(prst, dev))
+        rc, deaf, _ = _restart_planes(
+            rst0, arst, prst, aclk, lease_q4, restart_guard
+        )
+        out.update(acc_restart=arst, acc_deaf=deaf, prop_restart=prst,
+                   prop_rc=rc)
+    if not sync:
+        out["link"] = pack_link(_as_i32(planes["delay"], dev),
+                                _as_i32(planes["drop"], dev))  # [.., T, P, A]
+    return out
+
+
+def _check_backend(backend: str, dev) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown lease-plane backend {backend!r}")
+    if backend == "cuda" and dev.type != "cuda":
+        raise ValueError(
+            f"backend 'cuda' runs the CUDA kernels and needs CUDA tensors; "
+            f"the state is on {dev} (use backend 'torch' there)"
+        )
 
 
 def _window_scan_impl(
@@ -160,90 +240,37 @@ def _window_scan_impl(
     local-clock offsets at ``t0`` (None = ``4·t0``); ``rst0`` the
     (restart-counter [P], deaf-until [A]) restart history at ``t0`` (None =
     fresh). Returns (state', net', owners [T, N], counts [T, N])."""
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown lease-plane backend {backend!r}")
     dev = state.highest_promised.device
-    if backend == "cuda" and dev.type != "cuda":
-        raise ValueError(
-            f"backend 'cuda' runs the CUDA kernels and needs CUDA tensors; "
-            f"the state is on {dev} (use backend 'torch' there)"
-        )
+    _check_backend(backend, dev)
     P = state.n_proposers
-    A, N = state.highest_promised.shape
+    A = state.highest_promised.shape[0]
     t0 = int(t0)
-    attempts = _as_i32(planes["attempts"], dev)
-    releases = _as_i32(planes["releases"], dev)
-    acc_up = _as_i32(planes["acc_up"], dev)
-    T = attempts.shape[0]
-    pclk, aclk = _local_clock_planes(t0, T, clk0, planes, P, A, dev)
+    d = _device_planes(planes, dev, clk0, rst0, t0, n_proposers=P,
+                       n_acceptors=A, lease_q4=lease_q4,
+                       restart_guard=restart_guard, sync=sync)
     packed = pack_state(state)
-    # the adversarial corruption planes: absent means honest
-    stale = planes.get("acc_stale")
-    equiv = planes.get("acc_equiv")
-    corrupt = stale is not None or equiv is not None
-    if corrupt:
-        if sync:
-            raise ValueError(
-                "corruption planes (acc_stale/acc_equiv) need the delayed "
-                "model; the synchronous tick cannot honor them"
-            )
-        za = torch.zeros((T, A), dtype=I32, device=dev)
-        stale = za if stale is None else _as_i32(stale, dev)
-        equiv = za if equiv is None else _as_i32(equiv, dev)
-    # the §6 extends plane: same omit-means-honest contract
-    ext = planes.get("extends")
-    if ext is not None:
-        if sync:
-            raise ValueError(
-                "the extends plane (§6 owner extension) needs the delayed "
-                "model; the synchronous tick cannot honor it"
-            )
-        ext = _as_i32(ext, dev)
-    # the crash/restart planes: a restart history (rst0) keeps restart mode
-    # on across dispatches even when these planes are quiet
-    arst = planes.get("acc_restart")
-    prst = planes.get("prop_restart")
-    restart = arst is not None or prst is not None or rst0 is not None
-    rst_kw = {}
-    if restart:
-        if sync:
-            raise ValueError(
-                "restart planes (acc_restart/prop_restart) need the "
-                "delayed model; the synchronous tick cannot honor them"
-            )
-        arst = (torch.zeros((T, A), dtype=I32, device=dev) if arst is None
-                else _as_i32(arst, dev))
-        prst = (torch.zeros((T, P), dtype=I32, device=dev) if prst is None
-                else _as_i32(prst, dev))
-        rc, deaf, _ = _restart_planes(
-            rst0, arst, prst, aclk, lease_q4, restart_guard
-        )
-        rst_kw = dict(acc_restart=arst, acc_deaf=deaf, prop_restart=prst,
-                      prop_rc=rc)
     if backend == "cuda":
         packed = PackedLeaseState(*(x.contiguous() for x in packed))
+    cols = (d["attempts"], d["releases"], d["acc_up"], d["pclk"], d["aclk"])
 
     if sync:
         kw = dict(majority=majority, lease_q4=lease_q4, n_proposers=P,
                   guard_q4=guard_q4)
         if backend == "cuda":
             packed, owners, counts = lease_window_sync(
-                packed, t0, attempts, releases, acc_up, pclk, aclk,
-                window=window, **kw,
+                packed, t0, *cols, window=window, **kw,
             )
         else:
             packed, owners, counts = lease_window_sync_torch(
-                packed, t0, attempts, releases, acc_up, pclk, aclk, **kw,
+                packed, t0, *cols, **kw,
             )
         new_net = net
     else:
-        link = pack_link(_as_i32(planes["delay"], dev),
-                         _as_i32(planes["drop"], dev))  # [T, P, A]
         net = NetPlaneState(*(x.contiguous() for x in net))
         kw = dict(majority=majority, lease_q4=lease_q4, round_q4=round_q4,
-                  n_proposers=P, guard_q4=guard_q4, extends=ext, stale=stale,
-                  equiv=equiv, **rst_kw)
-        args = (packed, net, t0, attempts, releases, acc_up, pclk, aclk, link)
+                  n_proposers=P, guard_q4=guard_q4,
+                  **{k: d.get(k) for k in DELAYED_OPTIONAL})
+        args = (packed, net, t0, *cols, d["link"])
         if backend == "cuda":
             packed, new_net, owners, counts = lease_window_delayed(
                 *args, window=window, skip_stable=skip_stable, **kw)
@@ -251,6 +278,60 @@ def _window_scan_impl(
             packed, new_net, owners, counts = lease_window_delayed_torch(
                 *args, **kw)
     return unpack_state(packed, P), new_net, owners, counts
+
+
+def _sweep_scan_impl(
+    state: LeaseArrayState,
+    net,
+    t0: int,
+    clk0,
+    rst0,
+    planes: dict,
+    *,
+    majority: int,
+    lease_q4: int,
+    round_q4: int,
+    guard_q4: int,
+    backend: str,
+    sync: bool,
+    window: int,
+    collect: str,
+    restart_guard: bool = True,
+    skip_stable: bool = True,
+):
+    """The batched body of ``LeaseArrayEngine.sweep``: B stacked scenarios
+    (``planes`` [B, T, ...]) each replayed from the same start (state, net,
+    t0, clk0, rst0) in ONE dispatch, the state left as it is. Returns
+    (owners, counts) [B, T, N] with ``collect="owners"``, else the
+    per-cell summary planes (max owner count, owned ticks, final owner)
+    [B, N] (``kernel.window_summary``)."""
+    dev = state.highest_promised.device
+    _check_backend(backend, dev)
+    P = state.n_proposers
+    A = state.highest_promised.shape[0]
+    t0 = int(t0)
+    d = _device_planes(planes, dev, clk0, rst0, t0, n_proposers=P,
+                       n_acceptors=A, lease_q4=lease_q4,
+                       restart_guard=restart_guard, sync=sync)
+    packed = PackedLeaseState(*(x.contiguous() for x in pack_state(state)))
+    cols = (d["attempts"], d["releases"], d["acc_up"], d["pclk"], d["aclk"])
+    cuda = backend == "cuda"
+    if sync:
+        kw = dict(majority=majority, lease_q4=lease_q4, n_proposers=P,
+                  guard_q4=guard_q4, collect=collect)
+        if cuda:
+            return lease_window_sync_batched(packed, t0, *cols, window=window,
+                                             **kw)
+        return lease_window_sync_batched_torch(packed, t0, *cols, **kw)
+    net = NetPlaneState(*(x.contiguous() for x in net))
+    kw = dict(majority=majority, lease_q4=lease_q4, round_q4=round_q4,
+              n_proposers=P, guard_q4=guard_q4, collect=collect,
+              **{k: d.get(k) for k in DELAYED_OPTIONAL})
+    args = (packed, net, t0, *cols, d["link"])
+    if cuda:
+        return lease_window_delayed_batched(*args, window=window,
+                                            skip_stable=skip_stable, **kw)
+    return lease_window_delayed_batched_torch(*args, **kw)
 
 
 def _guard_pack_budget(

@@ -34,7 +34,11 @@ def test_package_has_the_slice_modules():
                  "kernels.flash_attention._build", "models.rwkv6", "kernels.rwkv6",
                  "kernels.rwkv6.ref", "kernels.rwkv6.kernel", "kernels.rwkv6.ops",
                  "kernels.rwkv6._build", "launch", "launch.steps",
-                 "launch.serve", "train", "train.serve"):
+                 "launch.serve", "train", "train.serve",
+                 "configs.paxoslease_cell", "sim", "sim.events", "sim.network",
+                 "sim.env", "core", "core.ballot", "core.messages",
+                 "core.invariant", "core.acceptor", "core.proposer",
+                 "core.cell"):
         assert f"repro_torch.{name}" in MODULES
 
 

@@ -4,8 +4,9 @@
 PyTorch backend) replay the same scenarios as ``repro``'s engine
 (``backend="jnp"``): owners, counts, the final lease state, the in-flight
 plane, the carried clocks and the restart history must be bit-exact. The
-port's owners are also held against the reference's event-driven referee
-(``repro.lease_array.replay_event_sim``) on chaos traces, and a renewal
+port's owners are also held against the port's own event-driven referee
+(``repro_torch.lease_array.replay_event_sim``, itself held against the
+reference's in ``tests/test_torch_referee.py``) on chaos traces, and a renewal
 deployment must keep its cells owned. Without CUDA the default device
 raises rather than moving to the CPU.
 """
@@ -14,9 +15,11 @@ import pytest
 import torch
 
 from repro.lease_array import LeaseArrayEngine as JEngine
-from repro.lease_array import random_trace, replay_event_sim
+from repro.lease_array import random_trace
 from repro.lease_array.trace import Trace as JTrace
 from repro_torch.lease_array import LeaseArrayEngine, Scenario, TickInputs
+from repro_torch.lease_array import random_trace as port_random_trace
+from repro_torch.lease_array import replay_event_sim
 from repro_torch.lease_array import state as tstate
 
 #: name -> (seed, random_trace options)
@@ -151,11 +154,12 @@ def test_renewal_deployment_stays_owned():
 
 @pytest.mark.parametrize("case", ["restart", "renew-chaos", "delay-asym-drop"])
 def test_owners_equal_event_sim_referee(case):
-    """Differential check against the event-driven referee of the
-    reference package: same owners at every tick, never two believers."""
-    tr = _trace(case)
+    """Differential check against the port's event-driven referee: same
+    owners at every tick, never two believers."""
+    seed, opts = CASES[case]
+    tr = port_random_trace(seed, n_ticks=N_TICKS, **opts)
     _, teng = _engines(tr)
-    tow, tcn = teng.run_trace(_port_scenario(tr.scenario()))
+    tow, tcn = teng.run_trace(tr.scenario())
     assert int(tcn.max()) <= 1
     np.testing.assert_array_equal(replay_event_sim(tr), tow.numpy())
 

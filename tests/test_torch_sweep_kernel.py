@@ -1,0 +1,235 @@
+"""The batched window kernels (the sweep's) against their plain batched
+versions, and the differential referee on the card.
+
+Tests marked ``cuda`` build ``csrc/lease_window.cu`` and hold
+``lease_window_{delayed,sync}_batched`` bit-exact against
+``lease_window_*_batched_torch`` (the plain window loop scenario by
+scenario) in both collect modes: one scenario against the unbatched
+kernel, ragged and small cell counts, every template variant (extends,
+corruption, restarts). They also check that ``sweep`` on the card launches
+the batched kernels and that ``replay_array(backend="cuda")`` equals the
+event-driven referee. Without a CUDA device they skip. This file imports no
+JAX, so it runs on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_sweep_kernel.py
+
+The rest run anywhere: the batched wrappers refuse CPU tensors, the plain
+versions count their calls, and the summary reduction is what it says.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.lease_array import (
+    LeaseArrayEngine,
+    Scenario,
+    random_trace,
+    replay_array,
+    replay_event_sim,
+)
+from repro_torch.lease_array import kernel as K
+from repro_torch.lease_array.netplane import init_netplane
+from repro_torch.lease_array.ops import _device_planes, strip_default_planes
+from repro_torch.lease_array.state import init_state, pack_state
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the lease kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _corrupt(tr, seed):
+    rng = np.random.default_rng(seed)
+    T, A = tr.n_ticks, tr.n_acceptors
+    return Scenario.build(
+        n_cells=tr.n_cells, n_acceptors=A, n_proposers=tr.n_proposers,
+        **{**tr.scenario().planes,
+           "acc_stale": (rng.random((T, A)) < 0.05).astype(np.int32),
+           "acc_equiv": (rng.random((T, A)) < 0.05).astype(np.int32)})
+
+
+#: name -> (engine options, B scenarios from a seed); each batch shares
+#: its geometry, and the cell counts are small (8), ragged (37, 257) or
+#: past one block (300)
+CASES = {
+    "sync-n8": (dict(lease_ticks=2, round_ticks=2), lambda s: random_trace(
+        s, n_ticks=16, n_cells=8, n_acceptors=3, n_proposers=4,
+        lease_ticks=2, p_attempt=0.5, p_release=0.08, p_down_flip=0.05,
+        round_ticks=2).scenario()),
+    "delay-drop-n37": (dict(lease_ticks=3, round_ticks=3), lambda s: random_trace(
+        s, n_ticks=40, n_cells=37, n_proposers=8, max_delay_ticks=2,
+        p_drop=0.1, asymmetric=True).scenario()),
+    "chaos-a3-n257": (dict(lease_ticks=8, round_ticks=3, drift_eps=0.25),
+                      lambda s: random_trace(
+        s, n_ticks=60, n_cells=257, n_acceptors=3, n_proposers=5,
+        lease_ticks=8, max_delay_ticks=2, p_drop=0.05, drift_eps=0.25,
+        restarts=0.01, renew=0.5, round_ticks=3).scenario()),
+    "corrupt-restart-n300": (dict(lease_ticks=8, round_ticks=3), lambda s: _corrupt(
+        random_trace(s, n_ticks=48, n_cells=300, n_proposers=8, lease_ticks=8,
+                     max_delay_ticks=2, p_drop=0.05, restarts=0.01,
+                     round_ticks=3), s)),
+}
+
+
+def _engine(case, device, **kw):
+    opts, make = CASES[case]
+    sc = make(0)
+    return LeaseArrayEngine(sc.n_cells, n_acceptors=sc.n_acceptors,
+                            n_proposers=sc.n_proposers, device=device,
+                            **opts, **kw)
+
+
+def _batch(case, B=4, seed0=10):
+    return [CASES[case][1](seed0 + b) for b in range(B)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 16])
+@pytest.mark.parametrize("collect", ["summary", "owners"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_batched_kernel_equals_plain_batched(cuda_device, case, collect, window):
+    """sweep on the card equals sweep with the plain batched window loop,
+    from a fresh engine and from one that has run a scenario first, with
+    the quiescence skip on and off."""
+    scs = _batch(case)
+    for warm in (False, True):
+        for skip in (True, False):
+            eng = _engine(case, cuda_device, window=window, skip_stable=skip)
+            if warm:
+                eng.run_trace(CASES[case][1](99))
+            plain = eng.sweep(scs, collect=collect, backend="torch",
+                              verify=False)
+            K.reset_launches()
+            got = eng.sweep(scs, collect=collect, verify=False)
+            assert (K.lease_window_delayed_batched.launches
+                    + K.lease_window_sync_batched.launches) == 1
+            assert (K.lease_window_delayed.launches
+                    + K.lease_window_sync.launches) == 0
+            for f in got._fields:
+                a, b = getattr(got, f), getattr(plain, f)
+                assert (a is None) == (b is None), f
+                if a is not None:
+                    assert a.device.type == "cuda" and torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_one_scenario_equals_the_unbatched_kernel(cuda_device, case):
+    """B = 1 gives the unbatched kernel's owner and count rows, and its
+    summary is their reduction."""
+    sc = strip_default_planes(CASES[case][1](3).planes)
+    eng = _engine(case, cuda_device)
+    A, P, N = eng.n_acceptors, eng.n_proposers, eng.n_cells
+    sync = case == "sync-n8"
+    d = _device_planes(sc, cuda_device, None, None, 0, n_proposers=P,
+                       n_acceptors=A, lease_q4=eng.lease_q4,
+                       restart_guard=True, sync=sync)
+    packed = pack_state(init_state(N, A, P, device=cuda_device))
+    cols = [d[k] for k in ("attempts", "releases", "acc_up", "pclk", "aclk")]
+    if sync:
+        kw = dict(majority=eng.majority, lease_q4=eng.lease_q4, n_proposers=P)
+        _, ow, cn = K.lease_window_sync(packed, 0, *cols, **kw)
+        rows = K.lease_window_sync_batched(
+            packed, 0, *(x[None] for x in cols), collect="owners", **kw)
+        summ = K.lease_window_sync_batched(
+            packed, 0, *(x[None] for x in cols), collect="summary", **kw)
+    else:
+        net = init_netplane(N, A, device=cuda_device)
+        kw = dict(majority=eng.majority, lease_q4=eng.lease_q4,
+                  round_q4=eng.round_q4, n_proposers=P)
+        opt = {k: d.get(k) for k in K.DELAYED_OPTIONAL}
+        _, _, ow, cn = K.lease_window_delayed(packed, net, 0, *cols, d["link"],
+                                              **kw, **opt)
+        bopt = {k: None if v is None else v[None] for k, v in opt.items()}
+        args = (packed, net, 0, *(x[None] for x in cols), d["link"][None])
+        rows = K.lease_window_delayed_batched(*args, collect="owners", **kw,
+                                              **bopt)
+        summ = K.lease_window_delayed_batched(*args, collect="summary", **kw,
+                                              **bopt)
+    torch.cuda.synchronize()
+    assert torch.equal(rows[0][0], ow) and torch.equal(rows[1][0], cn)
+    for got, want in zip(summ, K.window_summary(ow, cn)):
+        assert torch.equal(got[0], want)
+
+
+@pytest.mark.cuda
+def test_batched_wrappers_check_their_inputs(cuda_device):
+    A, P, N, T = 3, 4, 8, 5
+    packed = pack_state(init_state(N, A, P, device=cuda_device))
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=cuda_device)
+    kw = dict(majority=2, lease_q4=9, n_proposers=P)
+    good = (z(2, T, N), z(2, T, N), z(2, T, A), z(2, T, P), z(2, T, A))
+    out = K.lease_window_sync_batched(packed, 0, *good, **kw)
+    assert [tuple(x.shape) for x in out] == [(2, N)] * 3
+    with pytest.raises(ValueError, match="collect"):
+        K.lease_window_sync_batched(packed, 0, *good, collect="all", **kw)
+    with pytest.raises(ValueError, match="attempts has shape"):
+        K.lease_window_sync_batched(packed, 0, z(2, T, N + 1), *good[1:], **kw)
+    with pytest.raises(ValueError, match="acc_up has shape"):
+        K.lease_window_sync_batched(packed, 0, *good[:2], z(3, T, A),
+                                    *good[3:], **kw)
+    with pytest.raises(ValueError, match="1..65535 scenarios"):
+        K.lease_window_sync_batched(
+            packed, 0, *(x[:0] for x in good), **kw)
+    net = init_netplane(N, A, device=cuda_device)
+    with pytest.raises(ValueError, match="link has shape"):
+        K.lease_window_delayed_batched(packed, net, 0, *good, z(2, T, A, P),
+                                       round_q4=8, **kw)
+
+
+@pytest.mark.cuda
+def test_referee_equals_the_kernels(cuda_device):
+    """replay_array on the card equals the event-driven referee."""
+    for seed, opts in ((42, dict(max_delay_ticks=2, p_drop=0.05,
+                                 drift_eps=0.25, asymmetric=True,
+                                 restarts=0.02)),
+                       (1234, dict(n_cells=8, n_acceptors=3, lease_ticks=6,
+                                   p_attempt=0.12, p_release=0.04, renew=0.5,
+                                   max_delay_ticks=1, p_drop=0.05,
+                                   drift_eps=0.25, round_ticks=5))):
+        tr = random_trace(seed, n_ticks=400, **opts)
+        ow, cn = replay_array(tr, backend="cuda", device=cuda_device)
+        assert int(cn.max()) <= 1
+        np.testing.assert_array_equal(replay_event_sim(tr), ow.cpu().numpy())
+
+
+def test_batched_wrappers_refuse_cpu_tensors():
+    A, P, N, T = 3, 4, 8, 5
+    packed = pack_state(init_state(N, A, P, device="cpu"))
+    z = lambda *s: torch.zeros(s, dtype=torch.int32)
+    cols = (z(1, T, N), z(1, T, N), z(1, T, A), z(1, T, P), z(1, T, A))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        K.lease_window_sync_batched(packed, 0, *cols, majority=2, lease_q4=9,
+                                    n_proposers=P)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        K.lease_window_delayed_batched(
+            packed, init_netplane(N, A, device="cpu"), 0, *cols,
+            z(1, T, P, A), majority=2, lease_q4=9, round_q4=8, n_proposers=P)
+
+
+def test_window_summary_reduces_over_ticks():
+    owners = torch.tensor([[[0, -1, 2], [1, -1, -1], [1, 3, -1]]],
+                          dtype=torch.int32)
+    counts = torch.tensor([[[1, 0, 1], [2, 0, 0], [1, 1, 0]]],
+                          dtype=torch.int32)
+    mx, owned, final = K.window_summary(owners, counts)
+    assert mx.tolist() == [[2, 1, 1]]
+    assert owned.tolist() == [[3, 1, 1]] and owned.dtype == torch.int32
+    assert final.tolist() == [[1, 3, -1]]
+
+
+def test_plain_batched_versions_count_one_call_per_batch():
+    eng = _engine("chaos-a3-n257", "cpu")
+    scs = _batch("chaos-a3-n257", B=2)
+    K.reset_launches()
+    eng.sweep(scs, collect="owners")
+    assert K.lease_window_delayed_batched_torch.launches == 1
+    assert K.lease_window_delayed_torch.launches == 2  # one per scenario
+    assert K.lease_window_delayed_batched.launches == 0
+    K.reset_launches()
+    assert all(fn.launches == 0 for fn in (
+        K.lease_window_delayed_batched, K.lease_window_sync_batched,
+        K.lease_window_delayed_batched_torch,
+        K.lease_window_sync_batched_torch))
