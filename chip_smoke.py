@@ -15,6 +15,10 @@ Phases (one line each):
      flash-attention kernels from
      ``src/repro_torch/kernels/flash_attention/csrc`` and the WKV6 kernels
      from ``src/repro_torch/kernels/rwkv6/csrc``, all nvcc runs at once;
+     check from ``cuobjdump -sass`` that every fp32 flash entry holds HMMA
+     (of the TF32 form only) and LDGSTS and that only the bf16 WKV6 kernel
+     does, and print each entry's registers, spills and dynamic shared
+     memory;
   2. hold both kernels bit-exact against their plain PyTorch versions on
      small traces (delay 0/2/4, asymmetric links, drift, restarts, extends,
      stale/equiv corruption, windows 1/3/16, a ragged cell count, a trace
@@ -35,10 +39,10 @@ Phases (one line each):
      ``cuobjdump -sass``) over their pipes' rates.
   8. the flash kernels against their plain version on the reference's
      seven cases plus ragged, windowed and cross-attention lengths, and
-     bf16 cases through the tensor-core kernel at Dh 64, 112 and 128
-     (windowed, ragged, a fully masked first live tile);
+     bf16 cases through the wgmma kernel at Dh 64, 112 and 128
+     (windowed, ragged, a fully masked first live tile); fp32 within 5e-5;
   9. internlm2-1.8b at full width, random weights from a seed: a 4 x 2048
-     fp32 prefill through the kernel (24 launches) against the same prefill
+     fp32 prefill through the 3xTF32 kernel (24 launches) against the same prefill
      with plain attention on the card, last logits to a relative error
      below 2e-4;
  10. 16 greedy ``decode_step`` tokens after that prefill against
@@ -46,11 +50,14 @@ Phases (one line each):
  11. ``ServeEngine`` in bf16: 8 requests on 4 slots, 16 new tokens each;
  12. a 4 x 2048 bf16 prefill through the tensor-core kernel (24 launches)
      against the same prefill with plain attention, last logits to a
-     relative error below 5e-2; then, for each flash kernel (bf16 tensor
-     cores, fp32 CUDA cores), its, the plain version's and
-     ``scaled_dot_product_attention``'s times at the prefill shapes and the
-     bound (the larger of the causal FLOPs over the dtype's peak and the
-     bytes over the memory rate); bf16 prefill and decode step times.
+     relative error below 5e-2; then, for each flash kernel (bf16 on
+     wgmma, fp32 as three TF32 products on mma.sync), its, the plain
+     version's and ``scaled_dot_product_attention``'s times at the prefill
+     shapes and the bound (the larger of the causal FLOPs over the dtype's
+     peak and the bytes over the memory rate; for fp32 the lesser of two
+     ways to the same accuracy: the FLOPs on the CUDA cores' fp32 FMAs, or
+     three times them at the TF32 tensor-core peak); bf16 prefill and
+     decode step times.
  13. the WKV6 kernels (fp32: the CUDA-core kernel; bf16: the tensor-core
      kernel) against their plain chunked form on the reference's five
      cases, ragged lengths from nonzero states (final states compared),
@@ -92,8 +99,8 @@ Phases (one line each):
      1, the engine unchanged; then each batched kernel's time, launches
      and bound, and where one sweep's host time goes.
 The line before the last holds every kernel's launches on its main path
-(phases 3-6; the phase-12 bf16 prefill for the tensor-core flash kernel,
-the phase-9 prefill and phase-11 serving for the CUDA-core one; the
+(phases 3-6; the phase-12 bf16 prefill for the wgmma flash kernel,
+the phase-9 prefill and phase-11 serving for the fp32 3xTF32 one; the
 phase-17 bf16 prefill for the tensor-core WKV6 kernel, the phase-14
 prefill and phase-16 serving for the CUDA-core one; the phase-19 sweeps
 for the batched lease kernels), time, plain time, bound and library time
@@ -283,13 +290,13 @@ def lease_kind(entry: str) -> str:
 
 
 def flash_kind(entry: str) -> str:
-    """'fp32/Dh128' (the CUDA-core kernel) or 'bf16-wgmma/Dh<=128' (the
-    tensor-core kernel, per padded width) for the instantiation named in a
-    ptxas entry line."""
+    """'fp32-3xtf32/Dh128' (the mma.sync kernel, per head width) or
+    'bf16-wgmma/Dh<=128' (the wgmma kernel, per padded width) for the
+    instantiation named in a ptxas entry line or a SASS function name."""
     if m := re.search(r"flash_wgmma_kernelILi(\d+)E", entry):
         return f"bf16-wgmma/Dh<={m[1]}"
     m = re.search(r"flash_fwd_kernelILi(\d+)E", entry)
-    return f"fp32/Dh{16 * int(m[1])}"
+    return f"fp32-3xtf32/Dh{m[1]}"
 
 
 def wgmma_smem_bytes(dh_padded: int) -> int:
@@ -405,9 +412,10 @@ def host_ms(fn, reps: int = 1) -> float:
 #: the LM slice: internlm2-1.8b at its published widths (configs/archs.py)
 LM_ARCH = "internlm2-1.8b"
 LM_BATCH, LM_SEQ, LM_DECODE = 4, 2048, 16  # prefill_32k's 32 x 32768, cut to size
-#: H100 SXM dense bf16 tensor-core peak and fp32 peak outside the tensor
-#: cores (NVIDIA data sheet)
+#: H100 SXM dense bf16 and TF32 tensor-core peaks and the fp32 peak outside
+#: the tensor cores (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 494.7e12
 FP32_FLOP_PER_S = 67e12
 #: the kernels against their plain version: tests/test_kernels_flash.py's
 #: seven cases, then lengths no multiple of the tiles, then bf16 (the
@@ -550,8 +558,9 @@ def continue_cache(cfg, cache, new_len: int):
 def lm_slice(dev) -> list:
     """Phases 8-12: the internlm2-1.8b prefill and serve path through the
     flash kernels, at full width. Returns the kernels' JSON entries: the
-    tensor-core kernel (bf16; its main path the phase-12 bf16 prefill) and
-    the CUDA-core kernel (fp32; the phase-9 prefill and phase-11 serving)."""
+    wgmma kernel (bf16; its main path the phase-12 bf16 prefill) and the
+    3xTF32 mma.sync kernel (fp32; the phase-9 prefill and phase-11
+    serving)."""
     import dataclasses
 
     import numpy as np
@@ -585,12 +594,31 @@ def lm_slice(dev) -> list:
         check(got.shape == q.shape and got.dtype == q.dtype, f"flash case {n}: shape/dtype")
         check(err < FLASH_TOL[dtn], f"flash case {n} {FLASH_CASES[n]}: max |err| {err:.3e}")
         worst[dtn] = max(worst.get(dtn, 0.0), err)
+    # outside the contract: rows with no key in reach (Sq >= Sk + window - 1
+    # under a causal window). attention_ref averages V over all Sk keys; the
+    # kernels over the keys of their block's live tiles, or give 0 where a
+    # block has none. Printed, not checked
+    sq, sk, w = 300, 127, 32
+    rng = np.random.default_rng(99)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, n, 128), np.float32)).to(dev)
+               for n in (sq, sk, sk))
+    unreached = torch.arange(sq, device=dev) >= sk + w - 1
+    no_key = []
+    for dtn in ("float32", "bfloat16"):
+        qx, kx, vx = (x.to(dt[dtn]) for x in (q, k, v))
+        got = FK.flash_attention_bhsd(qx, kx, vx, causal=True, window=w).float()[:, unreached]
+        want = attention_ref(qx, kx, vx, causal=True, window=w).float()[:, unreached]
+        no_key.append(f"{dtn} {int((got.abs().amax(-1) == 0).sum())} of "
+                      f"{got.shape[0] * got.shape[1]} rows exactly 0, max |kernel - plain| "
+                      f"{float((got - want).abs().max()):.3e}")
     n_bf16 = sum(c[-1] == "bfloat16" for c in FLASH_CASES)
     print(f"phase 8 flash kernels vs plain: {len(FLASH_CASES)} cases (the reference's "
           f"7, ragged 300/1000, windowed, ragged cross; {n_bf16} bf16 through the "
-          f"tensor-core kernel at Dh 64/112/128) within 5e-5 fp32 / 2.5e-2 bf16; "
+          f"wgmma kernel at Dh 64/112/128) within 5e-5 fp32 / 2.5e-2 bf16; "
           f"max |err| fp32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"phase 8 rows with no key in reach (Sq {sq}, Sk {sk}, window {w}, causal; outside "
+          f"the contract, not checked): " + "; ".join(no_key), flush=True)
 
     # --------------------------- 9. full-width fp32 prefill, kernel vs plain
     t_phase = time.perf_counter()
@@ -696,10 +724,16 @@ def lm_slice(dev) -> list:
     v = torch.randn(bhkv, LM_SEQ, dh, generator=g, device=dev)
     pairs = bhq * LM_SEQ * (LM_SEQ + 1) // 2  # live causal (q, k) pairs
     flop = 4 * dh * pairs
+    # the least time for each dtype's work: bf16 at the bf16 tensor-core
+    # peak; fp32 to fp32 accuracy the lesser of the FLOPs on the CUDA cores'
+    # fp32 FMAs and three TF32 products (3xTF32) at the TF32 peak
+    ways = {"bfloat16": [(flop / BF16_FLOP_PER_S, "989 TFLOP/s bf16 tensor cores")],
+            "float32": [(flop / FP32_FLOP_PER_S, "67 TFLOP/s fp32 FMA on the CUDA cores"),
+                        (3 * flop / TF32_FLOP_PER_S,
+                         "3 x FLOP at 494.7 TFLOP/s dense TF32 tensor cores")]}
     rows = []
-    for dtn, entry, peak, peak_name, launches in (
-            ("bfloat16", bf16, BF16_FLOP_PER_S, "989 TFLOP/s bf16 tensor cores", bf16_launches),
-            ("float32", f32, FP32_FLOP_PER_S, "67 TFLOP/s fp32 CUDA cores", lm_launches)):
+    for dtn, entry, launches in (("bfloat16", bf16, bf16_launches),
+                                 ("float32", f32, lm_launches)):
         qx, kx, vx = (x.to(dt[dtn]) for x in (q, k, v))
         err = float((FK.flash_attention_bhsd(qx, kx, vx, causal=True).float()
                      - attention_ref(qx, kx, vx, causal=True).float()).abs().max())
@@ -718,15 +752,21 @@ def lm_slice(dev) -> list:
                                                                      library))
         ms_k, ms_lib = (ms_k1 + ms_k2) / 2, (ms_lib1 + ms_lib2) / 2
         ms_plain = time_ms(lambda: attention_ref(qx, kx, vx, causal=True), 3)
-        ops_ms = flop / peak * 1e3
+        ops_s, peak_name = min(ways[dtn])
+        ops_ms = ops_s * 1e3
         bytes_ms = (2 * q.numel() + k.numel() + v.numel()) * qx.element_size() / HBM_BYTES_PER_S * 1e3
         bound = max(ops_ms, bytes_ms)
-        print(f"phase 12 timing ({dtn}, {entry}, BHq {bhq}, BHkv {bhkv}, S {LM_SEQ}, Dh {dh}, "
+        others = "".join(f"; not taken: {s * 1e3:.4f} ms at {name}"
+                         for s, name in ways[dtn] if name != peak_name)
+        route = {"bfloat16": "wgmma", "float32": "3xTF32 on mma.sync"}[dtn]
+        print(f"phase 12 timing ({dtn}, {entry}, {route}, BHq {bhq}, BHkv {bhkv}, S {LM_SEQ}, "
+              f"Dh {dh}, "
               f"causal): flash kernel {ms_k:.4f} ms ({ms_k1:.4f} / {ms_k2:.4f}; "
               f"{flop / ms_k / 1e9:.1f} TFLOP/s), plain {ms_plain:.3f} ms, "
               f"scaled_dot_product_attention {ms_lib:.4f} ms ({ms_lib1:.4f} / {ms_lib2:.4f}; "
               f"kernel / library {ms_k / ms_lib:.2f}); bound {bound:.4f} ms (operations "
-              f"{ops_ms:.4f} ms at {peak_name}, bytes {bytes_ms:.4f} ms at 3.35 TB/s); "
+              f"{ops_ms:.4f} ms at {peak_name}, bytes {bytes_ms:.4f} ms at 3.35 TB/s"
+              f"{others}); "
               f"max |err| vs plain {err:.3e}", flush=True)
         rows.append(dict(
             name="flash_attention_bhsd" if dtn == "bfloat16" else "flash_attention_bhsd_fp32",
@@ -1439,6 +1479,7 @@ def main() -> int:
         random_trace,
     )
     from repro_torch.kernels.flash_attention import _build as flash_build
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.rwkv6 import _build as wkv_build
     from repro_torch.lease_array import _build
     from repro_torch.lease_array import kernel as K
@@ -1485,10 +1526,30 @@ def main() -> int:
     flash_log = flash_lib.with_suffix(".log").read_text()
     serialized = sorted({flash_kind(line) for line in flash_log.splitlines()
                          if "C7512" in line and "flash_wgmma_kernel" in line})
-    print(f"phase 1 build: {flash_lib.name} (dynamic shared memory a block: fp32 "
-          f"{(3 * 128 + 64) * 64 * 4} B at Dh 128; bf16-wgmma {wgmma_smem_bytes(64)} B at "
-          f"Dh<=64, {wgmma_smem_bytes(128)} B at Dh<=128; wgmma serialized by ptxas "
-          f"(C7512) in: {', '.join(serialized) or 'none'}): "
+    # the fp32 kernel takes its products on the tensor cores (HMMA, TF32)
+    # and its tiles by cp.async (LDGSTS), at every head width
+    flash_ops, hmma_forms = {}, set()
+    for name, ins in sass_functions(library_sass(flash_lib)).items():
+        if "flash_fwd_kernel" in name:
+            flash_ops[flash_kind(name)] = {op: sum(o.startswith(op) for _, _, o, _ in ins)
+                                           for op in ("HMMA", "LDGSTS", "LDSM")}
+            hmma_forms |= {o for _, _, o, _ in ins if o.startswith("HMMA")}
+    check(len(flash_ops) == len(flash_kernel.HEAD_DIMS), f"{flash_lib.name}: fp32 entries "
+          f"{sorted(flash_ops)}")
+    for kind, ops in flash_ops.items():
+        check(ops["HMMA"] > 0 and ops["LDGSTS"] > 0,
+              f"{flash_lib.name}: {kind} holds {ops['HMMA']} HMMA, {ops['LDGSTS']} LDGSTS")
+    check(all("TF32" in form for form in hmma_forms),
+          f"{flash_lib.name}: fp32 entries issue {sorted(hmma_forms)}, not only TF32 HMMA")
+    flash_dll = flash_build.load()
+    print(f"phase 1 build: {flash_lib.name} (dynamic shared memory a block, as the "
+          f"library reports it: fp32-3xtf32 " + ", ".join(
+              f"{flash_dll.flash_fwd_f32_smem_bytes(dh)} B at Dh {dh}" for dh in (64, 128))
+          + f"; bf16-wgmma {wgmma_smem_bytes(64)} B at Dh<=64, {wgmma_smem_bytes(128)} B at "
+          f"Dh<=128; fp32 SASS HMMA / LDGSTS / LDSM at Dh 128: "
+          + " / ".join(str(flash_ops["fp32-3xtf32/Dh128"][op]) for op in ("HMMA", "LDGSTS", "LDSM"))
+          + f" ({', '.join(sorted(hmma_forms))})"
+          + f"; wgmma serialized by ptxas (C7512) in: {', '.join(serialized) or 'none'}): "
           + ptxas_summary(flash_log, flash_kind), flush=True)
     # the tensor-core kernel issues mma.sync (HMMA) and cp.async (LDGSTS);
     # the CUDA-core one neither

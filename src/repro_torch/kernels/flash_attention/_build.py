@@ -1,8 +1,9 @@
 """Build and load the flash-attention CUDA kernels (``csrc/``).
 
-One library holds both kernels: ``flash_attention.cu`` (fp32, CUDA cores,
-head widths 16..128 in steps of 16) and ``flash_attention_wgmma.cu`` (bf16,
-tensor cores: wgmma, TMA, mbarriers; widths padded to 64 and 128). It is
+One library holds both kernels: ``flash_attention.cu`` (fp32 as three TF32
+products on the tensor cores: mma.sync, cp.async; head widths 16..128 in
+steps of 16) and ``flash_attention_wgmma.cu`` (bf16, tensor cores: wgmma,
+TMA, mbarriers; widths padded to 64 and 128). It is
 named by a hash of every source and the flags. The wgmma source reaches the
 driver's ``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``, so
 the library links no ``-lcuda`` and the flags are those of every library of
@@ -18,7 +19,7 @@ from pathlib import Path
 from ..._nvcc import BUILD_DIR, NVCC_FLAGS, compile_library
 
 CSRC = Path(__file__).with_name("csrc")
-#: the fp32 kernel on the CUDA cores
+#: the fp32 kernel (3xTF32 on mma.sync)
 SOURCE = CSRC / "flash_attention.cu"
 #: the bf16 kernel on the tensor cores
 WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"
@@ -48,11 +49,14 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The library with both entry points' signatures declared (built if
     needed, loaded once per process): q, k, v, o, bhq, bhkv, sq, sk, dh,
-    causal, window, scale, stream."""
+    causal, window, scale, stream; and ``flash_fwd_f32_smem_bytes(dh)``, the
+    fp32 kernel's dynamic shared memory a block."""
     lib = ctypes.CDLL(str(build()))
     for name in ENTRY_POINTS:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.flash_fwd_f32_smem_bytes.argtypes = [ctypes.c_int]
+    lib.flash_fwd_f32_smem_bytes.restype = ctypes.c_int
     return lib

@@ -7,8 +7,11 @@ the dtype alone decides which (``KERNELS``):
   (``wgmma``, K/V by TMA into an mbarrier ring). It rounds the softmax
   weights to bf16 before the product with V, as tensor-core flash kernels
   do; the result stays within the reference's bf16 tolerance.
-* fp32 goes to ``csrc/flash_attention.cu``, on the CUDA cores in fp32: the
-  reference's fp32 tolerance (5e-5) rules out TF32 tensor cores.
+* fp32 goes to ``csrc/flash_attention.cu``, also on the tensor cores
+  (``mma.sync``, K/V by ``cp.async`` into two stages), to fp32 accuracy:
+  one TF32 product keeps 11 bits and misses the reference's fp32 tolerance
+  (5e-5), so each product is taken as three (a_lo·b_hi + a_hi·b_lo +
+  a_hi·b_hi, with x = hi + lo split in registers), which holds it.
 
 This is a rule, not a fallback: nothing is chosen at run time, and on what
 its kernel does not take the wrapper raises. For CPU tensors it runs the

@@ -1,17 +1,21 @@
 """The flash-attention CUDA kernels against their plain PyTorch version.
 
-Tests marked ``cuda`` build ``csrc/`` (the fp32 kernel on the CUDA cores,
-the bf16 kernel on the tensor cores) and hold each against
+Tests marked ``cuda`` build ``csrc/`` (both kernels on the tensor cores:
+fp32 as three TF32 products, bf16 on wgmma) and hold each against
 ``attention_ref`` on the card, with the reference's tolerances (5e-5 fp32,
-2.5e-2 bf16); without a CUDA device they skip. This file imports no JAX,
-so it runs on a machine with the card:
+2.5e-2 bf16), and the fp32 kernel against ``tf32x3_model``, the model of
+its arithmetic below; without a CUDA device they skip. This file imports
+no JAX, so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_kernel.py
 
 The rest run anywhere: CPU tensors take the plain version and count no
 launch, the wrapper refuses inputs that do not fit together, each dtype
-names its kernel, and the library's name hashes every source.
+names its kernel, the library's name hashes every source, and
+``tf32x3_model`` holds the fp32 tolerance where one TF32 product does not.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -91,6 +95,95 @@ def fold(a):
     return a.transpose(0, 2, 1, 3).reshape(b * h, s, d)
 
 
+LOG2E = 1.4426950408889634
+MASKED = -1e30
+
+
+def tf32(x):
+    """fp32 -> tf32 as ``cvt.rna.tf32.f32`` rounds: to nearest, ties away
+    from zero, the 13 low bits cleared (int32 bit operations)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    """x = hi + lo, hi = tf32(x), lo = x - hi (exact); the tensor core reads
+    lo's top 11 bits (its 13 low bits cleared)."""
+    hi = tf32(x)
+    return hi, ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_product(a, b, products=3):
+    """a @ b from TF32 operands in fp32: a_lo b_hi + a_hi b_lo (the small
+    products), then + a_hi b_hi; ``products=1`` keeps a_hi b_hi alone."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    if products == 1:
+        return ah @ bh
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+#: the fp32 kernel's query rows a block and keys a tile (BQ, BK)
+BQ, BK = 128, 64
+
+
+def tf32x3_model(q, k, v, *, causal=True, window=None, products=3):
+    """The arithmetic of ``csrc/flash_attention.cu`` in plain torch on
+    (B·H, S, Dh), fp32: blocks of ``BQ`` query rows walk the live tiles of
+    ``BK`` keys (none entirely in the block's future or behind its window);
+    S = Q K^T and P V as three TF32 products (``tf32_product``); scores in
+    base 2 (scale·log2 e in one fp32 multiply), the finite mask value -1e30,
+    -inf past Sk (K/V zero-filled there); the online softmax per tile,
+    o = acc / max(l, 1e-30)."""
+    bhq, sq, dh = q.shape
+    bhkv, sk, _ = k.shape
+    pad = (0, 0, 0, (-sk) % BK)
+    kf, vf = (torch.nn.functional.pad(x.float(), pad).repeat_interleave(bhq // bhkv, 0)
+              for x in (k, v))
+    sl2 = (torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32)
+           * torch.tensor(LOG2E, dtype=torch.float32))
+    out = torch.empty(bhq, sq, dh)
+    for q0 in range(0, sq, BQ):
+        q1 = min(q0 + BQ, sq)
+        rows = torch.arange(q0, q1)[:, None]
+        t_begin, t_end = 0, -(-sk // BK)
+        if causal:
+            t_end = min(t_end, (q1 - 1) // BK + 1)
+        if window is not None and q0 - window + 1 > 0:
+            t_begin = (q0 - window + 1) // BK
+        m = torch.full((bhq, q1 - q0), MASKED)
+        l = torch.zeros(bhq, q1 - q0)
+        acc = torch.zeros(bhq, q1 - q0, dh)
+        for t in range(t_begin, t_end):
+            k0 = t * BK
+            cols = torch.arange(k0, k0 + BK)[None, :]
+            s = tf32_product(q[:, q0:q1].float(), kf[:, k0:k0 + BK].transpose(1, 2),
+                             products) * sl2
+            dead = torch.zeros(q1 - q0, BK, dtype=torch.bool)
+            if causal:
+                dead |= cols > rows
+            if window is not None:
+                dead |= cols <= rows - window
+            s = torch.where(cols >= sk, -math.inf, torch.where(dead, MASKED, s))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + tf32_product(p, vf[:, k0:k0 + BK], products)
+            m = m_new
+        out[:, q0:q1] = acc / l.clamp_min(1e-30)[..., None]
+    return out
+
+
+FP32 = [c for c in CASES + RAGGED if c[-1] == "float32"]
+#: the fp32 kernel against its model on the card: both take the same
+#: operand bits and differ only in how their fp32 sums round (the tensor
+#: core's inner sums of eight products truncate, Fasi et al. 2021; torch's
+#: round to nearest in another order) and in ex2.approx (2 ulp): a few
+#: ulps of |o| <= ~4, ~1e-6; 1e-5 leaves that several times over and sits
+#: 100x below what losing the small products costs (~1e-3)
+MODEL_TOL = 1e-5
+
+
 def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     K.reset_launches()
     q, k, v = (torch.from_numpy(fold(a)) for a in inputs(CASES[0]))
@@ -113,9 +206,9 @@ def test_wrapper_refuses_what_does_not_fit():
 
 
 def test_each_dtype_names_its_kernel():
-    """bf16 launches the tensor-core kernel, fp32 the CUDA-core one: each
-    entry point is defined in its own source, and only the bf16 source
-    issues wgmma and TMA loads into an mbarrier ring."""
+    """bf16 launches the wgmma kernel, fp32 the mma.sync one (three TF32
+    products): each entry point is defined in its own source, and only the
+    bf16 source issues wgmma and TMA loads into an mbarrier ring."""
     assert set(K.KERNELS) == {torch.float32, torch.bfloat16}
     assert sorted(K.KERNELS.values()) == sorted(_build.ENTRY_POINTS)
     cores, tensor_cores = _build.SOURCE.read_text(), _build.WGMMA_SOURCE.read_text()
@@ -124,6 +217,51 @@ def test_each_dtype_names_its_kernel():
     for op in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait", "setmaxnreg"):
         assert op in tensor_cores and op not in cores
     assert _build.sources() == [_build.SOURCE, _build.WGMMA_SOURCE]
+
+
+def test_fp32_source_takes_three_tf32_products_on_the_tensor_cores():
+    """The fp32 kernel issues tf32 mma.sync, takes its fragments by
+    ldmatrix, brings its tiles in by cp.async and reports its shared memory
+    to the host."""
+    cores = _build.SOURCE.read_text()
+    for op in ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+               "cp.async.cg.shared.global", "ldmatrix.sync.aligned",
+               'extern "C" int flash_fwd_f32_smem_bytes('):
+        assert op in cores, op
+
+
+def test_tf32_rounds_to_nearest_ties_away_and_splits_exactly():
+    """``tf32`` is cvt.rna's rounding, and hi + lo holds x to 2^-22."""
+    one = 1.0 + 2.0 ** -11  # halfway between two tf32 neighbours of 1
+    x = torch.tensor([one, -one, 1.0 + 2.0 ** -12, 3.0, -0.0, 1.0 + 3 * 2.0 ** -11])
+    want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0, -0.0,
+                         1.0 + 2.0 ** -9])
+    assert torch.equal(tf32(x), want)
+    y = torch.from_numpy(np.random.default_rng(3).standard_normal(4096).astype(np.float32))
+    hi, lo = tf32_split(y)
+    assert torch.equal(hi.view(torch.int32) & 0x1FFF, torch.zeros(4096, dtype=torch.int32))
+    assert ((y - hi).abs() <= y.abs() * 2.0 ** -11).all()
+    assert ((hi + lo - y).abs() <= y.abs() * 2.0 ** -21).all()
+
+
+@pytest.mark.parametrize("case", FP32, ids=case_id)
+def test_tf32x3_model_holds_the_fp32_tolerance(case):
+    *_, causal, window, _ = case
+    q, k, v = (torch.from_numpy(fold(a)) for a in inputs(case, seed=2))
+    got = tf32x3_model(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    assert (got - want).abs().max().item() < tol("float32")
+
+
+def test_one_tf32_product_misses_the_fp32_tolerance():
+    """Why the kernel takes three products: one keeps 11 bits and lands
+    ~20x outside 5e-5."""
+    case = (1, 128, 128, 8, 8, 128, True, None, "float32")
+    q, k, v = (torch.from_numpy(fold(a)) for a in inputs(case, seed=2))
+    want = attention_ref(q, k, v, causal=True)
+    one = (tf32x3_model(q, k, v, products=1) - want).abs().max().item()
+    three = (tf32x3_model(q, k, v) - want).abs().max().item()
+    assert one > 10 * tol("float32") and three < tol("float32") / 10
 
 
 @pytest.mark.parametrize("attr", ["SOURCE", "WGMMA_SOURCE"])
@@ -166,6 +304,17 @@ def test_kernel_matches_plain(cuda_device, case):
     want = attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == q.dtype and got.shape == q.shape
     assert (got.float() - want.float()).abs().max().item() < tol(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FP32, ids=case_id)
+def test_fp32_kernel_matches_its_model(cuda_device, case):
+    *_, causal, window, _ = case
+    q, k, v = (torch.from_numpy(fold(a)) for a in inputs(case, seed=2))
+    got = K.flash_attention_bhsd(q.to(cuda_device), k.to(cuda_device), v.to(cuda_device),
+                                 causal=causal, window=window)
+    want = tf32x3_model(q, k, v, causal=causal, window=window)
+    assert (got.cpu() - want).abs().max().item() < MODEL_TOL
 
 
 @pytest.mark.cuda
