@@ -14,11 +14,12 @@ Phases (one line each):
   1. build the lease kernels from ``src/repro_torch/lease_array/csrc``, the
      flash-attention kernels from
      ``src/repro_torch/kernels/flash_attention/csrc`` and the WKV6 kernels
-     from ``src/repro_torch/kernels/rwkv6/csrc``, all nvcc runs at once;
-     check from ``cuobjdump -sass`` that every fp32 flash entry holds HMMA
-     (of the TF32 form only) and LDGSTS and that only the bf16 WKV6 kernel
-     does, and print each entry's registers, spills and dynamic shared
-     memory;
+     from ``src/repro_torch/kernels/rwkv6/csrc`` and an empty kernel (phase
+     19's launch floor), all nvcc runs at once; check from ``cuobjdump
+     -sass`` that every fp32 flash entry holds HMMA (of the TF32 form only)
+     and LDGSTS, that only the bf16 WKV6 kernel holds HMMA and LDGSTS and
+     only the fp32 one bulk copies (UBLKCP), and print each entry's
+     registers, spills and dynamic shared memory;
   2. hold both kernels bit-exact against their plain PyTorch versions on
      small traces (delay 0/2/4, asymmetric links, drift, restarts, extends,
      stale/equiv corruption, windows 1/3/16, a ragged cell count, a trace
@@ -61,8 +62,10 @@ Phases (one line each):
  13. the WKV6 kernels (fp32: the CUDA-core kernel; bf16: the tensor-core
      kernel) against their plain chunked form on the reference's five
      cases, ragged lengths from nonzero states (final states compared),
-     bf16 at N 32/64/128 and the extreme decay, two calls with the state
-     carried, and the decay rates of rwkv6's own decay_base init;
+     bf16 at N 32/64/128 and the extreme decay, fp32 at the lengths about
+     its 16- and 32-token stages (1 to 95, and 2049) at every N, two calls
+     with the state carried, and the decay rates of rwkv6's own
+     decay_base init;
  14. rwkv6-3b at full width, random weights from a seed: a 4 x 2048 fp32
      prefill through the CUDA-core kernel (32 launches, all of them
      ``wkv6_fwd_f32``) against the same prefill with the plain chunked
@@ -81,8 +84,9 @@ Phases (one line each):
      kernel, its and the plain form's times at the prefill shapes (bf16
      r/k/v for the tensor-core kernel, their fp32 cast for the CUDA-core
      one) and the bound (the larger of the bytes over the memory rate and
-     the chunked matrix form's FLOPs over the dtype's peak); bf16 prefill
-     and decode step times.
+     the chunked matrix form's FLOPs over the dtype's peak; for fp32 also the
+     recurrence's own issue floor, 3 fp32 instructions per token, key and
+     value column); bf16 prefill and decode step times.
  18. the differential referee on the card: 1000-tick traces of the
      reference's four differential mixes (zero delay; crash, drift, delay
      and drop; drift; renewal chaos), several seeds each, through the
@@ -97,7 +101,10 @@ Phases (one line each):
      ticks at A 5, P 8 in summary mode from a warmed engine, equal to 64
      separate ``run_trace`` calls from the same state, max owner count <=
      1, the engine unchanged; then each batched kernel's time, launches
-     and bound, and where one sweep's host time goes.
+     and bound (at the bench sweep three ways: the kernel's own device time
+     under the profiler, a call in a CUDA graph, and host-paced calls from
+     Python, beside an empty kernel's, the launch floor), and where one
+     sweep's host time goes.
 The line before the last holds every kernel's launches on its main path
 (phases 3-6; the phase-12 bf16 prefill for the wgmma flash kernel,
 the phase-9 prefill and phase-11 serving for the fp32 3xTF32 one; the
@@ -268,7 +275,7 @@ def library_sass(lib: Path) -> str:
 
 def kernel_tick_ops(lib: Path, kernel: str) -> dict:
     """tick_loop_ops of the one kernel in ``lib`` whose mangled name holds
-    ``kernel`` (e.g. ``sync_window_kernelILi5ELi0E``), read with cuobjdump."""
+    ``kernel`` (e.g. ``sync_window_kernelILi5EE``), read with cuobjdump."""
     sass = library_sass(lib)
     found = [ins for name, ins in sass_functions(sass).items()
              if kernel in name]
@@ -286,7 +293,9 @@ def ops_ms(cell_ticks: int, per_tick: dict) -> float:
 
 
 def lease_kind(entry: str) -> str:
-    return "delayed" if "delayed" in entry else "sync"
+    if "delayed" in entry:
+        return "delayed"
+    return "sync-batched" if "sync_batched" in entry else "sync"
 
 
 def flash_kind(entry: str) -> str:
@@ -407,6 +416,104 @@ def host_ms(fn, reps: int = 1) -> float:
         fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def graph_ms(fn, launches: int = 20, reps: int = 10) -> float:
+    """Device time a call of ``fn`` takes inside a CUDA graph of
+    ``launches`` back-to-back calls (CUDA events around ``reps`` replays):
+    the host does not pace it, the launch gap between kernels stays in."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * launches)
+
+
+def kernel_device_ms(fn, match: str, reps: int = 20):
+    """Mean duration of the device kernels whose name holds ``match`` over
+    ``reps`` calls of ``fn`` under ``torch.profiler`` (the kernel's own
+    time, no launch gap), after a warm-up call. A session that records no
+    such kernel is run again, three times at most; then None."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
+#: a kernel that does nothing: the launch floor of a stream
+EMPTY_KERNEL_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def build_empty_kernel() -> Path:
+    """Build ``EMPTY_KERNEL_SRC`` into ``build/repro_torch/`` with the port's
+    nvcc flags (named by a hash of the source)."""
+    import hashlib
+
+    from repro_torch._nvcc import BUILD_DIR, NVCC_FLAGS, compile_library
+
+    tag = hashlib.sha256(EMPTY_KERNEL_SRC.encode()).hexdigest()[:16]
+    src = BUILD_DIR / f"empty_kernel_{tag}.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(EMPTY_KERNEL_SRC)
+    return compile_library(BUILD_DIR / f"libempty_kernel_{tag}.so", [src], list(NVCC_FLAGS))
+
+
+def launch_floor() -> dict:
+    """The empty kernel's times on the current stream: in a CUDA graph of
+    back-to-back launches (``graph_ms``: the least time between two
+    launches, which no kernel's launch goes under), under the profiler, and
+    host-paced (``time_ms`` around launches from Python)."""
+    import ctypes
+
+    import torch
+
+    lib = ctypes.CDLL(str(build_empty_kernel()))
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+
+    def launch():
+        check(lib.empty_launch(torch.cuda.current_stream().cuda_stream) == 0,
+              "empty kernel launch failed")
+
+    return {"graph": graph_ms(launch, 100), "device": kernel_device_ms(launch, "empty_kernel"),
+            "host-paced": time_ms(launch, 100)}
 
 
 #: the LM slice: internlm2-1.8b at its published widths (configs/archs.py)
@@ -811,6 +918,10 @@ WKV_BF16_CASES = [
     (1, 301, 4, 128, 3.5, "bfloat16", True),
     (2, 65, 4, 32, 3.5, "bfloat16", False),
 ]
+#: fp32 through the CUDA-core kernel at the ragged lengths of its 16- and
+#: 32-token stages, every head size, from a state; N 64 at the extreme decay
+WKV_F32_RING_CASES = [(1, s, 3, n, 3.5 if n == 64 else 0.5, "float32", True)
+                      for s, n in ((1, 16), (31, 32), (33, 64), (95, 128), (2049, 64))]
 WKV_TOL = {"float32": 5e-4, "bfloat16": 3e-2}  # test_kernels_rwkv6.py:45-47
 #: phase 17: the bf16 prefill's wkv state (the kernel's fp32 output) against
 #: plain, and one bf16 step relative to the largest value, at most
@@ -917,7 +1028,7 @@ def rwkv_slice(dev) -> list:
     # ------------------------------------------ 13. WKV6 kernels vs plain
     t_phase = time.perf_counter()
     worst = {}
-    for i, case in enumerate(WKV_CASES + WKV_BF16_CASES):
+    for i, case in enumerate(WKV_CASES + WKV_BF16_CASES + WKV_F32_RING_CASES):
         args = wkv_inputs(dev, *case, seed=130 + i)
         before = dict(WK.wkv6_bhsn.launches_by_kernel)
         abs_err, rel = against_plain(args, WKV_TOL[case[5]], f"wkv case {i} {case}")
@@ -948,8 +1059,10 @@ def rwkv_slice(dev) -> list:
                                                  f"wkv decay_base spread {dtn}")
         max_err[dtn] = max(max_err[dtn], abs_err)
     print(f"phase 13 WKV6 kernels vs plain: {len(WKV_CASES)} cases (the reference's 5, "
-          f"ragged 77/1000/45 from nonzero states, N 16/32/64/128) and "
-          f"{len(WKV_BF16_CASES)} bf16 (N 32/64/128, ragged, extreme decay) within 5e-4 "
+          f"ragged 77/1000/45 from nonzero states, N 16/32/64/128), "
+          f"{len(WKV_BF16_CASES)} bf16 (N 32/64/128, ragged, extreme decay) and "
+          f"{len(WKV_F32_RING_CASES)} fp32 at the stages' ragged lengths 1/31/33/95/2049 "
+          f"(N 16/32/128/64, extreme decay at N 64) within 5e-4 "
           f"fp32 ({f32}) / 3e-2 bf16 ({bf16}), outputs and final states; worst rel err "
           f"fp32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}; 128 tokens vs 2 x 64 "
           f"carried fp32 {err_carry:.3e}, bf16 {err_carry_bf16:.3e}; decay_base spread "
@@ -986,9 +1099,11 @@ def rwkv_slice(dev) -> list:
     check(err14 < 2e-4, f"prefill logits kernel vs plain: rel err {err14:.3e}")
     check(max(err14_state.values()) < 2e-4, f"prefill state kernel vs plain: {err14_state}")
     del logits_p, cache_p
+    all_launches = WK.wkv6_bhsn.launches
+    ms_warm32 = host_ms(lambda: prefill32(params, {"tokens": toks}), 2)
     print(f"phase 14 prefill {RWKV_ARCH} ({n_params / 1e9:.3f} B params, fp32) "
-          f"{LM_BATCH} x {LM_SEQ}: {ms_prefill32:.1f} ms, {f32} launches "
-          f"{prefill_launches} of {WK.wkv6_bhsn.launches}; last logits vs the plain chunked "
+          f"{LM_BATCH} x {LM_SEQ}: {ms_prefill32:.1f} ms (warmed: {ms_warm32:.1f} ms), "
+          f"{f32} launches {prefill_launches} of {all_launches}; last logits vs the plain chunked "
           f"form rel err {err14:.3e}, emitted state rel err " + ", ".join(
               f"{k} {v:.3e}" for k, v in err14_state.items())
           + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -1086,6 +1201,10 @@ def rwkv_slice(dev) -> list:
     # the chunked matrix form, per token and head: scores and intra-chunk
     # products 2 x 2·C·N, inter-chunk output and state update 2 x 2·N·N
     flop = bh * seq * 4 * n * (WKV_CHUNK + n)
+    # the recurrence token by token (the fp32 kernel): an FFMA for o, an FMUL
+    # for k v and an FFMA for S per (token, key, value column)
+    rec_ins = 3 * bh * seq * n * n
+    rec_ms = rec_ins / (FP32_FLOP_PER_S / 2) * 1e3
     rows = []
     for dtn, entry, peak, peak_name, launches in (
             ("bfloat16", bf16, BF16_FLOP_PER_S, "989 TFLOP/s bf16", bf16_launches),
@@ -1110,8 +1229,12 @@ def rwkv_slice(dev) -> list:
               f"{n_bytes / ms_k / 1e6:.1f} GB/s), plain chunked form {ms_plain:.3f} ms; no "
               f"single PyTorch call computes WKV6 (library_ms null); bound {bound:.4f} ms "
               f"(bytes {bytes_ms:.4f} ms: {n_bytes / 1e6:.1f} MB at 3.35 TB/s; operations "
-              f"{ops_ms:.4f} ms: {flop:.3e} FLOP of the chunked matrix form at {peak_name}); "
-              f"rel err vs plain {err:.3e}", flush=True)
+              f"{ops_ms:.4f} ms: {flop:.3e} FLOP of the chunked matrix form at {peak_name})"
+              + ("" if dtn == "bfloat16" else
+                 f"; the recurrence's issue floor {rec_ms:.4f} ms ({rec_ins:.3e} fp32 "
+                 f"instructions, 3 per token, key and value column, at the fp32 lanes' "
+                 f"{FP32_FLOP_PER_S / 2:.3e} a second, before any shared load)")
+              + f"; rel err vs plain {err:.3e}", flush=True)
         rows.append(dict(
             name="wkv6_bhsn" if dtn == "bfloat16" else "wkv6_bhsn_fp32", route="cuda",
             source=f"src/repro_torch/kernels/rwkv6/csrc/"
@@ -1155,6 +1278,45 @@ BENCH_SWEEP = dict(scenarios=1024, n_cells=32, n_ticks=16, n_acceptors=3,
 #: phase 19b: 64 scenarios x 2^14 cells x 128 ticks at DEFAULT_CELL, phase
 #: 4's fault mix
 CHAOS_SWEEP_B, CHAOS_SWEEP_N = 64, 1 << 14
+
+
+def bench_sweep_setup(dev, delayed: bool):
+    """Phase 19a's inputs: an engine of the bench sweep's geometry and its
+    1024 scenarios stacked (zero delay, or delay <= 2 with drops)."""
+    from repro_torch.lease_array import LeaseArrayEngine, Scenario, random_trace
+
+    g = {k: v for k, v in BENCH_SWEEP.items() if k != "scenarios"}
+    extra = dict(max_delay_ticks=2, p_drop=0.05) if delayed else {}
+    traces = [random_trace(s, **g, **extra) for s in range(BENCH_SWEEP["scenarios"])]
+    eng = LeaseArrayEngine(BENCH_SWEEP["n_cells"], n_acceptors=3, n_proposers=4,
+                           lease_ticks=3, round_ticks=traces[0].round_ticks, device=dev)
+    return eng, Scenario.stack([t.scenario() for t in traces])
+
+
+def batched_kernel_args(eng, stacked, delayed, collect, dev):
+    """The batched kernel's and its plain version's arguments for a sweep
+    of ``stacked`` from ``eng``, as ``ops`` builds them."""
+    from repro_torch.lease_array import kernel as K
+    from repro_torch.lease_array.netplane import NetPlaneState
+    from repro_torch.lease_array.ops import _device_planes, strip_default_planes
+    from repro_torch.lease_array.state import PackedLeaseState, pack_state
+
+    d = _device_planes(
+        strip_default_planes(stacked.planes), dev, eng._clk0(), eng._rst0(),
+        eng.t, n_proposers=eng.n_proposers, n_acceptors=eng.n_acceptors,
+        lease_q4=eng.lease_q4, restart_guard=eng.restart_guard,
+        sync=not delayed)
+    packed = PackedLeaseState(*(x.contiguous() for x in pack_state(eng.state)))
+    cols = [d[k] for k in ("attempts", "releases", "acc_up", "pclk", "aclk")]
+    kw = dict(majority=eng.majority, lease_q4=eng.lease_q4,
+              n_proposers=eng.n_proposers, guard_q4=eng.guard_q4,
+              collect=collect)
+    if not delayed:
+        return (packed, eng.t, *cols), kw
+    kw.update(round_q4=eng.round_q4,
+              **{k: d.get(k) for k in K.DELAYED_OPTIONAL})
+    net = NetPlaneState(*(x.contiguous() for x in eng.net))
+    return (packed, net, eng.t, *cols, d["link"]), kw
 
 
 def referee_phase(dev) -> None:
@@ -1204,17 +1366,12 @@ def sweep_slice(dev) -> list:
     import torch
 
     from repro_torch.lease_array import (
-        LeaseArrayEngine,
         Scenario,
         _build,
         engine_from_reference,
         engine_to_arrays,
-        random_trace,
     )
     from repro_torch.lease_array import kernel as K
-    from repro_torch.lease_array.netplane import NetPlaneState
-    from repro_torch.lease_array.ops import _device_planes, strip_default_planes
-    from repro_torch.lease_array.state import PackedLeaseState, pack_state
 
     sync = torch.cuda.synchronize
     max_err = {"lease_window_delayed_batched": 0, "lease_window_sync_batched": 0}
@@ -1226,42 +1383,9 @@ def sweep_slice(dev) -> list:
             check(x.shape == y.shape and err == 0,
                   f"{what}: output {i} differs (max |err| {err})")
 
-    def kernel_args(eng, stacked, delayed, collect):
-        """The batched kernel's and its plain version's arguments for a
-        sweep of ``stacked`` from ``eng``, as ``ops`` builds them."""
-        d = _device_planes(
-            strip_default_planes(stacked.planes), dev, eng._clk0(), eng._rst0(),
-            eng.t, n_proposers=eng.n_proposers, n_acceptors=eng.n_acceptors,
-            lease_q4=eng.lease_q4, restart_guard=eng.restart_guard,
-            sync=not delayed)
-        packed = PackedLeaseState(*(x.contiguous() for x in pack_state(eng.state)))
-        cols = [d[k] for k in ("attempts", "releases", "acc_up", "pclk", "aclk")]
-        kw = dict(majority=eng.majority, lease_q4=eng.lease_q4,
-                  n_proposers=eng.n_proposers, guard_q4=eng.guard_q4,
-                  collect=collect)
-        if not delayed:
-            return (packed, eng.t, *cols), kw
-        kw.update(round_q4=eng.round_q4,
-                  **{k: d.get(k) for k in K.DELAYED_OPTIONAL})
-        net = NetPlaneState(*(x.contiguous() for x in eng.net))
-        return (packed, net, eng.t, *cols, d["link"]), kw
-
-    def bench_traces(delayed):
-        g = {k: v for k, v in BENCH_SWEEP.items() if k != "scenarios"}
-        extra = dict(max_delay_ticks=2, p_drop=0.05) if delayed else {}
-        return [random_trace(s, **g, **extra)
-                for s in range(BENCH_SWEEP["scenarios"])]
-
     # ------------------------------------ 19a. the bench's sweep geometry
     t_phase = time.perf_counter()
-    bench = {}
-    for delayed in (False, True):
-        traces = bench_traces(delayed)
-        stacked = Scenario.stack([t.scenario() for t in traces])
-        eng = LeaseArrayEngine(BENCH_SWEEP["n_cells"], n_acceptors=3,
-                               n_proposers=4, lease_ticks=3,
-                               round_ticks=traces[0].round_ticks, device=dev)
-        bench[delayed] = (eng, stacked)
+    bench = {delayed: bench_sweep_setup(dev, delayed) for delayed in (False, True)}
     t0 = time.perf_counter()
     eng_c, scs_c, before_c = chaos_sweep_setup(dev)
     setup_c = time.perf_counter() - t0
@@ -1289,7 +1413,7 @@ def sweep_slice(dev) -> list:
         pfn = (K.lease_window_delayed_batched_torch if delayed
                else K.lease_window_sync_batched_torch)
         for collect in ("owners", "summary"):
-            args, kw = kernel_args(eng, stacked, delayed, collect)
+            args, kw = batched_kernel_args(eng, stacked, delayed, collect, dev)
             got = kfn(*args, **kw)
             sync()
             if delayed and collect == "summary":
@@ -1304,7 +1428,16 @@ def sweep_slice(dev) -> list:
                 plain_ms[kname, collect] = (time.perf_counter() - t0) * 1e3
                 rows = want
             equal(got, want, f"bench sweep delayed={delayed} {collect}", kname)
-            times[kname, collect] = time_ms(lambda: kfn(*args, **kw), 20)
+            # the kernel's own device time (profiler), a call in a CUDA
+            # graph of back-to-back calls, and host-paced calls from Python
+            call = (lambda a, k: lambda: kfn(*a, **k))(args, kw)
+            times[kname, collect] = {
+                "device": kernel_device_ms(call, "delayed_" if delayed else "sync_"),
+                "graph": graph_ms(call), "host-paced": time_ms(call, 20)}
+            if delayed and collect == "summary":  # the cell-ticks the tick math ran
+                ticked_b = torch.zeros(1, dtype=torch.int64, device=dev)
+                kfn(*args, ticked=ticked_b, **kw)
+                sync()
             res = results[delayed, collect]
             check(int(res.max_owner_count.max()) <= 1,
                   f"bench sweep delayed={delayed}: §4 violated")
@@ -1331,9 +1464,10 @@ def sweep_slice(dev) -> list:
         print(f"phase 19a sweep {BENCH_SWEEP['scenarios']} x "
               f"{BENCH_SWEEP['n_cells']} cells x {BENCH_SWEEP['n_ticks']} "
               f"ticks ({'delay <= 2, drops' if delayed else 'zero delay'}): "
-              f"{kname} bit-exact vs plain in summary and owners mode; "
-              f"kernel {times[kname, 'summary']:.4f} ms summary / "
-              f"{times[kname, 'owners']:.4f} ms owners; plain " + " / ".join(
+              f"{kname} bit-exact vs plain in summary and owners mode; kernel "
+              + "; ".join(f"{c} " + ", ".join(f"{k} {fmt_ms(v)}"
+                                              for k, v in times[kname, c].items())
+                          for c in ("summary", "owners")) + "; plain " + " / ".join(
                   f"{plain_ms[kname, c]:.1f} ms {c}" for c in ("summary", "owners")
                   if (kname, c) in plain_ms) + f"; owned {owned:.4f}", flush=True)
     print(f"phase 19a took {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -1360,7 +1494,7 @@ def sweep_slice(dev) -> list:
     sync()
     solo_s = time.perf_counter() - t_phase
     stacked_c = Scenario.stack(scs_c)
-    args, kw = kernel_args(eng_c, stacked_c, True, "summary")
+    args, kw = batched_kernel_args(eng_c, stacked_c, True, "summary", dev)
     got = K.lease_window_delayed_batched(*args, **kw)
     check(torch.equal(got[1].sum(-1), torch.stack(owned_counts)),
           "chaos sweep: owned counts differ from the run_trace calls")
@@ -1374,7 +1508,7 @@ def sweep_slice(dev) -> list:
     sync()
     ticked_cells = int(ticked)
     ms_chaos = time_ms(lambda: K.lease_window_delayed_batched(*args, **kw), 5)
-    args_o, kw_o = kernel_args(eng_c, stacked_c, True, "owners")
+    args_o, kw_o = batched_kernel_args(eng_c, stacked_c, True, "owners", dev)
     ms_chaos_owners = time_ms(lambda: K.lease_window_delayed_batched(*args_o, **kw_o), 3)
     del args_o, kw_o
     spent, ms_sweep = run_trace_breakdown(lambda: eng_c.sweep(scs_c),
@@ -1392,36 +1526,59 @@ def sweep_slice(dev) -> list:
           + f", the rest {ms_sweep - sum(spent.values()):.1f} ms (plane scans, "
           f"clock and restart planes, reductions)", flush=True)
 
-    # bounds: the unbatched (kSingle) kernels' SASS-counted arithmetic per
-    # cell-tick (the same tick loop), times the cell-ticks that ran it
+    def bound(ops, n_bytes):
+        """(bound ms, what bounds it, the bytes' ms)"""
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        return max(ops, bytes_ms), "operations" if ops > bytes_ms else "bytes", bytes_ms
+
+    # bounds: the unbatched kernels' SASS-counted arithmetic per cell-tick
+    # (the same tick math), times the cell-ticks that ran it
     b_lib = _build.library_path(BENCH_SWEEP["n_acceptors"])
-    tick_s = kernel_tick_ops(b_lib, "sync_window_kernelILi3ELi0E")
     Bb, Tb, Nb = BENCH_SWEEP["scenarios"], BENCH_SWEEP["n_ticks"], BENCH_SWEEP["n_cells"]
     A3, P4 = BENCH_SWEEP["n_acceptors"], BENCH_SWEEP["n_proposers"]
+    tick_s = kernel_tick_ops(b_lib, "sync_window_kernelILi3EE")
     ops_s = ops_ms(Bb * Tb * Nb, tick_s)
-    bytes_s = 4 * (2 * Bb * Tb * Nb + Bb * Tb * (2 * A3 + P4) + (2 * A3 + 2) * Nb
-                   + 3 * Bb * Nb)
-    bound_s = max(ops_s, bytes_s / HBM_BYTES_PER_S * 1e3)
-    by_s = "operations" if ops_s > bytes_s / HBM_BYTES_PER_S * 1e3 else "bytes"
+    bound_s, by_s, bytes_s = bound(ops_s, 4 * (2 * Bb * Tb * Nb + Bb * Tb * (2 * A3 + P4)
+                                               + (2 * A3 + 2) * Nb + 3 * Bb * Nb))
+    # the bench sweep's delayed scenarios: the variant of their planes
+    args_db, kw_db = batched_kernel_args(*bench[True], True, "summary", dev)
+    variant = "".join(f"ELb{int(kw_db[k] is not None)}"
+                      for k in ("extends", "stale", "acc_restart"))
+    tick_db = kernel_tick_ops(b_lib, f"delayed_window_kernelILi3{variant}ELi0E")
+    ops_db = ops_ms(int(ticked_b), tick_db)
+    bound_db, by_db, bytes_db = bound(
+        ops_db, 4 * (2 * Bb * Tb * Nb + Bb * Tb * (2 * A3 + P4 + P4 * A3) + (8 * A3 + 8) * Nb
+                     + 3 * Bb * Nb))
+    del args_db, kw_db
     # the chaos sweep runs the extend + restart variant
     tick_d = kernel_tick_ops(_build.library_path(A),
                              f"delayed_window_kernelILi{A}ELb1ELb0ELb1ELi0E")
     ops_d = ops_ms(ticked_cells, tick_d)
     B = CHAOS_SWEEP_B
-    bytes_d = 4 * (3 * B * T * N + B * T * (2 * A + 2 * P + P * A + 2 * A + 2 * P)
-                   + (8 * A + 8) * N + 3 * B * N)
-    bound_d = max(ops_d, bytes_d / HBM_BYTES_PER_S * 1e3)
-    by_d = "operations" if ops_d > bytes_d / HBM_BYTES_PER_S * 1e3 else "bytes"
-    ms_s = times["lease_window_sync_batched", "summary"]
+    bound_d, by_d, bytes_d = bound(
+        ops_d, 4 * (3 * B * T * N + B * T * (2 * A + 2 * P + P * A + 2 * A + 2 * P)
+                    + (8 * A + 8) * N + 3 * B * N))
+    floor = launch_floor()
+    t_s = times["lease_window_sync_batched", "summary"]
+    # the row's ms is the kernel's own device time, and nothing else
+    check(t_s["device"] is not None,
+          "the profiler recorded no sync_batched_kernel at the bench sweep")
+    ms_s = t_s["device"]
+    t_db = times["lease_window_delayed_batched", "summary"]
     print(f"phase 19 timing: delayed batched {ms_chaos:.3f} ms at the chaos sweep "
           f"(summary; owners {ms_chaos_owners:.3f} ms; {ticked_cells} of "
           f"{B * T * N} cell-ticks ran the tick math), bound {bound_d:.3f} ms "
-          f"({by_d}: ops {ops_d:.3f}, bytes {bytes_d / HBM_BYTES_PER_S * 1e3:.3f}),"
-          f" plain {plain_chaos:.1f} ms; sync batched {ms_s:.4f} ms at the bench "
-          f"sweep (summary), bound {bound_s:.4f} ms ({by_s}: ops {ops_s:.4f}, "
-          f"bytes {bytes_s / HBM_BYTES_PER_S * 1e3:.4f}); delayed batched at the "
-          f"bench sweep {times['lease_window_delayed_batched', 'summary']:.4f} ms; "
-          f"SASS ops per tick, sync {tick_s}, delayed {tick_d}", flush=True)
+          f"({by_d}: ops {ops_d:.3f}, bytes {bytes_d:.3f}), plain {plain_chaos:.1f} ms; "
+          f"at the bench sweep (summary; device: the kernel's own time under the "
+          f"profiler; graph: a call in a CUDA graph of 20; host-paced: 20 calls from "
+          f"Python): sync batched " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in t_s.items())
+          + f", bound {bound_s:.5f} ms ({by_s}: ops {ops_s:.5f}, bytes {bytes_s:.5f}); "
+          f"delayed batched " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in t_db.items())
+          + f", bound {bound_db:.5f} ms ({by_db}: ops {ops_db:.5f}, bytes {bytes_db:.5f}; "
+          f"{int(ticked_b)} of {Bb * Tb * Nb} cell-ticks ran the tick math); the launch "
+          f"floor, an empty kernel: " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in floor.items())
+          + f"; SASS ops per tick, sync {tick_s}, delayed bench {tick_db}, delayed chaos "
+          f"{tick_d}", flush=True)
     print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s (19b)", flush=True)
     source = "src/repro_torch/lease_array/csrc/lease_window.cu"
     return [
@@ -1510,11 +1667,13 @@ def main() -> int:
     # nvcc runs go together
     # and the flash-attention library beside them
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(BUILD_ACCEPTORS) + 2) as pool:
+    with ThreadPoolExecutor(len(BUILD_ACCEPTORS) + 3) as pool:
         flash_lib = pool.submit(flash_build.build)
         wkv_lib = pool.submit(wkv_build.build)
+        empty_lib = pool.submit(build_empty_kernel)  # phase 19's launch floor
         libs = list(pool.map(_build.build, BUILD_ACCEPTORS))
         flash_lib, wkv_lib = flash_lib.result(), wkv_lib.result()
+        empty_lib.result()
     for a in BUILD_ACCEPTORS:
         _build.load(a)
     flash_build.load()
@@ -1552,15 +1711,16 @@ def main() -> int:
           + f"; wgmma serialized by ptxas (C7512) in: {', '.join(serialized) or 'none'}): "
           + ptxas_summary(flash_log, flash_kind), flush=True)
     # the tensor-core kernel issues mma.sync (HMMA) and cp.async (LDGSTS);
-    # the CUDA-core one neither
-    wkv_ops = {}
+    # the CUDA-core one takes its stages by bulk copies (UBLKCP) and issues
+    # neither
+    wkv_ops, wkv_sass_ops = {}, ("HMMA", "LDGSTS", "UBLKCP")
     for name, ins in sass_functions(library_sass(wkv_lib)).items():
         kind = wkv_kind(name)
-        for op in ("HMMA", "LDGSTS"):
+        for op in wkv_sass_ops:
             wkv_ops[kind, op] = wkv_ops.get((kind, op), 0) + sum(
                 o.startswith(op) for _, _, o, _ in ins)
     for (kind, op), count in wkv_ops.items():
-        check((count > 0) == kind.startswith("bf16-mma"),
+        check((count > 0) == (kind.startswith("bf16-mma") != (op == "UBLKCP")),
               f"{wkv_lib.name}: {kind} holds {count} {op} instructions")
     # the dynamic shared memory each entry launches a block with, as the
     # built library reports it
@@ -1569,8 +1729,8 @@ def main() -> int:
         f"{entry} " + ", ".join(f"{getattr(wkv_dll, entry + '_smem_bytes')(n)} B at N {n}"
                                 for n in (16, 32, 64, 128))
         for entry in wkv_build.ENTRY_POINTS)
-          + "; SASS HMMA / LDGSTS " + ", ".join(
-              f"{kind} {wkv_ops[kind, 'HMMA']} / {wkv_ops[kind, 'LDGSTS']}"
+          + "; SASS " + " / ".join(wkv_sass_ops) + " " + ", ".join(
+              f"{kind} " + " / ".join(str(wkv_ops[kind, op]) for op in wkv_sass_ops)
               for kind in sorted({k for k, _ in wkv_ops}))
           + "): " + ptxas_summary(wkv_lib.with_suffix(".log").read_text(), wkv_kind),
           flush=True)
@@ -1837,7 +1997,7 @@ def main() -> int:
     bytes_s = 4 * (2 * (2 * A + 2) * FULL_N + SYNC_TICKS * FULL_N * 4
                    + SYNC_TICKS * (2 * A + P))
     tick_s = kernel_tick_ops(_build.library_path(A),
-                             f"sync_window_kernelILi{A}ELi0E")
+                             f"sync_window_kernelILi{A}EE")
     ops_ms_s = ops_ms(SYNC_TICKS * FULL_N, tick_s)
     bound_s = max(bytes_s / HBM_BYTES_PER_S * 1e3, ops_ms_s)
     by_s = "operations" if ops_ms_s > bytes_s / HBM_BYTES_PER_S * 1e3 else "bytes"

@@ -9,7 +9,9 @@ of r, k, v alone decides which (``KERNELS``):
   state to bf16 for the products, and stays within the reference's bf16
   tolerance (3e-2).
 * fp32 goes to ``csrc/wkv6.cu``, the recurrence token by token on the CUDA
-  cores: bf16 operands cannot hold the fp32 tolerance (5e-4).
+  cores: bf16 operands cannot hold the fp32 tolerance (5e-4). Its stages
+  come by bulk copies (``cp.async.bulk``) on mbarriers; a block owns 32
+  value columns of a head at N 64, 16 at the other head sizes.
 
 This is a rule, not a fallback: nothing is chosen at run time, and on what
 its kernel does not take the wrapper raises. For CPU tensors it runs the

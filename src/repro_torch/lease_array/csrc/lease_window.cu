@@ -47,17 +47,24 @@
 //
 // The batched entries (lease_window_{delayed,sync}_batched) are the
 // counterpart of both Pallas kernels under jax.vmap in the reference's
-// sweep (_sweep_fn, src/repro/lease_array/engine.py:270-327): blockIdx.y is
-// the scenario. Its planes ([B, T, ...], contiguous) are read at a stride
-// of one scenario; the start state is the engine's, shared by every
-// scenario (stride 0); no final state is written. A block holds cells of
-// one scenario only, so the quiescence vote stays per block. With
-// kSummary no [B, T, N] row is written: each cell keeps its max owner
-// count, its owned-tick count and its final owner in registers and writes
-// three [B, N] words at the end. The unbatched entries instantiate the
-// kernels with kSingle, which compiles to the code they had before the
-// batch axis existed. A block has min(128, N rounded up to 32)
-// threads, so the sweeps' small cell counts (8, 32) leave few lanes dead.
+// sweep (_sweep_fn, src/repro/lease_array/engine.py:270-327). Their
+// planes ([B, T, ...], contiguous) are read at a stride of one scenario; the
+// start state is the engine's, shared by every scenario (stride 0); no
+// final state is written. With kSummary no [B, T, N] row is written: each
+// cell keeps its max owner count, its owned-tick count and its final owner
+// in registers and writes three [B, N] words at the end.
+//   * delayed: blockIdx.y is the scenario, and a block holds cells of one
+//     scenario only, so the quiescence vote stays per block. The unbatched
+//     entry instantiates the kernel with kSingle, which compiles to the
+//     code it had before the batch axis existed. A block has min(128, N
+//     rounded up to 32) threads.
+//   * sync: its own kernel, sync_batched_kernel (the unbatched entry keeps
+//     sync_window_kernel as it was). A sweep's scenarios are small (the
+//     reference bench's: 32 cells x 16 ticks) and its work a few
+//     microseconds, so latency is what costs: a warp a scenario (a 32-cell
+//     tile of one where N > 32), four a block, each staging its own window
+//     with __syncwarp() and no block barrier, with its att/rel rows in
+//     registers before the ticks that read them.
 
 #include <cuda_runtime.h>
 
@@ -75,6 +82,9 @@ namespace {
 constexpr int kA = LEASE_ACCEPTORS;
 
 constexpr int kBlock = 128;
+// the batched sync kernel: warps (32-cell tiles) a block, ticks a warp
+// stages at once
+constexpr int kBatchWarps = 4, kSub = 16;
 // most scenarios one batched launch takes (gridDim.y)
 constexpr int kMaxBatch = 65535;
 // what a launch writes (the kernels' OUT template parameter): the owner
@@ -677,31 +687,14 @@ __device__ __forceinline__ int sync_tick(int (&promised)[A],
   return (ownp > 0 ? 1 : 0) + (viol ? 1 : 0);
 }
 
-template <int A, int OUT>
+template <int A>
 __global__ void __launch_bounds__(kBlock)
-    sync_window_kernel(SyncArgs args, Params p) {
+    sync_window_kernel(SyncArgs g, Params p) {
   extern __shared__ int smem[];
   const int P = p.P, tw = p.tw;
   const size_t N = static_cast<size_t>(p.N);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = n < p.N;
-  // a batched launch reads scenario blockIdx.y's planes
-  SyncArgs moved = args;
-  if (OUT != kSingle) {
-    SyncArgs& g = moved;
-    const size_t b = blockIdx.y, T = static_cast<size_t>(p.T);
-    g.att += b * T * N;
-    g.rel += b * T * N;
-    g.up += b * T * A;
-    g.pclk += b * T * static_cast<size_t>(P);
-    g.aclk += b * T * A;
-    if (OUT == kRows) {
-      g.owners += b * T * N;
-      g.counts += b * T * N;
-    }
-  }
-  const SyncArgs& g = OUT == kSingle ? args : moved;
-  int max_count = 0, owned = 0;  // kSummary only
   int* s_up = smem;
   int* s_pclk = s_up + tw * A;
   int* s_aclk = s_pclk + tw * P;
@@ -730,22 +723,11 @@ __global__ void __launch_bounds__(kBlock)
                                    p.t0 + w0 + tau, __ldg(g.att + i),
                                    __ldg(g.rel + i), s_up + tau * A,
                                    s_pclk + tau * P, s_aclk + tau * A, p);
-      if (OUT == kSummary) {
-        max_count = max(max_count, cnt);
-        owned += own_id >= 0 ? 1 : 0;
-      } else {
-        g.owners[i] = own_id;
-        g.counts[i] = cnt;
-      }
+      g.owners[i] = own_id;
+      g.counts[i] = cnt;
     }
   }
-  if (OUT == kSummary && live) {
-    const size_t j = static_cast<size_t>(blockIdx.y) * N + n;
-    g.max_count[j] = max_count;
-    g.owned[j] = owned;
-    g.final_owner[j] = own_id;
-  }
-  if (OUT == kSingle && live) {
+  if (live) {
 #pragma unroll
     for (int a = 0; a < A; ++a) {
       g.out[0][static_cast<size_t>(a) * N + n] = promised[a];
@@ -753,6 +735,92 @@ __global__ void __launch_bounds__(kBlock)
     }
     g.out[2][n] = own_id;
     g.out[3][n] = ownp;
+  }
+}
+
+// The batched sync kernel: a warp owns a tile of 32 cells of one scenario
+// (a whole scenario where N <= 32), kBatchWarps tiles a block, so a block
+// holds several scenarios and no block barrier is needed. Each warp stages
+// its own scenario's up/pclk/aclk for kSub ticks at a time between two
+// __syncwarp()s, and loads its cells' att/rel rows for those ticks into
+// registers, coalesced, before the first of them (the start state's loads
+// go out beside the first stretch's): no global load sits on the tick
+// chain. The tick math is sync_tick, as in the unbatched kernel.
+template <int A, int OUT>
+__global__ void __launch_bounds__(32 * kBatchWarps)
+    sync_batched_kernel(SyncArgs g, Params p, int batch) {
+  static_assert(OUT == kRows || OUT == kSummary, "the unbatched entry is sync_window_kernel");
+  extern __shared__ int smem[];
+  const int P = p.P, lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int tiles = (p.N + 31) / 32;  // a scenario's 32-cell tiles
+  const long long tile = static_cast<long long>(blockIdx.x) * kBatchWarps + warp;
+  if (tile >= static_cast<long long>(batch) * tiles) return;  // the whole warp
+  const size_t b = tile / tiles, N = static_cast<size_t>(p.N), T = static_cast<size_t>(p.T);
+  const int n = static_cast<int>(tile % tiles) * 32 + lane;
+  const bool live = n < p.N;
+  const int* att = g.att + b * T * N;
+  const int* rel = g.rel + b * T * N;
+  const int* up = g.up + b * T * A;
+  const int* pclk = g.pclk + b * T * static_cast<size_t>(P);
+  const int* aclk = g.aclk + b * T * A;
+  int* s_up = smem + warp * (2 * A + P) * kSub;
+  int* s_pclk = s_up + kSub * A;
+  int* s_aclk = s_pclk + kSub * P;
+
+  int promised[A] = {}, acc_lease[A] = {}, own_id = kNoProposer, ownp = 0;
+  int max_count = 0, owned = 0;  // kSummary only
+  for (int w0 = 0; w0 < p.T; w0 += kSub) {
+    const int nt = min(kSub, p.T - w0);
+    int at[kSub], rl[kSub];  // this stretch's att/rel rows of the lane's cell
+#pragma unroll
+    for (int tau = 0; tau < kSub; ++tau) {
+      const size_t i = static_cast<size_t>(w0 + tau) * N + n;
+      at[tau] = live && tau < nt ? __ldg(att + i) : -1;
+      rl[tau] = live && tau < nt ? __ldg(rel + i) : -1;
+    }
+    __syncwarp();  // the warp has read the stretch before
+    const int n_up = nt * A, n_pclk = nt * P;
+#pragma unroll 4
+    for (int i = lane; i < n_up + n_pclk + n_up; i += 32) {
+      if (i < n_up)
+        s_up[i] = __ldg(up + static_cast<size_t>(w0) * A + i);
+      else if (i < n_up + n_pclk)
+        s_pclk[i - n_up] = __ldg(pclk + static_cast<size_t>(w0) * P + i - n_up);
+      else
+        s_aclk[i - n_up - n_pclk] = __ldg(aclk + static_cast<size_t>(w0) * A + i - n_up - n_pclk);
+    }
+    if (w0 == 0 && live) {  // the start state, its loads in flight with the ones above
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        promised[a] = g.in[0][static_cast<size_t>(a) * N + n];
+        acc_lease[a] = g.in[1][static_cast<size_t>(a) * N + n];
+      }
+      own_id = g.in[2][n];
+      ownp = g.in[3][n];
+    }
+    __syncwarp();
+    if (!live) continue;
+#pragma unroll
+    for (int tau = 0; tau < kSub; ++tau) {
+      if (tau >= nt) break;
+      const int cnt = sync_tick<A>(promised, acc_lease, own_id, ownp, p.t0 + w0 + tau,
+                                   at[tau], rl[tau], s_up + tau * A, s_pclk + tau * P,
+                                   s_aclk + tau * A, p);
+      if (OUT == kSummary) {
+        max_count = max(max_count, cnt);
+        owned += own_id >= 0 ? 1 : 0;
+      } else {
+        const size_t i = (b * T + w0 + tau) * N + n;
+        g.owners[i] = own_id;
+        g.counts[i] = cnt;
+      }
+    }
+  }
+  if (OUT == kSummary && live) {
+    const size_t j = b * N + n;
+    g.max_count[j] = max_count;
+    g.owned[j] = owned;
+    g.final_owner[j] = own_id;
   }
 }
 
@@ -802,16 +870,28 @@ cudaError_t launch_delayed(const DelayedArgs& g, const Params& p, int batch,
   }
 }
 
-template <int A, int OUT>
-cudaError_t launch_sync(const SyncArgs& g, const Params& p, int batch,
-                        cudaStream_t stream) {
+template <int A>
+cudaError_t launch_sync(const SyncArgs& g, const Params& p, cudaStream_t stream) {
   const size_t bytes = (2 * A + p.P) * static_cast<size_t>(p.tw) * sizeof(int);
-  auto kernel = sync_window_kernel<A, OUT>;
+  auto kernel = sync_window_kernel<A>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const int threads = block_threads(p.N);
-  const dim3 grid((p.N + threads - 1) / threads, batch);
+  const dim3 grid((p.N + threads - 1) / threads);
   kernel<<<grid, threads, bytes, stream>>>(g, p);
+  return cudaGetLastError();
+}
+
+template <int A, int OUT>
+cudaError_t launch_sync_batched(const SyncArgs& g, const Params& p, int batch,
+                                cudaStream_t stream) {
+  const size_t bytes = kBatchWarps * (2 * A + p.P) * static_cast<size_t>(kSub) * sizeof(int);
+  auto kernel = sync_batched_kernel<A, OUT>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>(batch) * ((p.N + 31) / 32);
+  const dim3 grid(static_cast<unsigned>((tiles + kBatchWarps - 1) / kBatchWarps));
+  kernel<<<grid, 32 * kBatchWarps, bytes, stream>>>(g, p, batch);
   return cudaGetLastError();
 }
 
@@ -910,7 +990,7 @@ extern "C" int lease_window_sync(const void* const* ptrs, const int* ints,
   const Params p = params_from(ints);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[2] != kA) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_sync<kA, kSingle>(g, p, 1, st));
+  return static_cast<int>(launch_sync<kA>(g, p, st));
 }
 
 // The batched entries: the same pointer layout with the 16 (delayed) or 4
@@ -938,6 +1018,6 @@ extern "C" int lease_window_sync_batched(const void* const* ptrs,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[2] != kA || !batch_args(g, ptrs + 15, ints[11], ints[12]))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(ints[12] ? launch_sync<kA, kSummary>(g, p, ints[11], st)
-                                   : launch_sync<kA, kRows>(g, p, ints[11], st));
+  return static_cast<int>(ints[12] ? launch_sync_batched<kA, kSummary>(g, p, ints[11], st)
+                                   : launch_sync_batched<kA, kRows>(g, p, ints[11], st));
 }

@@ -47,8 +47,11 @@ MAX_SMEM = 232448
 #: most acceptors the kernels are instantiated for (netplane's
 #: MAX_VOTE_ACCEPTORS)
 MAX_ACCEPTORS = PACK_SHIFT
-#: most scenarios one batched launch takes (a grid's y extent)
+#: most scenarios one batched launch takes
 MAX_BATCH = 65535
+#: the batched sync kernel's warps a block and ticks a warp stages at once
+#: (csrc/lease_window.cu kBatchWarps, kSub)
+SYNC_BATCH_WARPS, SYNC_BATCH_SUB = 4, 16
 
 
 # ------------------------------------------------------------------ plain
@@ -508,14 +511,18 @@ def lease_window_sync_batched(
     collect: str = "summary",
 ):
     """Replay B scenarios of T synchronous ticks from one start state in
-    ONE launch of the CUDA sync window kernel (no final state). Returns
-    (owners, counts) [B, T, N] with ``collect="owners"``, else the
-    :func:`window_summary` planes [B, N]."""
+    ONE launch of the CUDA batched sync kernel (no final state; it stages
+    SYNC_BATCH_SUB ticks at a time, so ``window`` changes no result and no
+    launch). Returns (owners, counts) [B, T, N] with ``collect="owners"``,
+    else the :func:`window_summary` planes [B, N]."""
     B = attempts.shape[0]
     _check_batch(B, collect)
     cols = (attempts, releases, acc_up, pclk, aclk)
     dev, A, N, T, tw = _check_sync_inputs(packed, cols, (B,), n_proposers,
                                           window)
+    # the batched kernel stages SYNC_BATCH_SUB ticks a warp, whatever the window
+    _check_geometry(A, n_proposers, SYNC_BATCH_SUB,
+                    SYNC_BATCH_WARPS * (2 * A + n_proposers))
     out, out_ptrs = _batch_outputs(B, T, N, collect, dev)
     if N == 0 or T == 0:
         return out

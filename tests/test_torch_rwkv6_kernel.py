@@ -228,7 +228,8 @@ def test_library_name_follows_the_source(tmp_path, monkeypatch, attr):
 def test_each_dtype_names_its_kernel():
     """bf16 launches the tensor-core kernel, fp32 the CUDA-core one: each
     entry point is defined in its own source, and only the bf16 source
-    issues mma.sync, ldmatrix and cp.async."""
+    issues mma.sync, ldmatrix and 16-byte cp.async (the fp32 one copies its
+    stages in bulk)."""
     assert set(K.KERNELS) == {torch.float32, torch.bfloat16}
     assert sorted(K.KERNELS.values()) == sorted(_build.ENTRY_POINTS)
     cores, tensor_cores = _build.SOURCE.read_text(), _build.MMA_SOURCE.read_text()
@@ -278,6 +279,60 @@ def test_mma_model_holds_the_bf16_tolerance(case):
     assert rel_err(out, want) < 3e-2 and rel_err(st, want_st) < 3e-2
 
 
+# the ragged lengths the fp32 kernel's stages (16 or 32 tokens) must handle:
+# one token, a stage less one, one stage, a stage and one, three and a bit,
+# and 2049 at a small BH
+RING_LENGTHS = (1, 31, 32, 33, 95, 2049)
+OMEGA_F32 = {"uniform": lambda *a: None, "extreme": extreme_omega}
+
+
+def jax_wkv6(r, k, v, logw, u):
+    """The JAX reference's sequential scan (``repro.kernels.rwkv6.ref.wkv6_ref``,
+    from a zero state) on the same inputs, handed over as numpy. JAX is
+    imported here, not with the module, so that the file runs where only
+    the card's packages are."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.rwkv6.ref import wkv6_ref as jax_ref
+
+    out = jax_ref(*(jnp.asarray(x.contiguous().numpy()) for x in (r, k, v, logw, u)))
+    return torch.from_numpy(np.array(out))
+
+
+@pytest.mark.parametrize("decay", sorted(OMEGA_F32))
+@pytest.mark.parametrize("s", RING_LENGTHS)
+def test_plain_fp32_form_matches_the_jax_reference(s, decay):
+    """The port's plain fp32 WKV6 (the kernel's yardstick) against the JAX
+    reference's sequential scan, at the ring's ragged lengths, for a uniform
+    decay draw and decays down to -33 a token."""
+    b, h, n = (1, 1, 64) if s > 1000 else (1, 2, 64)
+    args = inputs(b, s, h, n, 0.5, "float32", False, seed=30 + s,
+                  omega=OMEGA_F32[decay](b, s, h, n, 31))
+    out, _ = wkv_chunked_bhsn(*args)
+    assert rel_err(out, jax_wkv6(*args[:5])) < 5e-4
+
+
+@pytest.mark.parametrize("split", [(1, 94), (31, 33), (32, 63), (95, 1954)])
+def test_plain_fp32_form_carries_the_state_as_the_jax_reference(split):
+    """One sequence in two calls of the port's plain fp32 form, the state
+    carried between them, against one call of the JAX reference."""
+    s1, s2 = split
+    r, k, v, logw, u, _ = inputs(1, s1 + s2, 2, 32, 0.5, "float32", False, seed=40 + s1)
+    o1, st = wkv_chunked_bhsn(r[:, :s1], k[:, :s1], v[:, :s1], logw[:, :s1], u)
+    o2, _ = wkv_chunked_bhsn(r[:, s1:], k[:, s1:], v[:, s1:], logw[:, s1:], u, st)
+    assert rel_err(torch.cat([o1, o2], 1), jax_wkv6(r, k, v, logw, u)) < 5e-4
+
+
+def test_fp32_source_copies_asynchronously():
+    """The fp32 kernel fetches its stages by bulk copies on mbarriers: the
+    source issues the copy, and initialises, arms and waits on the
+    barriers."""
+    src = _build.SOURCE.read_text()
+    for op in ("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes",
+               "mbarrier.init.shared::cta.b64", "mbarrier.arrive.expect_tx.shared::cta.b64",
+               "mbarrier.try_wait.parity.shared::cta.b64"):
+        assert op in src, op
+
+
 # ------------------------------------------------------------------ card
 @pytest.fixture
 def cuda_device():
@@ -320,6 +375,60 @@ def test_kernel_is_exact_at_the_decay_base_spread(cuda_device):
     out, st = K.wkv6_bhsn(*args)
     want, want_st = wkv6_ref(*args)
     assert rel_err(out, want) < 5e-4 and rel_err(st, want_st) < 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", K.HEAD_SIZES)
+@pytest.mark.parametrize("s", RING_LENGTHS)
+def test_fp32_kernel_ring_lengths_carry_the_state(cuda_device, s, n):
+    """The fp32 kernel against plain at the ring's ragged lengths, from a
+    nonzero state, in one call and in two with the state carried between
+    them (the second holds no token where s is 1)."""
+    h = 1 if s > 1000 else 3
+    r, k, v, logw, u, st0 = inputs(1, s, h, n, 0.5, "float32", True, seed=50 + s,
+                                   device=cuda_device)
+    want, want_st = wkv_chunked_bhsn(r, k, v, logw, u, st0)
+    out, st = K.wkv6_bhsn(r, k, v, logw, u, st0)
+    s1 = (s + 1) // 2
+    o1, mid = K.wkv6_bhsn(r[:, :s1], k[:, :s1], v[:, :s1], logw[:, :s1], u, st0)
+    o2, st2 = K.wkv6_bhsn(r[:, s1:], k[:, s1:], v[:, s1:], logw[:, s1:], u, mid)
+    torch.cuda.synchronize()
+    for got, got_st in ((out, st), (torch.cat([o1, o2], 1), st2)):
+        assert rel_err(got, want) < 5e-4 and rel_err(got_st, want_st) < 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", RING_LENGTHS)
+def test_fp32_kernel_holds_decays_down_to_minus_33(cuda_device, s):
+    b, h, n = 1, 2, 64
+    args = inputs(b, s, h, n, None, "float32", True, seed=60 + s, device=cuda_device,
+                  omega=extreme_omega(b, s, h, n, 61))
+    out, st = K.wkv6_bhsn(*args)
+    want, want_st = wkv_chunked_bhsn(*args)
+    assert torch.isfinite(out).all() and torch.isfinite(st).all()
+    assert rel_err(out, want) < 5e-4 and rel_err(st, want_st) < 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", K.HEAD_SIZES)
+def test_fp32_kernel_at_a_tile_count_off_the_sm_count(cuda_device, n):
+    """37 heads: 37 to 296 blocks (74 at N 64, two 32-column tiles a head),
+    no multiple of the card's 132 SMs, so the last wave is partial."""
+    args = inputs(1, 300, 37, n, 0.5, "float32", True, seed=70, device=cuda_device)
+    out, st = K.wkv6_bhsn(*args)
+    want, want_st = wkv_chunked_bhsn(*args)
+    assert rel_err(out, want) < 5e-4 and rel_err(st, want_st) < 5e-4
+
+
+@pytest.mark.cuda
+def test_fp32_block_fits_the_cards_shared_memory(cuda_device):
+    """The shared memory the library launches an fp32 block with fits the
+    card's opt-in limit at every head size (227 KB a block on Hopper), and
+    other head sizes get 0."""
+    lib = _build.load()
+    for n in K.HEAD_SIZES:
+        assert 0 < lib.wkv6_fwd_f32_smem_bytes(n) <= 232448
+    assert lib.wkv6_fwd_f32_smem_bytes(48) == 0
 
 
 # bf16 through the tensor-core kernel: every head size; ragged lengths about

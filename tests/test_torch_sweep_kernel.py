@@ -50,14 +50,24 @@ def _corrupt(tr, seed):
            "acc_equiv": (rng.random((T, A)) < 0.05).astype(np.int32)})
 
 
+def _sync_case(n_cells, n_ticks):
+    """A zero-delay scenario of the bench sweep's mix (A 3, P 4) from a seed."""
+    return (dict(lease_ticks=3, round_ticks=2), lambda s: random_trace(
+        s, n_ticks=n_ticks, n_cells=n_cells, n_acceptors=3, n_proposers=4,
+        lease_ticks=3, p_attempt=0.5, p_release=0.05, p_down_flip=0.05,
+        round_ticks=2).scenario())
+
+
 #: name -> (engine options, B scenarios from a seed); each batch shares
-#: its geometry, and the cell counts are small (8), ragged (37, 257) or
-#: past one block (300)
+#: its geometry, and the cell counts are small (8), the bench sweep's (32),
+#: ragged (37, 257) or past one block (300)
 CASES = {
     "sync-n8": (dict(lease_ticks=2, round_ticks=2), lambda s: random_trace(
         s, n_ticks=16, n_cells=8, n_acceptors=3, n_proposers=4,
         lease_ticks=2, p_attempt=0.5, p_release=0.08, p_down_flip=0.05,
         round_ticks=2).scenario()),
+    "sync-n32": _sync_case(32, 16),
+    "sync-n300": _sync_case(300, 37),
     "delay-drop-n37": (dict(lease_ticks=3, round_ticks=3), lambda s: random_trace(
         s, n_ticks=40, n_cells=37, n_proposers=8, max_delay_ticks=2,
         p_drop=0.1, asymmetric=True).scenario()),
@@ -122,7 +132,7 @@ def test_one_scenario_equals_the_unbatched_kernel(cuda_device, case):
     sc = strip_default_planes(CASES[case][1](3).planes)
     eng = _engine(case, cuda_device)
     A, P, N = eng.n_acceptors, eng.n_proposers, eng.n_cells
-    sync = case == "sync-n8"
+    sync = case.startswith("sync")
     d = _device_planes(sc, cuda_device, None, None, 0, n_proposers=P,
                        n_acceptors=A, lease_q4=eng.lease_q4,
                        restart_guard=True, sync=sync)
@@ -152,6 +162,34 @@ def test_one_scenario_equals_the_unbatched_kernel(cuda_device, case):
     assert torch.equal(rows[0][0], ow) and torch.equal(rows[1][0], cn)
     for got, want in zip(summ, K.window_summary(ow, cn)):
         assert torch.equal(got[0], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sync-n32", "sync-n300"])
+def test_sync_batch_of_five_equals_plain_and_one_launch_a_scenario(cuda_device, case):
+    """Five scenarios, no multiple of the batched sync kernel's four warps a
+    block (a warp a scenario at N 32, ten 32-cell tiles a scenario at N 300):
+    both collect modes equal the plain batched version, and the rows equal
+    one unbatched launch per scenario."""
+    eng = _engine(case, cuda_device)
+    stacked = Scenario.stack(_batch(case, B=5))
+    d = _device_planes(strip_default_planes(stacked.planes), cuda_device, eng._clk0(),
+                       eng._rst0(), eng.t, n_proposers=eng.n_proposers,
+                       n_acceptors=eng.n_acceptors, lease_q4=eng.lease_q4,
+                       restart_guard=eng.restart_guard, sync=True)
+    packed = pack_state(eng.state)
+    cols = [d[k] for k in ("attempts", "releases", "acc_up", "pclk", "aclk")]
+    kw = dict(majority=eng.majority, lease_q4=eng.lease_q4, n_proposers=eng.n_proposers,
+              guard_q4=eng.guard_q4)
+    for collect in ("summary", "owners"):
+        got = K.lease_window_sync_batched(packed, eng.t, *cols, collect=collect, **kw)
+        want = K.lease_window_sync_batched_torch(packed, eng.t, *cols, collect=collect, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), collect
+    owners, counts = got
+    assert int((owners >= 0).sum()) > 0
+    for b in range(5):
+        _, ow, cn = K.lease_window_sync(packed, eng.t, *(x[b] for x in cols), **kw)
+        assert torch.equal(ow, owners[b]) and torch.equal(cn, counts[b])
 
 
 @pytest.mark.cuda
