@@ -3,8 +3,9 @@
 lease plane (phases 1-7), internlm2-1.8b prefill and serving through the
 flash-attention kernels (phases 8-12), rwkv6-3b prefill and serving
 through the WKV6 kernels (phases 13-17), the differential referee against
-the lease kernels (phase 18) and the scenario sweep through the batched
-lease kernels (phase 19).
+the lease kernels (phase 18), the scenario sweep through the batched
+lease kernels (phase 19), the §4 falsifier (phase 20) and the shard
+directory (phase 21).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``); it exits nonzero
@@ -105,13 +106,29 @@ Phases (one line each):
      under the profiler, a call in a CUDA graph, and host-paced calls from
      Python, beside an empty kernel's, the launch floor), and where one
      sweep's host time goes.
+ 20. the falsifier (``repro_torch.lease_array.falsify``) on its canonical
+     cell (4 cells, A 3, P 4, 16 ticks): margins sweeps of 4096 scenarios
+     (honest, corrupt, restarts with extends) bit-exact against the same
+     sweeps on the CPU; each corpus fixture at its recorded margin; the
+     corrupt control (seed 7, pop 128 x 6) finds a violation and the
+     shrinker keeps it violating, its probes through the batched kernels,
+     both as on the CPU; the honest search at pop 4096 x 8 and the
+     reference's 8192 x 128 acceptance run (1,048,576 scenarios) find none
+     and concentrate; each run's scenarios/s and generation split, and one
+     margins sweep's device busy time under the profiler;
+ 21. ``LeaseArrayDirectory`` on the bench's failover handoff (1024 shards,
+     8 workers, A 5, lease 24, delay <= 2): owners tick for tick equal to
+     the CPU's, worker 0's shards re-owned in the recorded 31 ticks, max
+     owner count <= 1; ticks/s and a tick's split (policy, step host, the
+     kernel's device time).
 The line before the last holds every kernel's launches on its main path
-(phases 3-6; the phase-12 bf16 prefill for the wgmma flash kernel,
-the phase-9 prefill and phase-11 serving for the fp32 3xTF32 one; the
-phase-17 bf16 prefill for the tensor-core WKV6 kernel, the phase-14
-prefill and phase-16 serving for the CUDA-core one; the phase-19 sweeps
-for the batched lease kernels), time, plain time, bound and library time
-as JSON;
+(phases 3-6 and the phase-21 directory ticks for the unbatched delayed
+kernel; the phase-12 bf16 prefill for the wgmma flash kernel, the phase-9
+prefill and phase-11 serving for the fp32 3xTF32 one; the phase-17 bf16
+prefill for the tensor-core WKV6 kernel, the phase-14 prefill and
+phase-16 serving for the CUDA-core one; the phase-19 sweeps and the
+phase-20 shrinker probes for the batched lease kernels), time, plain
+time, bound and library time as JSON;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1618,6 +1635,294 @@ def chaos_sweep_setup(dev):
     return eng, scs, engine_to_arrays(eng)
 
 
+#: phase 20: the canonical falsifier cell (``FalsifyConfig``'s defaults,
+#: src/repro/lease_array/falsify/search.py:44-96: 4 cells, A 3, P 4, 16
+#: ticks, lease 2, round 3, drift 0.25, every honest fault plane) at the
+#: bench's generation size (benchmarks/bench_lease_array.py:485-527) and as
+#: the reference's acceptance run (tests/test_falsify.py:282-296)
+FALSIFY_POP = 4096
+FALSIFY_POP_GENERATIONS = 8
+FALSIFY_RUN = (8192, 128)  # population x generations: 1,048,576 scenarios
+FALSIFY_MIXES = {"honest": {}, "corrupt": dict(corrupt=True),
+                 "restarts-extends": dict(restarts=True, extends=True)}
+#: phase 21: the bench's failover handoff (benchmarks/bench_lease_array.py:
+#: 417-441) and the handoff's tick count there (BENCH_lease_array.json)
+HANDOFF = dict(n_acceptors=5, lease_ticks=24, max_workers=8, max_delay_ticks=2)
+HANDOFF_SHARDS, HANDOFF_WARM, HANDOFF_TICKS = 1024, 40, 31
+
+
+def timed_search(cfg, dev):
+    """``falsify.search(cfg)`` with its parts timed: the margins sweep
+    (ended by a device synchronisation; its uploads of the planes apart),
+    the copy of verdicts and margins to the host, the mutation, and the
+    rest (selection, lineage tags). Returns (result, wall s, {part: s})."""
+    import importlib
+
+    import torch
+
+    from repro_torch.lease_array import ops
+
+    # the module (the package's ``search`` is the function)
+    S = importlib.import_module("repro_torch.lease_array.falsify.search")
+    spent = {}
+
+    def timed(name, fn, sync=False):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    eng = cfg.engine()
+    eng.sweep = timed("margins sweep", eng.sweep, sync=True)
+    parts = ((ops, "_as_i32", "uploads", True), (S, "mutate", "mutation", False),
+             (torch.Tensor, "cpu", "copy to host", False))
+    # the attributes as the owners hold them (None: inherited), restored after
+    saved = [(owner, attr, vars(owner).get(attr)) for owner, attr, _, _ in parts]
+    for owner, attr, name, sync in parts:
+        setattr(owner, attr, timed(name, getattr(owner, attr), sync))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = S.search(cfg, engine=eng)
+        wall = time.perf_counter() - t0
+    finally:
+        for owner, attr, raw in saved:
+            if raw is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, raw)
+    spent["margins sweep"] -= spent.get("uploads", 0.0)
+    spent["selection and the rest"] = wall - sum(spent.values())
+    return res, wall, spent
+
+
+def falsify_phase(dev) -> dict:
+    """Phase 20: the §4 falsifier on the card. Returns the launches of the
+    batched lease kernels on its path (the shrinker's probes) by kernel
+    name; every comparison with the CPU is exact or fails."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.lease_array import MARGIN_NAMES, Scenario
+    from repro_torch.lease_array import kernel as K
+    from repro_torch.lease_array.falsify import (
+        FalsifyConfig,
+        load_corpus,
+        random_population,
+        search,
+        shrink,
+    )
+    from repro_torch.lease_array.scenario import plane_digest
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def same(a, b, what):
+        fields = ("max_owner_count", "owned_frac", "final_owners")
+        pairs = [(getattr(a, f), getattr(b, f)) for f in fields]
+        if a.margins is not None:
+            pairs += [(a.margins[k], b.margins[k]) for k in MARGIN_NAMES]
+        for x, y in pairs:
+            check(torch.equal(x.cpu(), y.cpu()), f"{what}: card and CPU differ")
+
+    # 20a. margins at the bench's generation size, the card against the CPU
+    margin_s = {}
+    for name, kw in FALSIFY_MIXES.items():
+        planes = random_population(np.random.default_rng(0),
+                                   FalsifyConfig(pop_size=FALSIFY_POP, **kw))
+        res = {}
+        for where, d in (("card", dev), ("CPU", cpu)):
+            eng = FalsifyConfig(device=d, **kw).engine()
+            t0 = time.perf_counter()
+            res[where] = eng.sweep(Scenario(planes), collect="margins", verify=False)
+            res[where].max_owner_count.cpu()
+            margin_s[name, where] = time.perf_counter() - t0
+        same(res["card"], res["CPU"], f"margins {name} at pop {FALSIFY_POP}")
+        if name != "corrupt":
+            check(int(res["card"].max_owner_count.max()) <= 1,
+                  f"margins {name}: §4 violated")
+    # 20b. each corpus fixture at its recorded boundary distance
+    corpus = {}
+    for name, (sc, meta) in load_corpus().items():
+        cfg = FalsifyConfig(n_cells=sc.n_cells, n_acceptors=sc.n_acceptors,
+                            n_proposers=sc.n_proposers, n_ticks=sc.n_ticks,
+                            device=dev.type, **meta["engine"])
+        got = cfg.engine().sweep([sc], collect="margins", verify=False)
+        for comp, want in meta["expect_margins"].items():
+            corpus[name, comp] = int(got.margins[comp][0])
+            check(corpus[name, comp] == want, f"corpus {name}: {comp} "
+                  f"{corpus[name, comp]}, recorded {want}")
+    # 20c. the corrupt control finds a violation; the shrinker keeps it,
+    # its probes through the batched kernels
+    control = dict(corrupt=True, seed=7, pop_size=128, generations=6)
+    found = search(FalsifyConfig(device=dev.type, **control))
+    check(found.found, "the corrupt control found no violation on the card")
+    eng = FalsifyConfig(device=dev.type).engine()
+    K.reset_launches()  # the main path: the shrinker's probes
+    small = shrink(found.violation, eng, budget=120)
+    launches = {k: getattr(K, k).launches
+                for k in ("lease_window_delayed_batched", "lease_window_sync_batched")}
+    check(launches["lease_window_delayed_batched"] > 0,
+          "no shrinker probe launched the delayed batched kernel")
+    check(K.lease_window_delayed_batched_torch.launches
+          + K.lease_window_sync_batched_torch.launches == 0,
+          "a shrinker probe on the card ran the plain loop")
+    cpu_found = search(FalsifyConfig(device="cpu", **control))
+    small_cpu = shrink(cpu_found.violation, FalsifyConfig(device="cpu").engine(), budget=120)
+    check((found.lineage, found.digest) == (cpu_found.lineage, cpu_found.digest)
+          and plane_digest(small.planes) == plane_digest(small_cpu.planes),
+          "the card's search or shrink differs from the CPU's")
+    one = Scenario({k: v[None] for k, v in small.planes.items()})
+    got = eng.sweep(one, verify=False)
+    want = FalsifyConfig(device="cpu").engine().sweep(one, verify=False)
+    same(got, want, "the shrunk violation")
+    check(int(got.max_owner_count[0]) > 1, "the shrunk scenario no longer violates")
+    print(f"phase 20 falsifier: margins at pop {FALSIFY_POP} (" + ", ".join(
+        f"{n} card {margin_s[n, 'card']:.3f} s / CPU {margin_s[n, 'CPU']:.3f} s"
+        for n in FALSIFY_MIXES) + ") bit-exact against the CPU; corpus "
+        + ", ".join(f"{n} {c}={v}" for (n, c), v in corpus.items())
+        + f" as recorded; corrupt control (seed 7, pop 128 x 6) found "
+        f"{found.digest} ({found.lineage}) as on the CPU, shrunk to "
+        f"{small.n_ticks} ticks ({plane_digest(small.planes)}, as on the CPU), "
+        f"still violating; shrinker launches: " + ", ".join(
+            f"{k} {v}" for k, v in launches.items()), flush=True)
+
+    # 20d. throughput: a short run at the bench's generation size, then
+    # the reference's million-scenario honest run, its generation split
+    t_run = time.perf_counter()
+    rows = {}
+    for pop, gens in ((FALSIFY_POP, FALSIFY_POP_GENERATIONS), FALSIFY_RUN):
+        res, wall, spent = timed_search(
+            FalsifyConfig(pop_size=pop, generations=gens, device=dev.type), dev)
+        check(not res.found, f"the honest run at pop {pop} violated §4: {res.digest}")
+        check(res.evaluations == pop * gens, f"evaluations {res.evaluations}")
+        rows[pop] = (res, wall, spent)
+    res, wall, spent = rows[FALSIFY_RUN[0]]
+    check(res.concentrated(), "the honest run's survivors are not closer to §4 "
+          "than its random generation")
+    # one margins sweep at the run's population under the profiler: its
+    # device busy time and kernel launches against its wall
+    pop = FALSIFY_RUN[0]
+    planes = random_population(np.random.default_rng(1), FalsifyConfig(pop_size=pop))
+    eng = FalsifyConfig(pop_size=pop, device=dev.type).engine()
+    eng.sweep(Scenario(planes), collect="margins", verify=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.sweep(Scenario(planes), collect="margins", verify=False).max_owner_count.cpu()
+        sweep_wall = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    n = FALSIFY_RUN[0] * FALSIFY_RUN[1]
+    for p, (r, w, sp) in rows.items():
+        gens = r.generations
+        print(f"phase 20 honest run pop {p} x {gens} generations ({p * gens} "
+              f"scenarios): no violation, {p * gens / w:.1f} scenarios/s, wall "
+              f"{w:.2f} s; a generation {w / gens * 1e3:.1f} ms: " + ", ".join(
+                  f"{k} {v / gens * 1e3:.2f} ms" for k, v in sp.items())
+              + f"; median score random {int(np.median(r.random_scores))} -> "
+              f"survivors {int(np.median(r.survivor_scores))}", flush=True)
+    print(f"phase 20 the {n}-scenario run: {wall:.2f} s, concentrated; one "
+          f"margins sweep at pop {pop} under the profiler: {len(dev_events)} "
+          f"device kernels, busy {busy:.2f} ms of {sweep_wall:.2f} ms wall "
+          f"({100 * (1 - busy / sweep_wall):.1f} % idle); throughput runs "
+          f"{time.perf_counter() - t_run:.1f} s", flush=True)
+    print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def directory_phase(dev) -> int:
+    """Phase 21: the bench's failover handoff through ``LeaseArrayDirectory``
+    on the card, owners tick for tick against the CPU. Returns the
+    unbatched delayed kernel's launches on its path."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.lease_array import LeaseArrayDirectory
+    from repro_torch.lease_array import kernel as K
+
+    t_phase = time.perf_counter()
+
+    def handoff(device, spent=None):
+        """(owner rows, handoff ticks, max owner count, wall s)"""
+        d = LeaseArrayDirectory(HANDOFF_SHARDS, device=device, **HANDOFF)
+        if spent is not None:  # the step, its kernel and host part together
+            step = d.engine.step
+
+            def timed_step(tick):
+                t0 = time.perf_counter()
+                out = step(tick)
+                torch.cuda.synchronize()
+                spent["step"] += time.perf_counter() - t0
+                return out
+            d.engine.step = timed_step
+        for i in range(8):
+            d.add_worker(i, HANDOFF_SHARDS // 8)
+        worst = torch.zeros(HANDOFF_SHARDS, dtype=torch.int32, device=device)
+        rows, ticks = [], 0
+        t0 = time.perf_counter()
+
+        def tick():
+            nonlocal worst
+            rows.append(d.tick(1).copy())
+            worst = torch.maximum(worst, d.engine.last_owner_count)
+
+        for _ in range(HANDOFF_WARM):
+            tick()
+        check(d.coverage() == 1.0, f"handoff warm-up on {device}: coverage "
+              f"{d.coverage()}")
+        d.stall(0)
+        for i in range(1, 8):
+            d.set_target(i, HANDOFF_SHARDS // 7 + 1)
+        while (d.owned_count(0) > 0 or d.coverage() < 0.95) and ticks < 400:
+            tick()
+            ticks += 1
+        return np.stack(rows), ticks, int(worst.max()), time.perf_counter() - t0
+
+    K.reset_launches()  # the main path: the directory's ticks
+    spent = {"step": 0.0}
+    rows, ticks, worst, wall = handoff(dev, spent)
+    launches = K.lease_window_delayed.launches
+    check(launches > 0, "the directory never launched lease_window_delayed")
+    check(K.lease_window_delayed_torch.launches == 0, "a directory tick ran the plain loop")
+    cpu_rows, cpu_ticks, _, cpu_wall = handoff(torch.device("cpu"))
+    check(rows.shape == cpu_rows.shape and (rows == cpu_rows).all(),
+          "directory owners on the card differ from the CPU's")
+    check(ticks == cpu_ticks == HANDOFF_TICKS,
+          f"handoff took {ticks} ticks (CPU {cpu_ticks}), recorded {HANDOFF_TICKS}")
+    check(worst <= 1, f"directory: §4 violated (max owner count {worst})")
+    # the kernel's device time a tick, from a run under the profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        handoff(dev)
+        torch.cuda.synchronize()
+    kernel_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "delayed_window_kernel" in e.name) / 1e3
+    n_ticks = len(rows)
+    tick_ms = wall / n_ticks * 1e3
+    step_ms = spent["step"] / n_ticks * 1e3
+    kern_ms = kernel_ms / n_ticks
+    print(f"phase 21 directory handoff ({HANDOFF_SHARDS} shards, 8 workers, A "
+          f"{HANDOFF['n_acceptors']}, lease {HANDOFF['lease_ticks']}, delay <= "
+          f"{HANDOFF['max_delay_ticks']}): worker 0's shards re-owned in {ticks} "
+          f"ticks after {HANDOFF_WARM} of warm-up, as on the CPU and as recorded; "
+          f"owners equal the CPU's on all {n_ticks} ticks, max owner count {worst}; "
+          f"{n_ticks / wall:.1f} ticks/s, {HANDOFF_SHARDS * n_ticks / wall:.4e} "
+          f"cell-ticks/s (CPU {n_ticks / cpu_wall:.1f} ticks/s); a tick "
+          f"{tick_ms:.3f} ms: policy {tick_ms - step_ms:.3f}, step host "
+          f"{step_ms - kern_ms:.3f}, kernel {kern_ms:.4f} ms (device, profiler); "
+          f"lease_window_delayed launches {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2041,6 +2346,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     referee_phase(dev)
     kernels.extend(sweep_slice(dev))
+    t_new = time.perf_counter()
+    by_name = {k["name"]: k for k in kernels}
+    for name, n in falsify_phase(dev).items():
+        by_name[name]["launches"] += n
+    by_name["lease_window_delayed"]["launches"] += directory_phase(dev)
+    print(f"phases 20-21 took {time.perf_counter() - t_new:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

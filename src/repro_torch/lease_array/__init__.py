@@ -14,15 +14,21 @@ Scenario whole (``run_trace``), a stacked batch of them (``sweep``) or one
   ref.py      — the synchronous tick and public-format one-tick wrappers
   kernel.py   — the CUDA window kernels' wrappers and plain versions
   _build.py   — nvcc build + ctypes binding of csrc/lease_window.cu
-  ops.py      — backend dispatch ("torch" | "cuda"), lease_window_scan
+  ops.py      — backend dispatch ("torch" | "cuda"), lease_window_scan,
+                and the batched §4 margin scan of sweep(collect="margins")
   engine.py   — the stateful engine: step, run_trace and sweep, on CUDA by
                 default
   trace.py    — random fault/timing traces (seed-compatible with repro's)
                 and the differential referee (replay_event_sim against
                 replay_array)
   carry.py    — engine state to/from numpy arrays (carry across packages)
+  directory.py— shard-ownership directory on top (cluster/shards.py's
+                path at thousands of shards)
+  falsify/    — the coverage-guided §4 falsifier over margins sweeps
+                (search, mutation, shrinker, corpus, CLI)
 """
 from .carry import engine_from_reference, engine_to_arrays
+from .directory import LeaseArrayDirectory
 from .engine import LeaseArrayEngine, SweepResult
 from .kernel import (
     lease_window_delayed,
@@ -35,7 +41,13 @@ from .kernel import (
     lease_window_sync_torch,
 )
 from .netplane import NetPlaneState, init_netplane, pack_link, pack_slot
-from .ops import BACKENDS, lease_plane_tick, lease_window_scan
+from .ops import (
+    BACKENDS,
+    MARGIN_BIG,
+    MARGIN_NAMES,
+    lease_plane_tick,
+    lease_window_scan,
+)
 from .scenario import (
     PLANES,
     PlaneSpec,
@@ -71,8 +83,11 @@ from .trace import (
 __all__ = [
     "BACKENDS",
     "DEFAULT_RATE",
+    "LeaseArrayDirectory",
     "LeaseArrayEngine",
     "LeaseArrayState",
+    "MARGIN_BIG",
+    "MARGIN_NAMES",
     "NO_PROPOSER",
     "NetPlaneState",
     "PLANES",

@@ -8,9 +8,11 @@ Three modes:
                               PyTorch tick loop (``backend="torch"``);
   - ``sweep(scenarios)``    — a BATCH of scenarios in ONE dispatch (one
                               launch of a batched window kernel, one grid
-                              row per scenario), each replayed from the
-                              engine's current state, which it leaves as it
-                              is; per-scenario §4 verification built in.
+                              row per scenario; the falsifier's margins
+                              mode one plain tick loop over the batch),
+                              each replayed from the engine's current
+                              state, which it leaves as it is;
+                              per-scenario §4 verification built in.
 
 The engine lives on one device, CUDA unless the caller passes
 ``device="cpu"``; without a CUDA device the default raises. The backend
@@ -45,6 +47,7 @@ from .ops import (
     BACKENDS,
     _as_i32,
     _host,
+    _margin_scan_impl,
     _sweep_scan_impl,
     _window_scan_impl,
     default_backend,
@@ -146,6 +149,9 @@ class SweepResult(NamedTuple):
     final_owners: torch.Tensor     # [B, N] owner row after the last tick
     owners: Optional[torch.Tensor] = None  # [B, T, N] iff collect="owners"
     counts: Optional[torch.Tensor] = None  # [B, T, N] iff collect="owners"
+    #: [B] int32 per margin component iff collect="margins" (see
+    #: ops._margin_scan_impl; MARGIN_BIG = never close)
+    margins: Optional[dict] = None
 
 
 class LeaseArrayEngine:
@@ -475,20 +481,18 @@ class LeaseArrayEngine:
         ``collect="summary"`` (default) reduces inside the kernel — only
         [B]-shaped verdicts and the [B, N] final owner rows come back, and no
         [B, T, N] tensor is made on the device; ``collect="owners"`` also
-        returns the full owners/counts cubes. ``collect="margins"`` (the
-        falsifier's §4 margins) is not ported yet and raises
-        NotImplementedError. With ``verify=True`` a per-scenario §4
+        returns the full owners/counts cubes. ``collect="margins"`` also
+        returns the §4 boundary-proximity margins (``SweepResult.margins``,
+        [B] int32 per component of ``ops.MARGIN_NAMES``, the falsifier's
+        fitness): the batch replayed as ONE plain delayed tick loop on the
+        engine's device (``ops._margin_scan_impl``; the kernels have no
+        margins mode, so ``backend`` is not read), still never a
+        [B, T, N] result on the host. With ``verify=True`` a per-scenario §4
         violation (max owner count > 1) raises AssertionError naming each
         offender's ``plane_digest`` (and its ``tags[i]`` when the caller
         passes per-scenario ``tags``), so a violation reproduces standalone.
         """
-        if collect == "margins":
-            raise NotImplementedError(
-                "sweep(collect='margins') needs the margin scan "
-                "(ops._margin_scan_impl of the reference), which the port "
-                "does not have yet; use 'summary' or 'owners'"
-            )
-        if collect not in COLLECT:
+        if collect not in COLLECT + ("margins",):
             raise ValueError(f"unknown collect mode {collect!r}")
         if isinstance(scenarios, (list, tuple)):
             if not scenarios:
@@ -534,15 +538,27 @@ class LeaseArrayEngine:
             raise ValueError(
                 f"unknown lease-plane backend {backend!r}; one of {BACKENDS}"
             )
-        out = _sweep_scan_impl(
-            self.state, self.net, self.t, self._clk0(), self._rst0(),
-            strip_default_planes(planes),
-            majority=self.majority, lease_q4=self.lease_q4,
-            round_q4=self.round_q4, guard_q4=self.guard_q4, backend=backend,
-            sync=sync, window=self.window, collect=collect,
-            restart_guard=self.restart_guard, skip_stable=self.skip_stable,
-        )
-        owners = counts = None
+        owners = counts = margins = None
+        if collect == "margins":
+            out = _margin_scan_impl(
+                self.state, self.net, self.t, self._clk0(), self._rst0(),
+                strip_default_planes(planes),
+                majority=self.majority, lease_q4=self.lease_q4,
+                round_q4=self.round_q4, guard_q4=self.guard_q4,
+                restart_guard=self.restart_guard,
+            )
+            margins = out[2]
+            out = window_summary(*out[:2])
+        else:
+            out = _sweep_scan_impl(
+                self.state, self.net, self.t, self._clk0(), self._rst0(),
+                strip_default_planes(planes),
+                majority=self.majority, lease_q4=self.lease_q4,
+                round_q4=self.round_q4, guard_q4=self.guard_q4,
+                backend=backend, sync=sync, window=self.window,
+                collect=collect, restart_guard=self.restart_guard,
+                skip_stable=self.skip_stable,
+            )
         if collect == "owners":
             owners, counts = out
             out = window_summary(owners, counts)
@@ -556,6 +572,7 @@ class LeaseArrayEngine:
             max_owner_count=max_count.amax(dim=-1),
             owned_frac=owned.sum(dim=-1).to(torch.float32) * inv_slots,
             final_owners=final, owners=owners, counts=counts,
+            margins=margins,
         )
         if verify:
             bad = torch.nonzero(result.max_owner_count > 1).flatten().tolist()

@@ -191,6 +191,16 @@ def legs_gather(link: torch.Tensor, prop: torch.Tensor):
     return QUARTERS * (v >> 1), (v & 1) > 0
 
 
+def legs_columns(link: torch.Tensor, prop: torch.Tensor):
+    """`legs_gather` over per-column links: ``link`` is [P, A, bn], column
+    j its own [P, A] matrix (the margin scan folds a batch of scenarios
+    into the cell axis, each scenario's link repeated over its cells)."""
+    P, A, bn = link.shape
+    idx = prop.clamp(0, P - 1).long().expand(A, bn)
+    v = torch.gather(link, 0, idx[None])[0]
+    return QUARTERS * (v >> 1), (v & 1) > 0
+
+
 def _votes(bits: torch.Tensor, n_acceptors: int) -> torch.Tensor:
     """Popcount over the A vote bits."""
     n = bits & 1

@@ -19,6 +19,11 @@ One step: :func:`lease_plane_tick` advances every cell one tick of either
 network model through the same dispatch. Its per-tick inputs are a
 :class:`~repro_torch.lease_array.scenario.TickInputs` bundle.
 
+The falsifier's margins sweep has no kernel (nor has the reference's):
+:func:`_margin_scan_impl` replays a batch of scenarios as ONE plain delayed
+tick loop on the state's device, the batch folded into the cell axis, and
+reduces the §4 boundary-proximity margins per scenario.
+
 Absent means honest: an optional plane (corruption, restart, extends) that
 sits entirely at its default is stripped before dispatch, and a stripped
 plane adds no work to either backend. A restart history (``rst0``) keeps
@@ -41,7 +46,14 @@ from .kernel import (
     lease_window_sync_batched_torch,
     lease_window_sync_torch,
 )
-from .netplane import NetPlaneState, pack_link
+from .netplane import (
+    R_PROPOSING,
+    NetPlaneState,
+    _votes,
+    delayed_tick_math,
+    legs_columns,
+    pack_link,
+)
 from .scenario import (
     CORRUPTION_PLANES,
     EXTEND_PLANES,
@@ -51,11 +63,16 @@ from .scenario import (
 )
 from .state import (
     I32,
+    PACK_MASK,
+    PACK_SHIFT,
     QUARTERS,
     LeaseArrayState,
     PackedLeaseState,
+    ballot_proposer,
     check_pack_budget,
+    clock_select,
     pack_state,
+    packed_q4,
     rate1_clock,
     unpack_state,
 )
@@ -152,7 +169,8 @@ def _device_planes(planes: dict, dev, clk0, rst0, t0: int, *, n_proposers: int,
     the window kernels' argument form: attempts, releases, acc_up, the
     local-clock planes pclk/aclk, the fused link plane (delayed model
     only), and the optional ``extends``/``stale``/``equiv``/restart columns
-    (None when absent: absent means honest). ``planes`` are [T, ...], or
+    (None when absent: absent means honest; restart mode adds ``deaf_rem``,
+    which only the margin scan reads). ``planes`` are [T, ...], or
     [B, T, ...] for a sweep (every plane batched alike)."""
     P, A = n_proposers, n_acceptors
     attempts = _as_i32(planes["attempts"], dev)
@@ -196,11 +214,11 @@ def _device_planes(planes: dict, dev, clk0, rst0, t0: int, *, n_proposers: int,
                 if arst is None else _as_i32(arst, dev))
         prst = (torch.zeros((*lead, T, P), dtype=I32, device=dev)
                 if prst is None else _as_i32(prst, dev))
-        rc, deaf, _ = _restart_planes(
+        rc, deaf, deaf_rem = _restart_planes(
             rst0, arst, prst, aclk, lease_q4, restart_guard
         )
         out.update(acc_restart=arst, acc_deaf=deaf, prop_restart=prst,
-                   prop_rc=rc)
+                   prop_rc=rc, deaf_rem=deaf_rem)
     if not sync:
         out["link"] = pack_link(_as_i32(planes["delay"], dev),
                                 _as_i32(planes["drop"], dev))  # [.., T, P, A]
@@ -332,6 +350,169 @@ def _sweep_scan_impl(
         return lease_window_delayed_batched(*args, window=window,
                                             skip_stable=skip_stable, **kw)
     return lease_window_delayed_batched_torch(*args, **kw)
+
+
+#: "never got close" sentinel for the min-tracked margin components
+MARGIN_BIG = 1 << 28
+
+#: the margin components, in the order the scan carries them
+MARGIN_NAMES = ("votes_gap", "tie_q4", "ghost_q4", "deaf_q4", "open_rounds")
+
+
+def _scenario_columns(x: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """[B, T, ...] per-scenario rows -> [T, ..., B·N]: each scenario's rows
+    repeated over its N cells (column b·N + n)."""
+    B, T, *rows = x.shape
+    y = x.movedim(0, -1).unsqueeze(-1)  # [T, ..., B, 1]
+    return y.expand(T, *rows, B, n_cells).reshape(T, *rows, B * n_cells)
+
+
+def _margin_scan_impl(
+    state: LeaseArrayState,
+    net,
+    t0: int,
+    clk0,
+    rst0,
+    planes: dict,
+    *,
+    majority: int,
+    lease_q4: int,
+    round_q4: int,
+    guard_q4: int,
+    restart_guard: bool = True,
+):
+    """The body of ``engine.sweep(collect="margins")``: B stacked scenarios
+    (``planes`` [B, T, ...]) replayed from one start (state, net, t0, clk0,
+    rst0) by the plain delayed tick with §4 boundary-proximity margins
+    reduced per scenario, as int32 [B] tensors, never [B, T, N]:
+
+      ``votes_gap``   min votes still missing for a *foreign* round to
+                      reach a majority while another proposer's belief is
+                      live (0: the violating vote is already in flight);
+      ``tie_q4``      min |owner expiry − owner local clock| in quarter-
+                      ticks over ticks whose release (or, in extend mode,
+                      extend) names the live owner: the guarded-expiry tie;
+      ``ghost_q4``    min local quarter-ticks by which a majority-accepted
+                      claim missed its own guarded timer (§3 step 5);
+      ``deaf_q4``     min local quarter-ticks of deaf window left when a
+                      post-restart deaf acceptor refused a due request of
+                      the open round while it was one vote short of a
+                      foreign quorum (in extend mode also the owner's own
+                      extend round);
+      ``open_rounds`` max cells of the scenario with a round open at once.
+
+    Min components start at ``MARGIN_BIG`` ("never got close"). Always the
+    delayed model (zero-delay planes are the sync model's special case bit
+    for bit), and always plain torch ops on the state's device: the kernels
+    have no margins mode. The batch is ONE tick loop: it folds into the
+    cell axis (B·N columns), each scenario's per-node rows and [P, A] link
+    repeated over its cells (``legs_columns``). Returns (owners [B, T, N],
+    counts [B, T, N], margins dict of [B] tensors), the counterpart of the
+    reference's ``ops._margin_scan_impl`` under ``vmap``.
+    """
+    dev = state.highest_promised.device
+    P = state.n_proposers
+    A, N = state.highest_promised.shape
+    t0 = int(t0)
+    d = _device_planes(planes, dev, clk0, rst0, t0, n_proposers=P,
+                       n_acceptors=A, lease_q4=lease_q4,
+                       restart_guard=restart_guard, sync=False)
+    B, T = d["attempts"].shape[:2]
+
+    def cells(x):  # [B, T, N] -> [T, 1, B·N]
+        return x.transpose(0, 1).reshape(T, 1, B * N)
+
+    att, rel = cells(d["attempts"]), cells(d["releases"])
+    up, pclk, aclk, link = (_scenario_columns(d[k], N)
+                            for k in ("acc_up", "pclk", "aclk", "link"))
+    extend = d.get("extends") is not None
+    ext = cells(d["extends"]) if extend else None
+    corrupt = d.get("stale") is not None
+    if corrupt:
+        stale, equiv = (_scenario_columns(d[k], N) for k in ("stale", "equiv"))
+    restart = d.get("acc_restart") is not None
+    if restart:
+        arst, deaf, prst, rc, deaf_rem = (
+            _scenario_columns(d[k], N) for k in
+            ("acc_restart", "acc_deaf", "prop_restart", "prop_rc", "deaf_rem"))
+    lease = tuple(x.repeat(1, B) for x in pack_state(state))
+    netc = tuple(x.repeat(1, B) for x in net)
+    big = MARGIN_BIG
+
+    def per_scenario_min(x, mask):  # [rows, B·N] -> [B]
+        return torch.where(mask, x, big).view(-1, B, N).amin(dim=(0, 2))
+
+    m = [torch.full((B,), big, dtype=I32, device=dev) for _ in range(4)]
+    m.append(torch.zeros(B, dtype=I32, device=dev))
+    owners = torch.empty((B, T, N), dtype=I32, device=dev)
+    counts = torch.empty((B, T, N), dtype=I32, device=dev)
+    for tau in range(T):
+        t = t0 + tau
+        adv = {}
+        if extend:
+            adv["extend"] = ext[tau]
+        if corrupt:
+            adv.update(stale=stale[tau], equiv=equiv[tau])
+        if restart:
+            adv.update(acc_restart=arst[tau], acc_deaf=deaf[tau],
+                       prop_restart=prst[tau], prop_rc=rc[tau])
+        pc = pclk[tau]
+        # pre-tick: the guarded-expiry tie at releases (and extends) that
+        # name the live owner, its packed expiry against its clock now
+        own_id, ownp = lease[2], lease[3]
+        names_owner = (rel[tau] >= 0) & (own_id == rel[tau])
+        if extend:
+            names_owner = names_owner | ((ext[tau] >= 0) & (own_id == ext[tau]))
+        tie = per_scenario_min(
+            (packed_q4(ownp) - clock_select(pc, own_id)).abs(),
+            names_owner & (ownp > 0))
+        # pre-tick: the deaf-window boundary, a due request of the open
+        # round at a deaf acceptor while that round is one vote short of a
+        # quorum against a live belief: the refusal the M-wait exists for
+        if restart:
+            live_min = (QUARTERS * t + 1) << PACK_SHIFT
+            rnd_b = netc[6]
+            round_req = torch.zeros_like(netc[0], dtype=torch.bool)
+            for slot in (netc[0], netc[3]):  # prepare, propose requests
+                round_req = round_req | ((slot > 0) & (slot < live_min)
+                                         & ((slot & PACK_MASK) == rnd_b))
+            against = (rnd_b > 0) & (ownp > 0)
+            if not extend:  # extend mode counts the owner's own round too
+                against = against & (own_id != ballot_proposer(rnd_b, P))
+            one_short = torch.maximum(
+                _votes(netc[10], A), _votes(netc[11], A)) == majority - 1
+            deaf_m = per_scenario_min(
+                deaf_rem[tau],
+                (deaf_rem[tau] > 0) & round_req & against & one_short)
+        lease, netc, count = delayed_tick_math(
+            lease, netc, t, att[tau], rel[tau], up[tau], pc, aclk[tau],
+            link[tau], majority=majority, lease_q4=lease_q4,
+            round_q4=round_q4, n_proposers=P, guard_q4=guard_q4,
+            legs=legs_columns, **adv,
+        )
+        # post-tick: the contention gap, and ghost-guard refusals still in
+        # the round rows (a refused claim leaves its round R_PROPOSING with
+        # a majority of accept bits)
+        own_id, ownp = lease[2], lease[3]
+        rnd_b, rnd_phase, rnd_expiry = netc[6], netc[7], netc[8]
+        rnd_prop = ballot_proposer(rnd_b, P)
+        accs = _votes(netc[11], A)
+        nvotes = torch.maximum(_votes(netc[10], A), accs)
+        contested = (rnd_b > 0) & (ownp > 0) & (own_id != rnd_prop)
+        refused = (rnd_b > 0) & (rnd_phase == R_PROPOSING) & (accs >= majority)
+        step = [
+            per_scenario_min((majority - nvotes).clamp(min=0), contested),
+            tie,
+            per_scenario_min(
+                clock_select(pc, rnd_prop) - rnd_expiry + 1, refused),
+        ]
+        for i, v in enumerate(step + ([deaf_m] if restart else [])):
+            m[i] = torch.minimum(m[i], v)
+        m[4] = torch.maximum(
+            m[4], (rnd_b > 0).view(B, N).sum(dim=1, dtype=I32))
+        owners[:, tau] = own_id.view(B, N)
+        counts[:, tau] = count.view(B, N)
+    return owners, counts, dict(zip(MARGIN_NAMES, m))
 
 
 def _guard_pack_budget(
