@@ -2,7 +2,7 @@
 PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH))
 export PYTHONPATH
 
-.PHONY: test test-all test-fast check falsify-smoke bench-smoke bench-delay bench-drift bench-renew bench-json bench-compare bench dev-deps
+.PHONY: test test-all test-fast check check-torch falsify-smoke bench-smoke bench-delay bench-drift bench-renew bench-json bench-compare bench dev-deps
 
 test:  ## fast default: skip the long @slow differential replays
 	python -m pytest -x -q -m "not slow"
@@ -20,6 +20,9 @@ check:  ## leaselint: static pack-budget proof, kernel purity, launch audit, con
 	else \
 	  echo "ruff not installed; skipping the crash-level baseline (CI runs it)"; \
 	fi
+
+check-torch:  ## leaselint for the PyTorch/CUDA port: launch plans of the CUDA lease kernels, int32 purity, conventions + mutation self-test (CPU, no card)
+	python -m repro_torch.analysis.staticcheck
 
 falsify-smoke:  ## seeded fixed-budget falsification contract (docs/falsification.md): the corrupt negative control MUST violate, the honest search must NOT — each also run with the crash/restart planes enabled (honest faults: the corrupt pair still violates, the honest pair still must not)
 	python -m repro.lease_array.falsify --mode corrupt --seed 7 --pop 128 --generations 6 --expect violation --out falsify_corrupt.json

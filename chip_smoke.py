@@ -4,8 +4,9 @@ lease plane (phases 1-7), internlm2-1.8b prefill and serving through the
 flash-attention kernels (phases 8-12), rwkv6-3b prefill and serving
 through the WKV6 kernels (phases 13-17), the differential referee against
 the lease kernels (phase 18), the scenario sweep through the batched
-lease kernels (phase 19), the §4 falsifier (phase 20) and the shard
-directory (phase 21).
+lease kernels (phase 19), the §4 falsifier (phase 20), the shard
+directory (phase 21), the cluster services (phase 22) and the port's
+leaselint (phase 23).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``); it exits nonzero
@@ -121,6 +122,18 @@ Phases (one line each):
      the CPU's, worker 0's shards re-owned in the recorded 31 ticks, max
      owner count <= 1; ticks/s and a tick's split (policy, step host, the
      kernel's device time).
+ 22. the cluster services, host only: the master-lease failover of
+     ``benchmarks/bench_failover.py`` (MASTER_CELL, 30 seeds; the gaps' n,
+     median, p95), the contention of ``benchmarks/bench_contention.py``
+     (60 seeds, 3 and 5 proposers: the naive baseline's deadlocks at 10 s,
+     PaxosLease's time to its first owner) and ``tests/test_autoscale.py``'s
+     join-and-silence run, every monitor clean;
+ 23. leaselint (``repro_torch.analysis.staticcheck``): ``run_all()``
+     clean; every distinct launch plan the lease entries launched in this
+     run passes the launch audit; one profiled launch of each of the four
+     entries has its plan's grid, block and shared memory; the SASS of
+     each lease library holds no floating-point instruction outside the
+     integer-division idiom.
 The line before the last holds every kernel's launches on its main path
 (phases 3-6 and the phase-21 directory ticks for the unbatched delayed
 kernel; the phase-12 bf16 prefill for the wgmma flash kernel, the phase-9
@@ -1923,6 +1936,260 @@ def directory_phase(dev) -> int:
     return launches
 
 
+#: phase 22: the paper's two experiments on the port's services, at the
+#: reference benches' deployments: bench_failover.py (MASTER_CELL, 30 seeds,
+#: delay 5-30 ms, 2 % loss, the master crashed at 5 + seed % 7 s, 4 T more)
+#: and bench_contention.py (60 seeds; 3 proposers on 3 acceptors, 5 on 5;
+#: T 15 s; delay 10-20 ms), and test_autoscale.py's join-and-silence run
+FAILOVER_SEEDS, CONTENTION_SEEDS = 30, 60
+
+
+def services_phase() -> None:
+    """Phase 22: the §9 master-lease failover, the §1 contention baseline
+    (naive majority against PaxosLease) and one autoscale run, through the
+    port's ``cluster`` and ``core.naive`` (host-only; this machine has no
+    JAX). ``monitor.assert_clean()`` holds in every run."""
+    import numpy as np
+
+    from repro_torch.cluster import AutoscaleController, ShardLeaseManager
+    from repro_torch.cluster.coordinator import build_coordinated_cluster
+    from repro_torch.cluster.membership import HeartbeatSender, MembershipTracker
+    from repro_torch.configs.paxoslease_cell import MASTER_CELL, CellConfig
+    from repro_torch.core import build_cell
+    from repro_torch.core.naive import build_naive_cell
+    from repro_torch.sim.network import NetConfig
+
+    t_phase = time.perf_counter()
+    check(not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules),
+          "phase 22 runs with JAX or the reference loaded")
+    net = NetConfig(delay_min=0.005, delay_max=0.03, loss=0.02)
+    gaps = []
+    for seed in range(FAILOVER_SEEDS):
+        cell, coord = build_coordinated_cluster(MASTER_CELL, n_workers=0,
+                                                seed=seed, net=net)
+        for n in cell.proposers:
+            coord.campaign(n)
+        cell.env.run_until(5.0)
+        if coord.master() is None:
+            continue
+        t_crash = 5.0 + seed % 7
+        cell.env.run_until(t_crash)
+        if coord.master() is not None:
+            cell.nodes[coord.master()].crash()
+        cell.env.run_until(t_crash + 4 * MASTER_CELL.lease_timespan)
+        cell.monitor.assert_clean()
+        gaps.extend(coord.failover_times())
+    check(len(gaps) >= FAILOVER_SEEDS // 2, f"failover: {len(gaps)} gaps")
+    g = np.array(gaps)
+    bound = MASTER_CELL.lease_timespan + MASTER_CELL.backoff_max
+    rows = []
+    net = NetConfig(delay_min=0.01, delay_max=0.02)
+    for n_prop in (3, 5):
+        cfg = CellConfig(n_acceptors=n_prop, max_lease_time=60.0,
+                         lease_timespan=15.0, backoff_min=0.05, backoff_max=0.3)
+        blocked, first = 0, []
+        for seed in range(CONTENTION_SEEDS):
+            env, monitor, _, props = build_naive_cell(cfg, n_proposers=n_prop,
+                                                      seed=seed, net=net)
+            for p in props:
+                p.acquire()
+            env.run_until(10.0)
+            check(not monitor.violations, f"naive cell seed {seed}: §4 violated")
+            blocked += monitor.owner_of("R") is None
+            cell = build_cell(cfg, n_proposers=n_prop, seed=seed, net=net)
+            for p in cell.proposers:
+                p.proposer.acquire()
+            cell.env.run_until(10.0)
+            cell.monitor.assert_clean()
+            first.append(cell.monitor.acquire_times[0]
+                         if cell.monitor.acquire_times else float("inf"))
+        first = np.array(first)
+        check(np.isfinite(first).all(), f"PaxosLease blocked with {n_prop} proposers")
+        check(blocked > 0, f"the naive baseline never deadlocked with {n_prop} "
+              f"proposers (bench_contention)")
+        rows.append(f"{n_prop} proposers on {n_prop} acceptors: naive P(deadlock at "
+                    f"10 s) {blocked / CONTENTION_SEEDS:.4f} ({blocked} of "
+                    f"{CONTENTION_SEEDS}), PaxosLease first owner median "
+                    f"{np.median(first):.4f} s, max {first.max():.4f} s")
+    # test_autoscale.py's join-and-silence run
+    cfg = CellConfig(n_acceptors=3, max_lease_time=30.0, lease_timespan=4.0,
+                     backoff_min=0.1, backoff_max=0.4)
+    cell, coord = build_coordinated_cluster(
+        cfg, n_workers=3, seed=5, net=NetConfig(delay_min=0.005, delay_max=0.03))
+    master = cell.nodes[0]
+    coord.campaign(master)
+    mgr = ShardLeaseManager(cell, n_shards=6, shard_timespan=3.0, scan_period=0.4)
+    tracker = MembershipTracker(cell.env, master.addr, suspect_after=4.0)
+    cell.env.network._handlers[master.addr + ":hb"] = lambda m, s: tracker.on_heartbeat(m)
+
+    def settle(cond, t_max):
+        while cell.env.now < t_max and not cond():
+            cell.env.run_until(cell.env.now + 1.0)
+
+    workers, senders = [], []
+
+    def join(node):
+        workers.append(mgr.add_worker(node, target=0))
+        senders.append(HeartbeatSender(cell.env, node.addr, node.node_id,
+                                       [master.addr + ":hb"], period=1.0))
+
+    join(cell.proposers[3])
+    join(cell.proposers[4])
+    ctl = AutoscaleController(cell, mgr, tracker, master_node=master, period=1.0)
+    settle(lambda: mgr.coverage() == 1.0, 30.0)
+    check(mgr.coverage() == 1.0 and [w.target for w in workers] == [3, 3],
+          "autoscale: 6 shards on 2 workers")
+    join(cell.proposers[5])  # a third worker joins
+    settle(lambda: len(workers[2].owned) >= 1 and mgr.coverage() == 1.0,
+           cell.env.now + 40.0)
+    check([w.target for w in workers] == [2, 2, 2] and workers[2].owned,
+          "autoscale: the joining worker took no shards")
+    senders[0].stop()
+    mgr.stall(workers[0].node.node_id)
+    settle(lambda: mgr.coverage() == 1.0 and not workers[0].owned, cell.env.now + 60.0)
+    check(workers[0].target == 0 and mgr.coverage() == 1.0 and not workers[0].owned,
+          "autoscale: the silent worker kept its shards")
+    cell.monitor.assert_clean()
+    print(f"phase 22 services (host only, the port's cluster and core.naive): "
+          f"master failover at bench_failover's deployment, {FAILOVER_SEEDS} seeds: "
+          f"n={len(g)}, median={np.median(g):.4f} s, p95={np.percentile(g, 95):.4f} s "
+          f"(bound T + backoff {bound:.1f} s); contention at bench_contention's, "
+          f"{CONTENTION_SEEDS} seeds: " + "; ".join(rows)
+          + f"; autoscale join and silence: {len(ctl.decisions)} decisions, "
+          f"coverage {mgr.coverage()}, the silent worker's target 0 at "
+          f"{cell.env.now:.1f} s; no violation; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def profiled_plans() -> int:
+    """Phase 23's profiled launches, in a process of its own
+    (``chip_smoke.py --profiled-plans``, started by :func:`leaselint_phase`):
+    each of the four lease entries at a small geometry, up to five
+    ``torch.profiler`` sessions of 20 calls until one records its kernel.
+    Prints one JSON line: for each entry its plan's grid, block and shared
+    bytes, those of every profiled kernel event, and the empty sessions.
+    (Late in the smoke's own process, after the earlier phases' profiler
+    sessions, five sessions in a row came back without a kernel; in a
+    fresh process none did.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.lease_array import kernel as K
+    from repro_torch.lease_array.netplane import init_netplane
+    from repro_torch.lease_array.state import init_state, pack_state
+
+    dev = torch.device("cuda")
+    N, T, B = 1000, 20, 3
+    packed = pack_state(init_state(N, A, P, device=dev))
+    net = init_netplane(N, A, device=dev)
+
+    def planes(*lead):
+        full = lambda *s, v: torch.full((*lead, *s), v, dtype=torch.int32, device=dev)  # noqa: E731
+        clk = torch.arange(T, dtype=torch.int32, device=dev)[:, None] * 4
+        return (full(T, N, v=-1), full(T, N, v=-1), full(T, A, v=1),
+                clk.expand(*lead, T, P).contiguous(), clk.expand(*lead, T, A).contiguous(),
+                full(T, P, A, v=0))
+
+    kw = dict(majority=A // 2 + 1, lease_q4=33, n_proposers=P)
+    one, many = planes(), planes(B)
+    calls = {
+        "lease_window_sync": lambda: K.lease_window_sync(packed, 0, *one[:5], **kw),
+        "lease_window_delayed": lambda: K.lease_window_delayed(
+            packed, net, 0, *one, round_q4=12, **kw),
+        "lease_window_sync_batched": lambda: K.lease_window_sync_batched(
+            packed, 0, *many[:5], **kw),
+        "lease_window_delayed_batched": lambda: K.lease_window_delayed_batched(
+            packed, net, 0, *many, round_q4=12, **kw),
+    }
+    trace = ROOT / "build" / "leaselint_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    names = ("sync_window_kernel", "delayed_window_kernel", "sync_batched_kernel")
+    out = {}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        (plan,) = getattr(K, name).plans
+        empty = 0
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    call()
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(trace))
+            kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
+                       if e.get("cat") == "kernel"
+                       and any(k in e.get("name", "") for k in names)]
+            if kernels:
+                break
+            empty += 1
+        args = [e.get("args", {}) for e in kernels]
+        out[name] = {
+            "plan": [[*plan.grid, 1], [plan.threads, 1, 1], plan.smem_bytes],
+            "kernels": len(kernels), "empty": empty,
+            "shown": [[a["grid"], a["block"], a.get("shared memory")]
+                      for a in args if "grid" in a and "block" in a]}
+    trace.unlink(missing_ok=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def leaselint_phase(libs: list) -> None:
+    """Phase 23: the port's leaselint on the card. ``run_all()`` is clean;
+    every distinct plan the lease entries launched in this process (phases
+    2-21, recorded beside their launch counts) passes the launch audit; a
+    profiled launch of each of the four entries (:func:`profiled_plans`, in
+    a process of its own) has its plan's grid, block and dynamic shared
+    memory; the SASS of each built lease library holds no floating-point
+    instruction."""
+    from repro_torch.analysis import staticcheck as lint
+    from repro_torch.lease_array import kernel as K
+
+    t_phase = time.perf_counter()
+    findings = lint.run_all()
+    check(findings == [], f"leaselint: {[str(f) for f in findings[:3]]}")
+    plans = K.launched_plans()
+    by_entry = {fn.__name__: len(fn.plans) for fn in K.ENTRIES}
+    check(all(by_entry.values()), f"plans recorded per entry: {by_entry}")
+    for plan in plans:
+        bad = lint.check_launch_plan(plan)
+        check(bad == [], f"a launched plan fails the audit: {[str(f) for f in bad[:2]]}")
+    run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--profiled-plans"],
+                         capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"--profiled-plans failed: {run.stderr[-2000:]}")
+    profiled = json.loads(run.stdout.strip().splitlines()[-1])
+    check(set(profiled) == {fn.__name__ for fn in K.ENTRIES}, f"profiled {sorted(profiled)}")
+    matched, empty = [], 0
+    for name, got in profiled.items():
+        empty += got["empty"]
+        check(got["kernels"] > 0, f"{name}: no lease kernel event in five profiler "
+              f"sessions of 20 launches each")
+        for shown in got["shown"]:
+            check(shown == got["plan"], f"{name}: profiled grid/block/shared {shown}, "
+                  f"plan {got['plan']}")
+        grid, block, smem = got["plan"]
+        matched.append(
+            f"{name} grid {grid[:2]} block {block[0]} shared {smem} B "
+            f"({len(got['shown'])} profiled launches)" if got["shown"] else
+            f"{name}: not measured ({got['kernels']} kernel events carry no grid "
+            f"and block)")
+    sass = []
+    for lib in libs:
+        text = library_sass(lib)
+        bad = lint.check_sass(text, lib.name)
+        check(bad == [], f"{lib.name}: {[str(f) for f in bad[:2]]}")
+        ops = lint.floating_instructions(text)
+        sass.append(f"{lib.name}: {len({k for k, _, _ in ops})} kernels with "
+                    f"{len(ops)} floating-unit instructions, all in the "
+                    f"integer-division idiom")
+    print(f"phase 23 leaselint: run_all clean (purity, launch, conventions, "
+          f"mutation); {len(plans)} distinct launched plans pass the launch audit "
+          f"({', '.join(f'{k} {v}' for k, v in by_entry.items())}); profiled in a "
+          f"process of its own: " + "; ".join(matched) + f" ({empty} profiler "
+          f"sessions recorded no kernel and were run again); SASS: " + "; ".join(sass)
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2352,6 +2619,8 @@ def main() -> int:
         by_name[name]["launches"] += n
     by_name["lease_window_delayed"]["launches"] += directory_phase(dev)
     print(f"phases 20-21 took {time.perf_counter() - t_new:.1f} s", flush=True)
+    services_phase()
+    leaselint_phase(libs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2361,4 +2630,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profiled_plans() if sys.argv[1:] == ["--profiled-plans"] else main())

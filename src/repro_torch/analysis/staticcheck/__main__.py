@@ -1,0 +1,7 @@
+"""``python -m repro_torch.analysis.staticcheck``: see :mod:`.cli`."""
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -56,8 +56,8 @@
 //   * delayed: blockIdx.y is the scenario, and a block holds cells of one
 //     scenario only, so the quiescence vote stays per block. The unbatched
 //     entry instantiates the kernel with kSingle, which compiles to the
-//     code it had before the batch axis existed. A block has min(128, N
-//     rounded up to 32) threads.
+//     code it had before the batch axis existed. The launch plan gives a
+//     block min(kBlock, N rounded up to 32) threads (see the launchers).
 //   * sync: its own kernel, sync_batched_kernel (the unbatched entry keeps
 //     sync_window_kernel as it was). A sweep's scenarios are small (the
 //     reference bench's: 32 cells x 16 ticks) and its work a few
@@ -825,6 +825,18 @@ __global__ void __launch_bounds__(32 * kBatchWarps)
 }
 
 // ------------------------------------------------------------- launchers
+// The geometry of a launch comes from the caller's launch plan
+// (kernel.LaunchPlan in the Python wrapper, the one description of it): the
+// launchers launch exactly that grid, block and shared memory, and refuse
+// (cudaErrorInvalidValue) a plan that disagrees with the layout compiled
+// here: the words a window stages a tick, kBlock, kBatchWarps and kSub, a
+// grid that does not cover the cells or the scenarios.
+struct Geometry {
+  dim3 grid;
+  int threads;
+  size_t bytes;
+};
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -832,21 +844,27 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Threads a block: kBlock, or N rounded up to a warp when that is less.
-inline int block_threads(int N) { return N < kBlock ? (N + 31) / 32 * 32 : kBlock; }
+// A one-cell-a-thread block (delayed_window_kernel, sync_window_kernel):
+// whole warps, at most kBlock threads, the grid covering N cells of each of
+// `batch` scenarios, and `words` staged a tick for tw ticks.
+bool cell_plan_ok(const Geometry& geo, const Params& p, int batch, size_t words) {
+  return geo.threads >= 32 && geo.threads <= kBlock && geo.threads % 32 == 0 &&
+         p.tw >= 1 && static_cast<long long>(geo.grid.x) * geo.threads >= p.N &&
+         static_cast<int>(geo.grid.y) == batch && geo.grid.z == 1 &&
+         geo.bytes == words * static_cast<size_t>(p.tw) * sizeof(int);
+}
 
 template <int A, bool EXT, bool CORRUPT, bool RESTART, int OUT>
 cudaError_t launch_delayed(const DelayedArgs& g, const Params& p, int batch,
-                           cudaStream_t stream) {
-  const size_t per_tick = 2 * A + p.P + p.P * A + (CORRUPT ? 2 * A : 0) +
-                          (RESTART ? 2 * A + 2 * p.P : 0);
-  const size_t bytes = per_tick * p.tw * sizeof(int);
+                           const Geometry& geo, cudaStream_t stream) {
+  // the shared-memory columns of delayed_window_kernel, a tick
+  const size_t words = 2 * A + p.P + p.P * A + (CORRUPT ? 2 * A : 0) +
+                       (RESTART ? 2 * A + 2 * p.P : 0);
+  if (!cell_plan_ok(geo, p, batch, words)) return cudaErrorInvalidValue;
   auto kernel = delayed_window_kernel<A, EXT, CORRUPT, RESTART, OUT>;
-  cudaError_t err = allow_smem(kernel, bytes);
+  cudaError_t err = allow_smem(kernel, geo.bytes);
   if (err != cudaSuccess) return err;
-  const int threads = block_threads(p.N);
-  const dim3 grid((p.N + threads - 1) / threads, batch);
-  kernel<<<grid, threads, bytes, stream>>>(g, p);
+  kernel<<<geo.grid, geo.threads, geo.bytes, stream>>>(g, p);
   return cudaGetLastError();
 }
 
@@ -854,44 +872,51 @@ cudaError_t launch_delayed(const DelayedArgs& g, const Params& p, int batch,
 // no code for them
 template <int A, int OUT>
 cudaError_t launch_delayed(const DelayedArgs& g, const Params& p, int batch,
-                           cudaStream_t stream) {
+                           const Geometry& geo, cudaStream_t stream) {
   const int variant = (g.ext != nullptr ? 1 : 0) |
                       (g.stale != nullptr ? 2 : 0) |
                       (g.arst != nullptr ? 4 : 0);
   switch (variant) {
-    case 0: return launch_delayed<A, false, false, false, OUT>(g, p, batch, stream);
-    case 1: return launch_delayed<A, true, false, false, OUT>(g, p, batch, stream);
-    case 2: return launch_delayed<A, false, true, false, OUT>(g, p, batch, stream);
-    case 3: return launch_delayed<A, true, true, false, OUT>(g, p, batch, stream);
-    case 4: return launch_delayed<A, false, false, true, OUT>(g, p, batch, stream);
-    case 5: return launch_delayed<A, true, false, true, OUT>(g, p, batch, stream);
-    case 6: return launch_delayed<A, false, true, true, OUT>(g, p, batch, stream);
-    default: return launch_delayed<A, true, true, true, OUT>(g, p, batch, stream);
+    case 0: return launch_delayed<A, false, false, false, OUT>(g, p, batch, geo, stream);
+    case 1: return launch_delayed<A, true, false, false, OUT>(g, p, batch, geo, stream);
+    case 2: return launch_delayed<A, false, true, false, OUT>(g, p, batch, geo, stream);
+    case 3: return launch_delayed<A, true, true, false, OUT>(g, p, batch, geo, stream);
+    case 4: return launch_delayed<A, false, false, true, OUT>(g, p, batch, geo, stream);
+    case 5: return launch_delayed<A, true, false, true, OUT>(g, p, batch, geo, stream);
+    case 6: return launch_delayed<A, false, true, true, OUT>(g, p, batch, geo, stream);
+    default: return launch_delayed<A, true, true, true, OUT>(g, p, batch, geo, stream);
   }
 }
 
 template <int A>
-cudaError_t launch_sync(const SyncArgs& g, const Params& p, cudaStream_t stream) {
-  const size_t bytes = (2 * A + p.P) * static_cast<size_t>(p.tw) * sizeof(int);
+cudaError_t launch_sync(const SyncArgs& g, const Params& p, const Geometry& geo,
+                        cudaStream_t stream) {
+  // the shared-memory columns of sync_window_kernel, a tick
+  const size_t words = 2 * A + p.P;
+  if (!cell_plan_ok(geo, p, 1, words)) return cudaErrorInvalidValue;
   auto kernel = sync_window_kernel<A>;
-  cudaError_t err = allow_smem(kernel, bytes);
+  cudaError_t err = allow_smem(kernel, geo.bytes);
   if (err != cudaSuccess) return err;
-  const int threads = block_threads(p.N);
-  const dim3 grid((p.N + threads - 1) / threads);
-  kernel<<<grid, threads, bytes, stream>>>(g, p);
+  kernel<<<geo.grid, geo.threads, geo.bytes, stream>>>(g, p);
   return cudaGetLastError();
 }
 
 template <int A, int OUT>
 cudaError_t launch_sync_batched(const SyncArgs& g, const Params& p, int batch,
-                                cudaStream_t stream) {
-  const size_t bytes = kBatchWarps * (2 * A + p.P) * static_cast<size_t>(kSub) * sizeof(int);
-  auto kernel = sync_batched_kernel<A, OUT>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
+                                const Geometry& geo, cudaStream_t stream) {
+  // kBatchWarps warps a block, each a 32-cell tile staging its own kSub
+  // ticks of these shared-memory columns; the grid covers the batch's tiles
+  const size_t words = 2 * A + p.P;
   const long long tiles = static_cast<long long>(batch) * ((p.N + 31) / 32);
-  const dim3 grid(static_cast<unsigned>((tiles + kBatchWarps - 1) / kBatchWarps));
-  kernel<<<grid, 32 * kBatchWarps, bytes, stream>>>(g, p, batch);
+  if (geo.threads != 32 * kBatchWarps || p.tw != kSub ||
+      static_cast<long long>(geo.grid.x) * kBatchWarps < tiles || geo.grid.y != 1 ||
+      geo.grid.z != 1 ||
+      geo.bytes != kBatchWarps * words * static_cast<size_t>(kSub) * sizeof(int))
+    return cudaErrorInvalidValue;
+  auto kernel = sync_batched_kernel<A, OUT>;
+  cudaError_t err = allow_smem(kernel, geo.bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<geo.grid, geo.threads, geo.bytes, stream>>>(g, p, batch);
   return cudaGetLastError();
 }
 
@@ -908,6 +933,14 @@ Params params_from(const int* ints) {
   p.guard_q4 = ints[9];
   p.skip_stable = ints[10];
   return p;
+}
+
+Geometry geometry_from(const int* ints) {
+  Geometry geo;
+  geo.grid = dim3(static_cast<unsigned>(ints[13]), static_cast<unsigned>(ints[14]));
+  geo.threads = ints[15];
+  geo.bytes = static_cast<size_t>(ints[16]);
+  return geo;
 }
 
 DelayedArgs delayed_args(const void* const* ptrs) {
@@ -972,16 +1005,20 @@ bool batch_args(Args& g, const void* const* summary, int batch,
 
 // C entry points (bound with ctypes). `ptrs` is a host array of device
 // pointers in the order documented in kernel.py; `ints` holds
-// (N, T, A, P, t0, tw, majority, lease_q4, round_q4, guard_q4, skip_stable),
-// A equal to this library's LEASE_ACCEPTORS. Each returns
-// cudaGetLastError() after its launch (0 = launched).
+// (N, T, A, P, t0, tw, majority, lease_q4, round_q4, guard_q4, skip_stable,
+// B, collect_summary, grid.x, grid.y, threads, shared bytes), A equal to
+// this library's LEASE_ACCEPTORS, B 1 and collect_summary 0 for the
+// unbatched entries, the last four the launch plan's. Each returns
+// cudaErrorInvalidValue for a plan it refuses, else cudaGetLastError()
+// after its launch (0 = launched).
 extern "C" int lease_window_delayed(const void* const* ptrs, const int* ints,
                                     void* stream) {
   const DelayedArgs g = delayed_args(ptrs);
   const Params p = params_from(ints);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ints[2] != kA) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_delayed<kA, kSingle>(g, p, 1, st));
+  if (ints[2] != kA || ints[11] != 1 || ints[12] != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_delayed<kA, kSingle>(g, p, 1, geometry_from(ints), st));
 }
 
 extern "C" int lease_window_sync(const void* const* ptrs, const int* ints,
@@ -989,16 +1026,16 @@ extern "C" int lease_window_sync(const void* const* ptrs, const int* ints,
   const SyncArgs g = sync_args(ptrs);
   const Params p = params_from(ints);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ints[2] != kA) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_sync<kA>(g, p, st));
+  if (ints[2] != kA || ints[11] != 1 || ints[12] != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_sync<kA>(g, p, geometry_from(ints), st));
 }
 
 // The batched entries: the same pointer layout with the 16 (delayed) or 4
 // (sync) state-out slots ignored, then max_count, owned, final_owner
 // ([B, N] each; read only in summary mode) at ptrs[48..50] (delayed) or
 // ptrs[15..17] (sync); the per-scenario planes and, unless summary, the
-// owner and count rows are [B, T, ...]. `ints` continues with
-// (B, collect_summary).
+// owner and count rows are [B, T, ...].
 extern "C" int lease_window_delayed_batched(const void* const* ptrs,
                                             const int* ints, void* stream) {
   DelayedArgs g = delayed_args(ptrs);
@@ -1006,9 +1043,10 @@ extern "C" int lease_window_delayed_batched(const void* const* ptrs,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[2] != kA || !batch_args(g, ptrs + 48, ints[11], ints[12]))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry geo = geometry_from(ints);
   return static_cast<int>(
-      ints[12] ? launch_delayed<kA, kSummary>(g, p, ints[11], st)
-               : launch_delayed<kA, kRows>(g, p, ints[11], st));
+      ints[12] ? launch_delayed<kA, kSummary>(g, p, ints[11], geo, st)
+               : launch_delayed<kA, kRows>(g, p, ints[11], geo, st));
 }
 
 extern "C" int lease_window_sync_batched(const void* const* ptrs,
@@ -1018,6 +1056,7 @@ extern "C" int lease_window_sync_batched(const void* const* ptrs,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[2] != kA || !batch_args(g, ptrs + 15, ints[11], ints[12]))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(ints[12] ? launch_sync_batched<kA, kSummary>(g, p, ints[11], st)
-                                   : launch_sync_batched<kA, kRows>(g, p, ints[11], st));
+  const Geometry geo = geometry_from(ints);
+  return static_cast<int>(ints[12] ? launch_sync_batched<kA, kSummary>(g, p, ints[11], geo, st)
+                                   : launch_sync_batched<kA, kRows>(g, p, ints[11], geo, st));
 }

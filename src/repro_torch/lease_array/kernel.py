@@ -27,10 +27,22 @@ final state, and either return the [B, T, N] owner/count rows
 planes (``collect="summary"``: max owner count, owned ticks, final owner;
 see :func:`window_summary`). Their plain versions (``*_batched_torch``) run
 the plain window loop scenario by scenario and reduce in torch.
+
+Every launch is described once, by a :class:`LaunchPlan` (grid, block,
+shared memory, staged planes, outputs) that the entry's plan function
+(``sync_launch_plan``, ``delayed_launch_plan``,
+``delayed_batched_launch_plan``, ``sync_batched_launch_plan``) works out
+from the launch's shapes and planes. The wrapper hands the plan's geometry
+to the C entry, which launches exactly it or refuses it, and keeps the plan
+in its ``plans`` set beside its ``launches`` count; the port's leaselint
+audits the same plans.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -52,6 +64,198 @@ MAX_BATCH = 65535
 #: the batched sync kernel's warps a block and ticks a warp stages at once
 #: (csrc/lease_window.cu kBatchWarps, kSub)
 SYNC_BATCH_WARPS, SYNC_BATCH_SUB = 4, 16
+#: most threads a block of the one-cell-a-thread kernels (csrc kBlock, their
+#: __launch_bounds__)
+BLOCK_THREADS = 128
+#: dynamic shared memory a block may take without the opt-in attribute
+SMEM_NO_OPTIN = 48 * 1024
+#: the index maps of the kernels, from (block, thread) to the cell they own:
+#: CELL_MAP, cell blockIdx.x * blockDim.x + threadIdx.x of scenario
+#: blockIdx.y (the delayed kernel, both entries, and the unbatched sync
+#: kernel); WARP_TILE_MAP, 32-cell tile blockIdx.x * kBatchWarps + warp of
+#: the B · ceil(N / 32) tiles, a scenario's tiles in a row (the batched sync
+#: kernel)
+CELL_MAP, WARP_TILE_MAP = "cell", "warp_tile"
+#: the optional plane groups a delayed launch may carry (the kernel's EXT,
+#: CORRUPT and RESTART template flags)
+VARIANTS = ("extends", "corrupt", "restart")
+
+
+class LaunchPlan(NamedTuple):
+    """The geometry of one launch of a lease kernel entry, worked out once
+    from the launch's shapes and the planes it carries.
+
+    The wrapper passes ``grid``, ``threads`` and ``smem_bytes`` to the C
+    entry, which launches exactly that geometry, or refuses it
+    (``cudaErrorInvalidValue``) when it disagrees with the kernel's
+    compile-time layout (its staging words, kBlock, kBatchWarps); the port's
+    leaselint (``repro_torch.analysis.staticcheck.launch``) audits the same
+    object (bounds, write races, coverage, shared memory, limits, plane
+    accounting). So there is no second description of the launch to drift
+    out of sync. ``staged`` lists the cell-independent planes one staging
+    area holds a tick, in the kernel's shared-memory order (the staged
+    planes of :func:`tick_planes`); a block holds ``stage_copies`` areas of
+    ``tw`` ticks. ``guards`` are the conditions under which a thread writes
+    nothing (the kernel tests them). ``collect`` is a batched entry's
+    collect mode, None for an unbatched one."""
+
+    entry: str
+    n_acceptors: int
+    n_proposers: int
+    n_cells: int
+    n_ticks: int
+    batch: int
+    variant: tuple[str, ...]
+    collect: str | None
+    grid: tuple[int, int]
+    threads: int
+    tw: int
+    staged: tuple[tuple[str, int], ...]
+    stage_copies: int
+    index_map: str
+    guards: tuple[str, ...]
+
+    @property
+    def stage_words(self) -> int:
+        """int32 words one staging area holds a tick."""
+        return sum(w for _, w in self.staged)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block."""
+        return 4 * self.stage_words * self.tw * self.stage_copies
+
+    @property
+    def smem_optin(self) -> bool:
+        """Whether the block needs the opt-in attribute (over 48 KiB)."""
+        return self.smem_bytes > SMEM_NO_OPTIN
+
+    @property
+    def n_windows(self) -> int:
+        """Windows of ``tw`` ticks a launch stages."""
+        return -(-self.n_ticks // self.tw)
+
+    @property
+    def out_shapes(self) -> tuple[tuple[int, ...], ...]:
+        """The shapes of the outputs, in the entry's pointer order: the
+        final state then the [T, N] owner and count rows of an unbatched
+        entry; the [B, T, N] rows or the three [B, N] summary planes of a
+        batched one."""
+        A, N, T, B = self.n_acceptors, self.n_cells, self.n_ticks, self.batch
+        if self.collect == "owners":
+            return ((B, T, N),) * 2
+        if self.collect == "summary":
+            return ((B, N),) * 3
+        state = [(A, N)] * 2 + [(1, N)] * 2
+        if self.entry == "lease_window_delayed":
+            state += [(A, N)] * 6 + [(1, N)] * 6
+        return (*state, (T, N), (T, N))
+
+
+@functools.lru_cache(maxsize=256)
+def tick_planes(A: int, N: int, P: int, *, delayed: bool,
+                variant: tuple = ()) -> tuple:
+    """The [*lead, T, *shape] planes an entry's input checks accept, as
+    (name, per-tick shape, staged): staged for a cell-independent plane a
+    window stages in shared memory, in the kernels' shared-memory order
+    (s_up, s_pclk, s_aclk, s_link, ...), else a row of one value a cell.
+    A launch plan's ``staged`` is the staged ones."""
+    planes = [("attempts", (N,), False), ("releases", (N,), False),
+              ("acc_up", (A,), True), ("pclk", (P,), True),
+              ("aclk", (A,), True)]
+    if delayed:
+        if "extends" in variant:
+            planes.append(("extends", (N,), False))
+        planes.append(("link", (P, A), True))
+        if "corrupt" in variant:
+            planes += [("stale", (A,), True), ("equiv", (A,), True)]
+        if "restart" in variant:
+            planes += [("acc_restart", (A,), True), ("acc_deaf", (A,), True),
+                       ("prop_restart", (P,), True), ("prop_rc", (P,), True)]
+    return tuple(planes)
+
+
+def _plan(entry, A, N, P, T, batch, variant, collect, *, delayed, threads,
+          grid_x, tw, copies, index_map, guards) -> LaunchPlan:
+    if bad := set(variant) - set(VARIANTS):
+        raise ValueError(f"unknown plane groups {sorted(bad)}; of {VARIANTS}")
+    variant = tuple(v for v in VARIANTS if v in variant)
+    staged = tuple((name, math.prod(shape)) for name, shape, on in tick_planes(
+        A, N, P, delayed=delayed, variant=variant) if on)
+    return LaunchPlan(
+        entry, A, P, N, T, batch, variant, collect,
+        (grid_x, batch if index_map == CELL_MAP else 1), threads, tw, staged,
+        copies, index_map, guards)
+
+
+def _cell_plan(entry, A, N, P, T, batch, window, delayed, variant, collect):
+    """A one-cell-a-thread launch: blocks of min(kBlock, N rounded up to a
+    warp) threads, ceil(N / threads) of them a scenario, a window of
+    min(window, T) ticks (at least 1)."""
+    threads = min(BLOCK_THREADS, max(32, -(-N // 32) * 32))
+    return _plan(entry, A, N, P, T, batch, variant, collect, delayed=delayed,
+                 threads=threads, grid_x=-(-N // threads),
+                 tw=max(1, min(int(window), T)), copies=1,
+                 index_map=CELL_MAP, guards=("n < N",))
+
+
+# The plan functions are memoized: one geometry gives one plan, so a launch
+# costs a cache lookup, and the wrappers' ``plans`` sets hold as many plans
+# as there were geometries.
+@functools.lru_cache(maxsize=256)
+def sync_launch_plan(n_acceptors: int, n_cells: int, n_proposers: int,
+                     n_ticks: int, *, window: int = 16) -> LaunchPlan:
+    """Launch geometry of :func:`lease_window_sync` (``sync_window_kernel``):
+    a thread a cell; a window stages acc_up, pclk and aclk; it writes the
+    final lease state ([A, N] x 2, [1, N] x 2) and the [T, N] owner and
+    count rows."""
+    return _cell_plan("lease_window_sync", n_acceptors, n_cells, n_proposers,
+                      n_ticks, 1, window, False, (), None)
+
+
+@functools.lru_cache(maxsize=256)
+def delayed_launch_plan(n_acceptors: int, n_cells: int, n_proposers: int,
+                        n_ticks: int, *, window: int = 16,
+                        variant: tuple = ()) -> LaunchPlan:
+    """Launch geometry of :func:`lease_window_delayed`
+    (``delayed_window_kernel`` with kSingle): as sync, and a window also
+    stages the [P, A] link matrices and, with ``"corrupt"`` or
+    ``"restart"`` in ``variant``, their columns (``"extends"`` is a per-cell
+    row, not staged); it writes the final lease and net state (8 [A, N]
+    columns, 8 [1, N] rows) and the [T, N] rows."""
+    return _cell_plan("lease_window_delayed", n_acceptors, n_cells,
+                      n_proposers, n_ticks, 1, window, True, variant, None)
+
+
+@functools.lru_cache(maxsize=256)
+def delayed_batched_launch_plan(n_acceptors: int, n_cells: int,
+                                n_proposers: int, n_ticks: int, batch: int,
+                                *, window: int = 16, variant: tuple = (),
+                                collect: str = "summary") -> LaunchPlan:
+    """Launch geometry of :func:`lease_window_delayed_batched`: the delayed
+    kernel's, with scenario blockIdx.y of ``batch``; it writes the [B, T, N]
+    rows or the three [B, N] summary planes."""
+    return _cell_plan("lease_window_delayed_batched", n_acceptors, n_cells,
+                      n_proposers, n_ticks, batch, window, True, variant,
+                      collect)
+
+
+@functools.lru_cache(maxsize=256)
+def sync_batched_launch_plan(n_acceptors: int, n_cells: int,
+                             n_proposers: int, n_ticks: int, batch: int,
+                             *, collect: str = "summary") -> LaunchPlan:
+    """Launch geometry of :func:`lease_window_sync_batched`
+    (``sync_batched_kernel``): a warp a 32-cell tile of one scenario,
+    SYNC_BATCH_WARPS tiles a block, ceil(B · ceil(N / 32) / warps) blocks;
+    each warp stages its own SYNC_BATCH_SUB ticks of acc_up, pclk and aclk
+    whatever the window (``tw`` is SYNC_BATCH_SUB)."""
+    tiles = batch * -(-n_cells // 32)
+    return _plan("lease_window_sync_batched", n_acceptors, n_cells,
+                 n_proposers, n_ticks, batch, (), collect, delayed=False,
+                 threads=32 * SYNC_BATCH_WARPS,
+                 grid_x=-(-tiles // SYNC_BATCH_WARPS), tw=SYNC_BATCH_SUB,
+                 copies=SYNC_BATCH_WARPS, index_map=WARP_TILE_MAP,
+                 guards=("tile < B * tiles", "n < N"))
 
 
 # ------------------------------------------------------------------ plain
@@ -281,29 +485,28 @@ def _check_batch(B: int, collect: str) -> None:
                          f"got {B}")
 
 
-def _batch_outputs(B: int, T: int, N: int, collect: str, dev):
-    """The batched kernels' outputs and their pointers: (owners, counts)
-    [B, T, N] rows, or the three [B, N] summary planes."""
-    if collect == "owners":
-        out = tuple(torch.empty((B, T, N), dtype=I32, device=dev)
-                    for _ in range(2))
+def _batch_outputs(plan: LaunchPlan, dev):
+    """The batched kernels' outputs (``plan.out_shapes``) and their
+    pointers: (owners, counts) [B, T, N] rows, or the three [B, N] summary
+    planes."""
+    out = tuple(torch.empty(s, dtype=I32, device=dev) for s in plan.out_shapes)
+    if plan.collect == "owners":
         return out, [*map(_ptr, out), 0, 0, 0]
-    out = tuple(torch.empty((B, N), dtype=I32, device=dev) for _ in range(3))
     return out, [0, 0, *map(_ptr, out)]
 
 
-def _check_geometry(A: int, P: int, tw: int, per_tick: int) -> None:
+def _check_geometry(plan: LaunchPlan) -> None:
+    A, P = plan.n_acceptors, plan.n_proposers
     if not 1 <= A <= MAX_ACCEPTORS:
         raise ValueError(
             f"the lease kernels take 1..{MAX_ACCEPTORS} acceptors; got {A}"
         )
     if P < 1:
         raise ValueError(f"need at least one proposer; got {P}")
-    smem = per_tick * tw * 4
-    if smem > MAX_SMEM:
+    if plan.smem_bytes > MAX_SMEM:
         raise ValueError(
-            f"a {tw}-tick window stages {smem} bytes of shared memory "
-            f"(max {MAX_SMEM}); use a smaller window"
+            f"a {plan.tw}-tick window stages {plan.smem_bytes} bytes of "
+            f"shared memory (max {MAX_SMEM}); use a smaller window"
         )
 
 
@@ -311,7 +514,11 @@ def _ptr(x) -> int:
     return 0 if x is None else x.data_ptr()
 
 
-def _launch(name: str, ptrs: list, ints: list, device) -> None:
+def _launch(plan: LaunchPlan, ptrs: list, ints: list, device) -> None:
+    """Calls the C entry ``plan.entry`` with the plan's geometry (grid.x,
+    grid.y, threads, shared bytes) after ``ints``."""
+    name = plan.entry
+    ints = [*ints, *plan.grid, plan.threads, plan.smem_bytes]
     lib = _build.load(ints[2])
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_int * len(ints))(*ints)
@@ -325,43 +532,57 @@ def _launch(name: str, ptrs: list, ints: list, device) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _check_sync_inputs(packed, cols, lead: tuple, P: int, window: int):
+def _record(fn, plan: LaunchPlan) -> None:
+    """Counts a launch of ``fn`` and keeps its plan: ``fn.plans`` holds the
+    distinct plans it launched since the process started (reset_launches
+    zeroes the counts only), for the launch audit."""
+    fn.launches += 1
+    fn.plans.add(plan)
+
+
+def _check_sync_inputs(packed, cols, lead: tuple, P: int, window: int,
+                       collect="summary"):
     """Checks a sync launch's state and [*lead, T, ...] planes (cols:
-    attempts, releases, acc_up, pclk, aclk). Returns (device, A, N, T, tw)."""
+    attempts, releases, acc_up, pclk, aclk) and plans it (the batched entry
+    where ``lead`` is (B,)). Returns (device, N, T, plan)."""
     dev = _cuda_device(packed.promised)
     A, N = packed.promised.shape
     T = cols[0].shape[len(lead)]
-    tw = max(1, min(int(window), T))
-    _check_geometry(A, P, tw, 2 * A + P)
+    plan = (sync_batched_launch_plan(A, N, P, T, lead[0], collect=collect)
+            if lead
+            else sync_launch_plan(A, N, P, T, window=window))
+    _check_geometry(plan)
     for name, x, shape in zip(
         PackedLeaseState._fields, packed, ((A, N), (A, N), (1, N), (1, N))
     ):
         _check(x, name, shape, dev)
-    for name, x, rows in zip(("attempts", "releases", "acc_up", "pclk", "aclk"),
-                             cols, (N, N, A, P, A)):
-        _check(x, name, (*lead, T, rows), dev)
-    return dev, A, N, T, tw
+    for (name, shape, _), x in zip(tick_planes(A, N, P, delayed=False), cols):
+        _check(x, name, (*lead, T, *shape), dev)
+    return dev, N, T, plan
 
 
 def _check_delayed_inputs(packed, net, cols, link, opt: dict, lead: tuple,
-                          P: int, window: int, ticked):
+                          P: int, window: int, ticked, collect="summary"):
     """Checks a delayed launch's state, net and [*lead, T, ...] planes
     (cols as for sync, then the link plane and the ``DELAYED_OPTIONAL``
-    planes in ``opt``), and fills the absent columns of a present group
-    (corruption, restart) with zeros, in place in ``opt``. Returns
-    (device, A, N, T, tw)."""
+    planes in ``opt``), fills the absent columns of a present group
+    (corruption, restart) with zeros, in place in ``opt``, and plans the
+    launch (the batched entry where ``lead`` is (B,)). Returns
+    (device, N, T, plan)."""
     dev = _cuda_device(packed.promised)
     A, N = packed.promised.shape
     T = cols[0].shape[len(lead)]
-    tw = max(1, min(int(window), T)) if T else 1
-    corrupt = opt["stale"] is not None or opt["equiv"] is not None
-    restart = any(opt[k] is not None
-                  for k in ("acc_restart", "acc_deaf", "prop_restart", "prop_rc"))
-    _check_geometry(
-        A, P, tw,
-        2 * A + P + P * A + (2 * A if corrupt else 0)
-        + (2 * A + 2 * P if restart else 0),
-    )
+    variant = tuple(v for v, present in zip(VARIANTS, (
+        opt["extends"] is not None,
+        opt["stale"] is not None or opt["equiv"] is not None,
+        any(opt[k] is not None
+            for k in ("acc_restart", "acc_deaf", "prop_restart", "prop_rc")),
+    )) if present)
+    plan = (delayed_batched_launch_plan(A, N, P, T, lead[0], window=window,
+                                        variant=variant, collect=collect)
+            if lead else
+            delayed_launch_plan(A, N, P, T, window=window, variant=variant))
+    _check_geometry(plan)
     for name, x, shape in zip(
         PackedLeaseState._fields, packed, ((A, N), (A, N), (1, N), (1, N))
     ):
@@ -369,29 +590,21 @@ def _check_delayed_inputs(packed, net, cols, link, opt: dict, lead: tuple,
     for name, x in zip(NetPlaneState._fields, net):
         _check(x, name, (A, N) if name in NetPlaneState._fields[:6] else (1, N),
                dev)
-    for name, x, rows in zip(("attempts", "releases", "acc_up", "pclk", "aclk"),
-                             cols, (N, N, A, P, A)):
-        _check(x, name, (*lead, T, rows), dev)
-    if opt["extends"] is not None:
-        _check(opt["extends"], "extends", (*lead, T, N), dev)
-    _check(link, "link", (*lead, T, P, A), dev)
-    groups = ((corrupt, (("stale", A), ("equiv", A))),
-              (restart, (("acc_restart", A), ("acc_deaf", A),
-                         ("prop_restart", P), ("prop_rc", P))))
-    for present, names in groups:
-        if present:  # the absent columns of a present group are 0
-            for name, rows in names:
-                opt[name] = (
-                    torch.zeros((*lead, T, rows), dtype=I32, device=dev)
-                    if opt[name] is None
-                    else _check(opt[name], name, (*lead, T, rows), dev))
+    given = dict(zip(("attempts", "releases", "acc_up", "pclk", "aclk"), cols),
+                 link=link, **opt)
+    for name, shape, _ in tick_planes(A, N, P, delayed=True, variant=variant):
+        if given[name] is None and name in opt:  # absent column of a present group
+            opt[name] = torch.zeros((*lead, T, *shape), dtype=I32,
+                                    device=dev)
+        else:
+            _check(given[name], name, (*lead, T, *shape), dev)
     if ticked is not None and (
         ticked.dtype != torch.int64 or ticked.device != dev
         or ticked.numel() != 1
     ):
         raise ValueError("ticked must be a one-element int64 tensor on the "
                          "state's device")
-    return dev, A, N, T, tw
+    return dev, N, T, plan
 
 
 def lease_window_sync(
@@ -412,7 +625,7 @@ def lease_window_sync(
     """Replay T synchronous ticks in ONE launch of the CUDA sync window
     kernel. Returns (packed', owners [T, N], counts [T, N])."""
     cols = (attempts, releases, acc_up, pclk, aclk)
-    dev, A, N, T, tw = _check_sync_inputs(packed, cols, (), n_proposers, window)
+    dev, N, T, plan = _check_sync_inputs(packed, cols, (), n_proposers, window)
     out = PackedLeaseState(*(torch.empty_like(x) for x in packed))
     owners = torch.empty((T, N), dtype=I32, device=dev)
     counts = torch.empty((T, N), dtype=I32, device=dev)
@@ -420,15 +633,15 @@ def lease_window_sync(
         return PackedLeaseState(*(x.clone() for x in packed)), owners, counts
     ptrs = [*map(_ptr, packed), *map(_ptr, out), *map(_ptr, cols),
             _ptr(owners), _ptr(counts)]
-    ints = [N, T, A, n_proposers, int(t0), tw, majority, lease_q4, 0,
-            lease_q4 if guard_q4 is None else guard_q4, 0]
+    ints = [N, T, plan.n_acceptors, n_proposers, int(t0), plan.tw, majority,
+            lease_q4, 0, lease_q4 if guard_q4 is None else guard_q4, 0, 1, 0]
     with torch.cuda.device(dev):
-        _launch("lease_window_sync", ptrs, ints, dev)
-    lease_window_sync.launches += 1
+        _launch(plan, ptrs, ints, dev)
+    _record(lease_window_sync, plan)
     return out, owners, counts
 
 
-lease_window_sync.launches = 0
+lease_window_sync.launches, lease_window_sync.plans = 0, set()
 
 
 def lease_window_delayed(
@@ -466,8 +679,8 @@ def lease_window_delayed(
     opt = dict(extends=extends, stale=stale, equiv=equiv,
                acc_restart=acc_restart, acc_deaf=acc_deaf,
                prop_restart=prop_restart, prop_rc=prop_rc)
-    dev, A, N, T, tw = _check_delayed_inputs(packed, net, cols, link, opt, (),
-                                             n_proposers, window, ticked)
+    dev, N, T, plan = _check_delayed_inputs(packed, net, cols, link, opt, (),
+                                            n_proposers, window, ticked)
     out_lease = PackedLeaseState(*(torch.empty_like(x) for x in packed))
     out_net = NetPlaneState(*(torch.empty_like(x) for x in net))
     owners = torch.empty((T, N), dtype=I32, device=dev)
@@ -483,15 +696,16 @@ def lease_window_delayed(
         *(_ptr(opt[k]) for k in DELAYED_OPTIONAL[1:]),
         _ptr(owners), _ptr(counts), _ptr(ticked),
     ]
-    ints = [N, T, A, n_proposers, int(t0), tw, majority, lease_q4, round_q4,
-            lease_q4 if guard_q4 is None else guard_q4, int(bool(skip_stable))]
+    ints = [N, T, plan.n_acceptors, n_proposers, int(t0), plan.tw, majority,
+            lease_q4, round_q4, lease_q4 if guard_q4 is None else guard_q4,
+            int(bool(skip_stable)), 1, 0]
     with torch.cuda.device(dev):
-        _launch("lease_window_delayed", ptrs, ints, dev)
-    lease_window_delayed.launches += 1
+        _launch(plan, ptrs, ints, dev)
+    _record(lease_window_delayed, plan)
     return out_lease, out_net, owners, counts
 
 
-lease_window_delayed.launches = 0
+lease_window_delayed.launches, lease_window_delayed.plans = 0, set()
 
 
 def lease_window_sync_batched(
@@ -518,25 +732,23 @@ def lease_window_sync_batched(
     B = attempts.shape[0]
     _check_batch(B, collect)
     cols = (attempts, releases, acc_up, pclk, aclk)
-    dev, A, N, T, tw = _check_sync_inputs(packed, cols, (B,), n_proposers,
-                                          window)
-    # the batched kernel stages SYNC_BATCH_SUB ticks a warp, whatever the window
-    _check_geometry(A, n_proposers, SYNC_BATCH_SUB,
-                    SYNC_BATCH_WARPS * (2 * A + n_proposers))
-    out, out_ptrs = _batch_outputs(B, T, N, collect, dev)
+    dev, N, T, plan = _check_sync_inputs(packed, cols, (B,), n_proposers,
+                                         window, collect)
+    out, out_ptrs = _batch_outputs(plan, dev)
     if N == 0 or T == 0:
         return out
     ptrs = [*map(_ptr, packed), 0, 0, 0, 0, *map(_ptr, cols), *out_ptrs]
-    ints = [N, T, A, n_proposers, int(t0), tw, majority, lease_q4, 0,
-            lease_q4 if guard_q4 is None else guard_q4, 0, B,
+    ints = [N, T, plan.n_acceptors, n_proposers, int(t0), plan.tw, majority,
+            lease_q4, 0, lease_q4 if guard_q4 is None else guard_q4, 0, B,
             int(collect == "summary")]
     with torch.cuda.device(dev):
-        _launch("lease_window_sync_batched", ptrs, ints, dev)
-    lease_window_sync_batched.launches += 1
+        _launch(plan, ptrs, ints, dev)
+    _record(lease_window_sync_batched, plan)
     return out
 
 
 lease_window_sync_batched.launches = 0
+lease_window_sync_batched.plans = set()
 
 
 def lease_window_delayed_batched(
@@ -578,9 +790,10 @@ def lease_window_delayed_batched(
     opt = dict(extends=extends, stale=stale, equiv=equiv,
                acc_restart=acc_restart, acc_deaf=acc_deaf,
                prop_restart=prop_restart, prop_rc=prop_rc)
-    dev, A, N, T, tw = _check_delayed_inputs(packed, net, cols, link, opt,
-                                             (B,), n_proposers, window, ticked)
-    out, out_ptrs = _batch_outputs(B, T, N, collect, dev)
+    dev, N, T, plan = _check_delayed_inputs(packed, net, cols, link, opt,
+                                            (B,), n_proposers, window, ticked,
+                                            collect)
+    out, out_ptrs = _batch_outputs(plan, dev)
     if N == 0 or T == 0:
         return out
     ptrs = [
@@ -590,20 +803,32 @@ def lease_window_delayed_batched(
         *(_ptr(opt[k]) for k in DELAYED_OPTIONAL[1:]),
         *out_ptrs[:2], _ptr(ticked), *out_ptrs[2:],
     ]
-    ints = [N, T, A, n_proposers, int(t0), tw, majority, lease_q4, round_q4,
-            lease_q4 if guard_q4 is None else guard_q4, int(bool(skip_stable)),
-            B, int(collect == "summary")]
+    ints = [N, T, plan.n_acceptors, n_proposers, int(t0), plan.tw, majority,
+            lease_q4, round_q4, lease_q4 if guard_q4 is None else guard_q4,
+            int(bool(skip_stable)), B, int(collect == "summary")]
     with torch.cuda.device(dev):
-        _launch("lease_window_delayed_batched", ptrs, ints, dev)
-    lease_window_delayed_batched.launches += 1
+        _launch(plan, ptrs, ints, dev)
+    _record(lease_window_delayed_batched, plan)
     return out
 
 
 lease_window_delayed_batched.launches = 0
+lease_window_delayed_batched.plans = set()
+
+
+#: the four kernel entries
+ENTRIES = (lease_window_delayed, lease_window_sync,
+           lease_window_delayed_batched, lease_window_sync_batched)
+
+
+def launched_plans() -> set:
+    """Every distinct plan the kernel entries launched in this process."""
+    return set().union(*(fn.plans for fn in ENTRIES))
 
 
 def reset_launches() -> None:
-    """Zero the launch counts of every kernel entry and plain version."""
+    """Zero the launch counts of every kernel entry and plain version (the
+    entries' ``plans`` stay)."""
     for fn in (lease_window_delayed, lease_window_sync,
                lease_window_delayed_torch, lease_window_sync_torch,
                lease_window_delayed_batched, lease_window_sync_batched,

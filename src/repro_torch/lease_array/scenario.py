@@ -39,6 +39,7 @@ __all__ = [
     "RESTART_PLANES",
     "EXTEND_PLANES",
     "register_plane",
+    "plane_table_md",
     "plane_digest",
     "Scenario",
     "TickInputs",
@@ -166,6 +167,29 @@ RESTART_PLANES = ("acc_restart", "prop_restart")
 #: the §6 owner-extension plane. All-default (-1 everywhere) is stripped
 #: from dispatch like the corruption/restart planes
 EXTEND_PLANES = ("extends",)
+
+
+def plane_table_md(planes: Optional[dict[str, PlaneSpec]] = None) -> str:
+    """Render the registry as the markdown plane table of
+    docs/scenario_api.md (between its ``plane-table`` markers), as the
+    reference's ``plane_table_md`` renders its own registry; the port's
+    leaselint (``repro_torch.analysis.staticcheck.conventions``) fails when
+    this table and the docs drift, or a plane has an empty ``doc``."""
+    specs = (PLANES if planes is None else planes).values()
+    rows = [
+        "| plane | per-tick shape | default | meaning |",
+        "|-------|----------------|---------|---------|",
+    ]
+    for spec in specs:
+        shape = "`[" + ", ".join(spec.dims) + "]`"
+        if spec.alts:
+            shape += " (or " + " / ".join(
+                "`[" + ", ".join(a) + "]`" for a in spec.alts
+            ) + ")"
+        rows.append(
+            f"| `{spec.name}` | {shape} | `{spec.default}` | {spec.doc} |"
+        )
+    return "\n".join(rows) + "\n"
 
 
 def plane_digest(planes: dict) -> str:

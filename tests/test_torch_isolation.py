@@ -41,7 +41,14 @@ def test_package_has_the_slice_modules():
                  "core.cell", "lease_array.directory", "lease_array.falsify",
                  "lease_array.falsify.search", "lease_array.falsify.mutate",
                  "lease_array.falsify.shrink", "lease_array.falsify.corpus",
-                 "lease_array.falsify.__main__", "cluster", "cluster.shards"):
+                 "lease_array.falsify.__main__", "cluster", "cluster.shards",
+                 "core.naive", "cluster.coordinator", "cluster.membership",
+                 "cluster.autoscale", "analysis", "analysis.staticcheck",
+                 "analysis.staticcheck.findings", "analysis.staticcheck.launch",
+                 "analysis.staticcheck.purity",
+                 "analysis.staticcheck.conventions",
+                 "analysis.staticcheck.fixtures", "analysis.staticcheck.cli",
+                 "analysis.staticcheck.__main__"):
         assert f"repro_torch.{name}" in MODULES
 
 
