@@ -5,8 +5,10 @@ flash-attention kernels (phases 8-12), rwkv6-3b prefill and serving
 through the WKV6 kernels (phases 13-17), the differential referee against
 the lease kernels (phase 18), the scenario sweep through the batched
 lease kernels (phase 19), the §4 falsifier (phase 20), the shard
-directory (phase 21), the cluster services (phase 22) and the port's
-leaselint (phase 23).
+directory (phase 21), the cluster services (phase 22), the port's
+leaselint (phase 23), and the MoE and hybrid families through the
+flash-attention kernels (phases 24-32: mixtral-8x22b at full width, its
+depth cut to 4 of 56 layers, and hymba-1.5b whole).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``); it exits nonzero
@@ -134,10 +136,34 @@ Phases (one line each):
      entries has its plan's grid, block and shared memory; the SASS of
      each lease library holds no floating-point instruction outside the
      integer-division idiom.
+ 24. both flash kernels at the slice's prefill shapes (mixtral: 1 x 8192,
+     48/8 heads of 128, window 4096; hymba: 4 x 2048, 25/5 heads of 64,
+     window 1024) against plain (5e-5 fp32, 2.5e-2 bf16), timed beside
+     the plain version and ``scaled_dot_product_attention`` with the
+     window as a mask, with their bounds;
+ 25. mixtral-8x22b at its published widths, 4 of 56 layers, random fp32
+     weights from a seed (41.7 GB): a 1 x 8192 fp32 prefill through the
+     3xTF32 kernel (4 launches) against the same prefill with plain
+     attention (blocked by query rows: the full score matrix does not fit
+     beside the weights), last logits and the emitted cache below 2e-4,
+     each layer's share of tokens routed alike printed;
+ 26. 16 greedy fp32 ``decode_step`` tokens after a prefill against
+     ``forward`` over all 8208 tokens, below 2e-4, at capacity factor
+     E / k (nothing drops; decode never drops, forward may);
+ 27. ``ServeEngine`` in bf16: 8 requests on 4 slots, 16 new tokens each;
+ 28. the bf16 prefill through the wgmma kernel (4 launches) against plain,
+     last logits below 5e-2, routes compared by layer; prefill and decode
+     step times and idle shares; one ``moe_dispatch``'s device time at
+     the prefill's shapes;
+ 29-32. the same for hymba-1.5b whole (32 layers), prefill 4 x 2048 (32
+     launches a prefill), the SSM state in the cache checked with K/V;
+     serving also checks that each request's tokens equal those it gets
+     served alone; one ``ssm_scan``'s device time at the prefill's shapes.
 The line before the last holds every kernel's launches on its main path
 (phases 3-6 and the phase-21 directory ticks for the unbatched delayed
-kernel; the phase-12 bf16 prefill for the wgmma flash kernel, the phase-9
-prefill and phase-11 serving for the fp32 3xTF32 one; the phase-17 bf16
+kernel; the phase-12, 28 and 32 bf16 prefills for the wgmma flash kernel,
+the phase-9, 25 and 29 prefills and phase-11 serving for the fp32 3xTF32
+one; the phase-17 bf16
 prefill for the tensor-core WKV6 kernel, the phase-14 prefill and
 phase-16 serving for the CUDA-core one; the phase-19 sweeps and the
 phase-20 shrinker probes for the batched lease kernels), time, plain
@@ -583,57 +609,83 @@ FLASH_CASES = [
 FLASH_TOL = {"float32": 5e-5, "bfloat16": 2.5e-2}  # test_kernels_flash.py:42
 
 
-def profile_call(fn):
-    """One call of ``fn`` under ``torch.profiler`` (after a warm-up call):
-    (wall ms, device busy ms, the three device kernels with the most time as
-    (name, ms)). Busy is the union of the device events' intervals; (0, [])
-    when the profiler sees no device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+#: runtime calls that put a kernel, a copy or a fill on the device
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+def profile_call(fn):
+    """One call of ``fn`` under ``torch.profiler``: (wall ms, device busy
+    ms, the three device kernels with the most time as (name, events, ms),
+    device events, runtime launch calls). Busy is the union of the device
+    events' intervals. Late in a long process a session leaves its first
+    ~30 device events unrecorded, so each session traces a warm-up call of
+    ``fn`` first and keeps only the second call's events. A session that
+    records no device event is taken again (the check fails after four);
+    the two counts are returned for the reader to compare (a launch call of
+    zero bytes puts nothing on the device)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            prof.step()
+        events = prof.events()
+        launches = sum(e.name in LAUNCH_CALLS for e in events
+                       if e.device_type == torch.autograd.DeviceType.CPU)
+        events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep")]
+        if events:
+            break
+    else:
+        check(False, f"four profiler sessions in a row recorded no device event "
+              f"({launches} runtime launch calls in the last)")
     busy, end, by_name = 0.0, float("-inf"), {}
     for e in sorted(events, key=lambda e: e.time_range.start):
         if e.time_range.end > end:
             busy += e.time_range.end - max(e.time_range.start, end)
             end = e.time_range.end
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    return wall, busy / 1e3, [(name[:60], us / 1e3) for name, us in top]
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:3]
+    return (wall, busy / 1e3, [(name[:60], n, us / 1e3) for name, (n, us) in top],
+            len(events), launches)
 
 
-def serve_requests(cfg, params):
+def serve_requests(cfg, params, prompts=None):
     """``ServeEngine`` with the defaults of ``launch/serve.py``: 8 requests
-    with prompts of 2-11 tokens from seed 0, 16 new tokens each, 4 slots,
-    max_len 128. Checks that all are served; returns (engine steps, tokens,
-    seconds)."""
+    with prompts of 2-11 tokens from seed 0 (or ``prompts``), 16 new tokens
+    each, 4 slots, max_len 128. Checks that all are served; returns (engine
+    steps, tokens, seconds, the served requests)."""
     import numpy as np
     import torch
 
     from repro_torch.train.serve import Request, ServeEngine
 
     eng = ServeEngine(cfg, params, slots=4, max_len=128)
-    rng = np.random.default_rng(0)
-    for rid in range(8):
-        plen = int(rng.integers(2, 12))
-        eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, plen)
-                           .astype(np.int32), max_new=16))
+    if prompts is None:
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(2, 12))).astype(np.int32)
+                   for _ in range(8)]
+    for rid, prompt in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new=16))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = eng.run_until_drained()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    check(len(done) == 8 and all(len(r.out) == 16 for r in done),
-          f"serving completed {len(done)} of 8 requests")
+    check(len(done) == len(prompts) and all(len(r.out) == 16 for r in done),
+          f"serving completed {len(done)} of {len(prompts)} requests")
     check(all(0 <= t < cfg.vocab_size for r in done for t in r.out), "token out of range")
-    return eng.steps, sum(len(r.out) for r in done), seconds
+    return eng.steps, sum(len(r.out) for r in done), seconds, done
 
 
 def report_steps(phase: int, params, batch, prefill, decode, cache) -> None:
@@ -650,12 +702,18 @@ def report_steps(phase: int, params, batch, prefill, decode, cache) -> None:
           f"{ms_prefill:.1f} ms ({b * s / ms_prefill * 1e3:.0f} tokens/s); "
           f"one decode_step at batch {b}, position {s}: {ms_decode:.2f} ms", flush=True)
     for name, fn in calls:
-        wall, busy, top = profile_call(fn)
-        seen = (f"device busy {busy:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
-                "most device time: " + ", ".join(f"{n} {ms:.2f} ms" for n, ms in top)
-                if busy else "the profiler saw no device activity (not measured)")
-        print(f"phase {phase} profile of one {name} (bf16): {wall:.1f} ms wall under the "
-              f"profiler, {seen}", flush=True)
+        print(f"phase {phase} profile of one {name} (bf16): {profiled(fn)}", flush=True)
+
+
+def profiled(fn) -> str:
+    """``profile_call(fn)`` as text: wall, device busy and idle shares, the
+    device events beside the runtime's launch calls, the kernels with the
+    most device time."""
+    wall, busy, top, n_events, launches = profile_call(fn)
+    return (f"{wall:.1f} ms wall under the profiler, device busy {busy:.2f} ms "
+            f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; {n_events} device events for "
+            f"{launches} runtime launch calls; most device time: "
+            + ", ".join(f"{name} x{n} {ms:.2f} ms" for name, n, ms in top))
 
 
 def rel_err(got, want) -> float:
@@ -665,30 +723,39 @@ def rel_err(got, want) -> float:
 
 
 class PlainAttention:
-    """Within this block the model's sequence attention runs the plain
-    version on the card (the yardstick of phase 9), not the kernel."""
+    """Within this block the model's sequence attention runs ``fn``, by
+    default the plain version ``attention_ref``, on the card (the yardstick
+    of phases 9, 12 and 25-32), not the kernel."""
+
+    def __init__(self, fn=None):
+        self.fn = fn
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import ops
         from repro_torch.kernels.flash_attention.ref import attention_ref
 
+        fn = self.fn or attention_ref
         self.ops, self.saved = ops, ops.flash_attention_bhsd
         ops.flash_attention_bhsd = (lambda q, k, v, *, causal, window:
-                                    attention_ref(q, k, v, causal=causal, window=window))
+                                    fn(q, k, v, causal=causal, window=window))
 
     def __exit__(self, *exc):
         self.ops.flash_attention_bhsd = self.saved
 
 
 def continue_cache(cfg, cache, new_len: int):
-    """A decode cache of ``new_len`` slots holding a prefill cache in its
-    first slots (slot_pos 0..S-1), the rest empty."""
+    """A decode cache of ``new_len`` slots holding a prefill cache's K/V ring
+    in its first slots, the rest empty, and its recurrent state (hymba's
+    ``ssm``) as it is."""
     from repro_torch.models import init_cache
 
     out = init_cache(cfg, cache["k"].shape[1], new_len, device=cache["k"].device)
     s = cache["k"].shape[2]
-    for name in ("k", "v", "slot_pos"):
-        out[name][:, :, :s] = cache[name]
+    for name, leaf in cache.items():
+        if name in ("k", "v", "slot_pos"):
+            out[name][:, :, :s] = leaf
+        else:
+            out[name].copy_(leaf)
     return out
 
 
@@ -819,7 +886,7 @@ def lm_slice(dev) -> list:
     # ----------------------------------------------- 11. serving in bf16
     t_phase = time.perf_counter()
     FK.reset_launches()
-    steps, n_tok, serve_s = serve_requests(cfg, params)
+    steps, n_tok, serve_s, _ = serve_requests(cfg, params)
     lm_launches = prefill_launches + FK.flash_attention_bhsd.launches_by_kernel[f32]
     check(lm_launches > 0, "the fp32 flash kernel was never launched on the main path")
     print(f"phase 11 serving {LM_ARCH} in {cfg.dtype}: 8 requests / {n_tok} tokens in "
@@ -1163,7 +1230,7 @@ def rwkv_slice(dev) -> list:
     # ----------------------------------------------- 16. serving in bf16
     t_phase = time.perf_counter()
     WK.reset_launches()
-    steps, n_tok, serve_s = serve_requests(cfg, params)
+    steps, n_tok, serve_s, _ = serve_requests(cfg, params)
     rwkv_launches = prefill_launches + WK.wkv6_bhsn.launches_by_kernel[f32]
     check(rwkv_launches > 0, f"{f32} was never launched on its main path")
     print(f"phase 16 serving {RWKV_ARCH} in {cfg.dtype}: 8 requests / {n_tok} tokens in "
@@ -2190,6 +2257,374 @@ def leaselint_phase(libs: list) -> None:
           + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+#: the MoE and hybrid slice (phases 24-32; configs/archs.py): mixtral-8x22b
+#: at its published widths with its depth cut from 56 to 4 layers (one layer
+#: is 2.504 B parameters, 10.02 GB in fp32; four and the embeddings are 41.7
+#: GB), prefill 1 x 8192 (past its 4096 window); hymba-1.5b whole, prefill
+#: 4 x 2048 (past its 1024 window). kimi-k2-1t-a32b does not fit one card
+#: (one layer's experts are 67.6 GB in fp32) and runs in the CPU tests only
+MOE_ARCH, MOE_LAYERS, MOE_BATCH, MOE_SEQ = "mixtral-8x22b", 4, 1, 8192
+HYBRID_ARCH, HYBRID_BATCH, HYBRID_SEQ = "hymba-1.5b", 4, 2048
+#: query rows a block of the blocked plain attention (the yardstick of
+#: phases 25 and 28, where the (48, 8192, 8192) scores do not fit beside
+#: mixtral's weights)
+PLAIN_BLOCK = 1024
+
+
+def attention_blocked(q, k, v, *, causal=True, window=None):
+    """``attention_ref``'s function (causal self-attention, Sq = Sk),
+    ``PLAIN_BLOCK`` query rows at a time over the keys those rows can reach:
+    a masked key adds exactly 0 to a row's softmax, so leaving it out changes
+    no term, and no (Sq, Sk) matrix is held."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
+
+    bhq, sq, dh = q.shape
+    if not causal or k.shape[1] != sq:
+        return attention_ref(q, k, v, causal=causal, window=window)
+    g = bhq // k.shape[0]
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, PLAIN_BLOCK):
+        q1 = min(q0 + PLAIN_BLOCK, sq)
+        k0 = 0 if window is None else max(0, q0 - window + 1)
+        kf, vf = (x[:, k0:q1].float().repeat_interleave(g, dim=0) for x in (k, v))
+        s = torch.einsum("hqd,hkd->hqk", q[:, q0:q1].float(), kf) / math.sqrt(dh)
+        q_pos = torch.arange(q0, q1, device=q.device)[:, None]
+        k_pos = torch.arange(k0, q1, device=q.device)[None, :]
+        mask = k_pos <= q_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        p = torch.softmax(torch.where(mask[None], s, NEG_INF), dim=-1)
+        out[:, q0:q1] = torch.einsum("hqk,hkd->hqd", p, vf).to(q.dtype)
+    return out
+
+
+class RouteRecorder:
+    """Within this block every ``moe.router_topk`` call's expert indices are
+    kept (``idx``, one (tokens, k) tensor a call: a call a layer in a
+    forward), with each token's gate margin, the k-th softmax gate less the
+    (k+1)-th (``margin``). Given ``follow`` (an earlier recorder), call i
+    routes as that recorder's call i did, its gates the softmax's at those
+    experts, renormalized: a yardstick run then differs from the run it
+    follows in its attention alone, where a near-tie would otherwise send a
+    token to another expert."""
+
+    def __init__(self, follow=None):
+        self.follow = follow
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.moe, self.saved, self.idx, self.margin = moe, moe.router_topk, [], []
+
+        def record(cfg, params, x):
+            gates, idx, aux = self.saved(cfg, params, x)
+            k = idx.shape[-1]
+            probs = torch.softmax(x.float() @ params["router"].float(), dim=-1)
+            top = probs.topk(k + 1, dim=-1).values
+            self.idx.append(idx.reshape(-1, k))
+            self.margin.append((top[..., k - 1] - top[..., k]).reshape(-1))
+            if self.follow is not None:
+                idx = self.follow.idx[len(self.idx) - 1].reshape(idx.shape)
+                gates = probs.gather(-1, idx)
+                gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            return gates, idx, aux
+
+        moe.router_topk = record
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_topk = self.saved
+
+
+#: phase 25: a route of the kernel run that the plain run's own top-k does
+#: not share must be a near-tie: gate margin below this (as in
+#: tests/test_torch_moe.py)
+FLIP_MARGIN = 1e-5
+
+
+def route_agreement(a: RouteRecorder, b: RouteRecorder):
+    """(each layer's share of tokens that ``a`` and ``b``'s own top-k send to
+    the same experts, the first layer where one differs or None, [(layer,
+    token, b's gate margin there)] for every token routed apart)."""
+    shares, flips = [], []
+    for layer, (x, y, m) in enumerate(zip(a.idx, b.idx, b.margin)):
+        apart = (x.sort(-1).values != y.sort(-1).values).any(-1)  # expert sets
+        shares.append(1.0 - float(apart.float().mean()))
+        flips += [(layer, int(t), float(m[t])) for t in apart.nonzero().flatten()]
+    return shares, (flips[0][0] if flips else None), flips
+
+
+def live_pairs(b, h, s, window):
+    """(q, k) pairs a causal windowed self-attention keeps: sum over the rows
+    of min(q + 1, window)."""
+    w = s if window is None else min(window, s)
+    return b * h * (w * (w + 1) // 2 + (s - w) * w)
+
+
+def flash_slice_shapes(dev) -> dict:
+    """Phase 24: both flash kernels at the MoE and hybrid slice's prefill
+    shapes (GQA groups 6 and 5, Dh 128 and 64, windows 4096 and 1024), held
+    against ``attention_ref`` and timed beside it and
+    ``scaled_dot_product_attention`` (the window as a boolean mask).
+    Returns each dtype's max |err|."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    t_phase = time.perf_counter()
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for arch, b, s in ((MOE_ARCH, MOE_BATCH, MOE_SEQ), (HYBRID_ARCH, HYBRID_BATCH, HYBRID_SEQ)):
+        cfg = get_config(arch)
+        hq, hkv, dh, w = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.sliding_window
+        rng = np.random.default_rng(24)
+        q0, k0, v0 = (torch.from_numpy(rng.standard_normal((b * h, s, dh), np.float32)).to(dev)
+                      for h in (hq, hkv, hkv))
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
+        pairs = live_pairs(b, hq, s, w)
+        flop = 4 * dh * pairs
+        for dtn in ("bfloat16", "float32"):
+            q, k, v = (x.to(dt[dtn]) for x in (q0, k0, v0))
+            err = float((FK.flash_attention_bhsd(q, k, v, causal=True, window=w).float()
+                         - attention_ref(q, k, v, causal=True, window=w).float()).abs().max())
+            check(err < FLASH_TOL[dtn], f"{arch} {dtn} flash: max |err| {err:.3e}")
+            worst[dtn] = max(worst[dtn], err)
+            q4, k4, v4 = (x.view(b, -1, s, dh) for x in (q, k, v))
+
+            def kernel():
+                return FK.flash_attention_bhsd(q, k, v, causal=True, window=w)
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, enable_gqa=True)
+
+
+            ms_lib1, ms_k1, ms_k2, ms_lib2 = (time_ms(f, 5) for f in (library, kernel, kernel,
+                                                                        library))
+            ms_plain = time_ms(lambda: attention_ref(q, k, v, causal=True, window=w), 2)
+            if dtn == "bfloat16":
+                ops_ms = flop / BF16_FLOP_PER_S * 1e3
+            else:
+                ops_ms = min(flop / FP32_FLOP_PER_S, 3 * flop / TF32_FLOP_PER_S) * 1e3
+            bytes_ms = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+                / HBM_BYTES_PER_S * 1e3
+            print(f"phase 24 flash at the {arch} prefill ({dtn}, BHq {b * hq}, BHkv {b * hkv}, "
+                  f"S {s}, Dh {dh}, window {w}, group {hq // hkv}; {pairs:.4e} live pairs): "
+                  f"kernel {(ms_k1 + ms_k2) / 2:.4f} ms ({ms_k1:.4f} / {ms_k2:.4f}), "
+                  f"scaled_dot_product_attention (mask) {(ms_lib1 + ms_lib2) / 2:.4f} ms "
+                  f"({ms_lib1:.4f} / {ms_lib2:.4f}), plain {ms_plain:.3f} ms; bound "
+                  f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes "
+                  f"{bytes_ms:.4f}); max |err| vs plain {err:.3e}", flush=True)
+            del q, k, v, q4, k4, v4
+        del q0, k0, v0, mask
+        torch.cuda.empty_cache()
+    print(f"phase 24 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return worst
+
+
+def family_slice(dev, arch: str, batch: int, seq: int, first: int, n_layers=None) -> dict:
+    """Four phases of one model at its published widths (``n_layers``: its
+    depth, where it is cut), random fp32 weights from seed 0:
+    ``first``: a ``batch`` x ``seq`` fp32 prefill through the 3xTF32 flash
+    kernel (a launch a layer) against the same prefill with the plain
+    attention, last logits and the emitted cache below 2e-4, each layer's
+    expert routes compared; ``first + 1``: 16 greedy decode steps after a
+    prefill against ``forward`` over all tokens, below 2e-4 (MoE at a
+    capacity that drops nothing: decode never drops, forward may);
+    ``first + 2``: ``ServeEngine`` in bf16, 8 requests on 4 slots (hymba:
+    each request's tokens equal to it served alone); ``first + 3``: the
+    bf16 prefill through the wgmma kernel against plain, last logits below
+    5e-2, then step times, idle shares and the device time of the MoE
+    dispatch or the SSM scan at the prefill's shapes. Returns each flash
+    entry's launches on this main path (the two kernel prefills)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import forward, init_model, moe, ssm, transformer
+    from repro_torch.models.schema import leaf_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sync = torch.cuda.synchronize
+    f32, bf16 = FK.KERNELS[torch.float32], FK.KERNELS[torch.bfloat16]
+    launches = {}
+    cfg = get_config(arch)
+    depth = "" if n_layers is None else f" of {cfg.n_layers}"
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    is_moe = cfg.moe is not None
+    plain = PlainAttention(attention_blocked)
+
+    def prefill_against_plain(c, batch_, phase, dtn, tol, cache_tol=None):
+        """The kernel prefill and the plain one on the same batch, last
+        logits within ``tol`` and (where given) the emitted cache within
+        ``cache_tol``; returns (the kernel's cache, its launches). With
+        ``cache_tol`` (fp32) the plain run follows the kernel run's expert
+        routes, and every token its own top-k routes elsewhere must be a
+        near-tie (``FLIP_MARGIN``); in bf16 each run routes by its own."""
+        prefill = make_prefill_step(c, logits_mode="last")
+        entry = FK.KERNELS[transformer.torch_dtype(c.dtype)]
+        FK.reset_launches()
+        with RouteRecorder() as rk:
+            logits, cache = prefill(params, batch_)
+        sync()
+        n = FK.flash_attention_bhsd.launches_by_kernel[entry]
+        check(n == FK.flash_attention_bhsd.launches == c.n_layers,
+              f"{arch} {dtn} prefill launched {entry} {n} times, not {c.n_layers}")
+        with plain, RouteRecorder(rk if cache_tol is not None else None) as rp:
+            logits_p, cache_p = prefill(params, batch_)
+        sync()
+        check(FK.flash_attention_bhsd.launches == n, "the plain prefill launched the kernel")
+        check(tuple(logits.shape) == (batch_["tokens"].shape[0], 1, c.vocab_size),
+              f"{arch} prefill logits shape")
+        check(bool(torch.isfinite(logits).all()), f"{arch} {dtn} prefill logits not finite")
+        err = rel_err(logits, logits_p)
+        err_cache = max(rel_err(cache[x], cache_p[x]) for x in cache if x != "slot_pos")
+        routes = ""
+        first_flip, flips = None, []
+        if is_moe:
+            shares, first_flip, flips = route_agreement(rk, rp)
+            routes = ("; expert routes kernel vs plain (the plain run's own top-k), share "
+                      "of tokens alike by layer: " + ", ".join(f"{x:.6f}" for x in shares)
+                      + f"; first layer with a flip: {first_flip}; flips (layer, token, "
+                      f"gate margin): {flips[:8]}"
+                      + (" (the plain run took the kernel run's routes)"
+                         if cache_tol is not None else ""))
+        print(f"phase {phase} {dtn} prefill {arch} {tuple(batch_['tokens'].shape)}: flash "
+              f"launches {n}; last logits vs plain attention rel err {err:.3e} (limit {tol}), "
+              f"emitted cache rel err {err_cache:.3e}{routes}", flush=True)
+        check(err < tol, f"{arch} {dtn} prefill logits kernel vs plain: rel err {err:.3e}, "
+              f"first layer with a flipped route {first_flip}")
+        check(cache_tol is None or err_cache < cache_tol, f"{arch} {dtn} prefill cache kernel "
+              f"vs plain: rel err {err_cache:.3e}, first layer with a flipped route {first_flip}")
+        check(cache_tol is None or all(m < FLIP_MARGIN for *_, m in flips),
+              f"{arch} {dtn}: a route flipped at a gate margin of {FLIP_MARGIN} or more: "
+              f"{flips}")
+        return cache, n
+
+    # --------------------------------- first: fp32 prefill, kernel vs plain
+    t_phase = time.perf_counter()
+    params = init_model(cfg, 0, device=dev)
+    n_params = sum(x.numel() for _, x in leaf_paths(params))
+    toks = torch.from_numpy(np.random.default_rng(first).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(dev)
+    sync()
+    t0 = time.perf_counter()
+    _, launches[f32] = prefill_against_plain(cfg32, {"tokens": toks}, first, "float32",
+                                             2e-4, 2e-4)
+    print(f"phase {first} {arch} ({n_params / 1e9:.3f} B params, fp32, {cfg.n_layers} layers"
+          f"{depth}) kernel and plain "
+          f"prefills {time.perf_counter() - t0:.1f} s; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ------------------------------------ first + 1: decode against forward
+    t_phase = time.perf_counter()
+    c = cfg32
+    if is_moe:  # capacity_factor E / k: a buffer holds a whole group
+        c = dataclasses.replace(cfg32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    logits, cache = make_prefill_step(c, logits_mode="last")(params, {"tokens": toks})
+    cache = continue_cache(c, cache, seq + LM_DECODE)
+    decode = make_decode_step(c)
+    tok = logits[:, -1].argmax(-1)
+    fed, dec = [], []
+    for i in range(LM_DECODE):
+        fed.append(tok)
+        lg, cache = decode(params, cache, tok[:, None], seq + i)
+        dec.append(lg[:, 0])
+        tok = lg[:, 0].argmax(-1)
+    del cache
+    full, _ = forward(c, params, {"tokens": torch.cat([toks, torch.stack(fed, 1)
+                                                       .to(toks.dtype)], 1)})
+    err = rel_err(torch.stack(dec, 1), full[:, seq:])
+    del full
+    print(f"phase {first + 1} continuation: {LM_DECODE} greedy fp32 decode_steps after the "
+          f"prefill equal forward over {seq + LM_DECODE} tokens, rel err {err:.3e}"
+          f"{' (capacity factor ' + str(c.moe.capacity_factor) + ')' if is_moe else ''}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(err < 2e-4, f"{arch} decode continuation vs forward: rel err {err:.3e}")
+
+    # --------------------------------------------- first + 2: bf16 serving
+    t_phase = time.perf_counter()
+    FK.reset_launches()
+    steps, n_tok, serve_s, served = serve_requests(cfg, params)
+    check(FK.flash_attention_bhsd.launches == 0, "serving launched the flash kernel")
+    alone = ""
+    if cfg.hybrid_parallel_ssm:  # each request alone in a 4-slot engine
+        t0 = time.perf_counter()
+        for req in served:
+            _, _, _, [solo] = serve_requests(cfg, params, [req.prompt])
+            check(solo.out == req.out, f"{arch} request {req.rid}: {req.out} served beside "
+                  f"others, {solo.out} alone")
+        alone = (f"; each request's tokens equal to it served alone "
+                 f"({time.perf_counter() - t0:.1f} s)")
+    print(f"phase {first + 2} serving {arch} in {cfg.dtype}: 8 requests / {n_tok} tokens in "
+          f"{steps} engine steps, {serve_s:.2f} s ({n_tok / serve_s:.1f} tokens/s){alone}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ------------------------- first + 3: bf16 prefill, kernel vs plain; times
+    t_phase = time.perf_counter()
+    batch_ = {"tokens": toks}
+    # bf16 keeps 8 mantissa bits (3.9e-3 a rounding) over a bf16 residual
+    # stream; a lost tile or mask shows far above 5e-2 (PERF.md §2)
+    cache_b, launches[bf16] = prefill_against_plain(cfg, batch_, first + 3, "bfloat16", 5e-2)
+    cache_b = continue_cache(cfg, cache_b, seq + LM_DECODE)
+    prefill = make_prefill_step(cfg, logits_mode="last")
+    report_steps(first + 3, params, batch_, prefill, make_decode_step(cfg), cache_b)
+    del cache_b
+    p0 = transformer.layer_params(params, 0, torch.bfloat16)
+    x = torch.randn(batch, seq, cfg.d_model, device=dev).to(torch.bfloat16)
+    if is_moe:
+        tg, cap = moe.group_and_capacity(cfg, batch * seq)
+        name = f"moe_dispatch (t {batch * seq}, groups of {tg}, capacity {cap})"
+
+        def part():
+            return moe.moe_dispatch(cfg, p0["moe"], x)
+    else:
+        di, st = cfg.ssm.d_inner, cfg.ssm.state_size
+        name = f"ssm_scan (B {batch}, S {seq}, d_inner {di}, state {st})"
+        xs = torch.randn(batch, seq, di, device=dev).to(torch.bfloat16)
+        s0 = torch.zeros(batch, di, st, device=dev)
+
+        def part():
+            return ssm.ssm_scan(p0["ssm"], xs, s0, cfg)
+    print(f"phase {first + 3} one {name} in bf16 at the prefill's shapes: {profiled(part)}",
+          flush=True)
+    del p0, x, params
+    torch.cuda.empty_cache()
+    print(f"phase {first + 3} took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def moe_hybrid_slice(dev) -> tuple:
+    """Phases 24-32: the flash kernels at the slice's shapes, then mixtral-8x22b
+    (phases 25-28) and hymba-1.5b (29-32). Returns (each dtype's max |err|
+    of phase 24, each flash entry's launches on the two models' main
+    paths)."""
+    t_slice = time.perf_counter()
+    worst = flash_slice_shapes(dev)
+    launches = family_slice(dev, MOE_ARCH, MOE_BATCH, MOE_SEQ, 25, n_layers=MOE_LAYERS)
+    for entry, n in family_slice(dev, HYBRID_ARCH, HYBRID_BATCH, HYBRID_SEQ, 29).items():
+        launches[entry] += n
+    print(f"phases 24-32 took {time.perf_counter() - t_slice:.1f} s", flush=True)
+    return worst, launches
+
+
 def main() -> int:
     import torch
 
@@ -2621,6 +3056,13 @@ def main() -> int:
     print(f"phases 20-21 took {time.perf_counter() - t_new:.1f} s", flush=True)
     services_phase()
     leaselint_phase(libs)
+    torch.cuda.empty_cache()
+    worst, launches = moe_hybrid_slice(dev)
+    for dtn, name in (("bfloat16", "flash_attention_bhsd"),
+                      ("float32", "flash_attention_bhsd_fp32")):
+        entry = flash_kernel.KERNELS[{"bfloat16": torch.bfloat16, "float32": torch.float32}[dtn]]
+        by_name[name]["launches"] += launches[entry]
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], worst[dtn])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Model assembly: schema, forward (prefill), decode step.
 
 The port of ``repro.models.transformer`` for dense GQA language models
-(internlm2, granite, qwen1.5, starcoder2 and the lm* example configs) and
-the attention-free family (rwkv6). The other families raise
-``NotImplementedError`` (``ROADMAP.md``, queue 1).
+(internlm2, granite, qwen1.5, starcoder2 and the lm* example configs), the
+attention-free family (rwkv6), mixture-of-experts models (mixtral, kimi-k2:
+``moe`` in place of the MLP) and the hybrid family (hymba: attention and a
+selective SSM side by side in every block). The encoder-decoder and
+frontend families raise ``NotImplementedError`` (``ROADMAP.md``, queue 1).
 
 Parameters are the nested dicts of ``schema.init_params`` with the
 reference's keys and stacked ``[L, ...]`` layer leaves, in fp32. Layers run
@@ -14,10 +16,11 @@ kernel, and rwkv6's sequence-mode recurrence through the WKV6 kernel;
 decode, against the cache, is plain PyTorch.
 
 Differences from the reference's API: ``forward`` returns
-``(logits, cache)`` (these families have no auxiliary loss), and
-``decode_step`` updates ``cache`` in place (the new token's K/V, or the
-recurrent ``wkv``/``tm_prev``/``cm_prev`` leaves) and returns that same dict
-(no copy of the cache per token).
+``(logits, cache)`` (the MoE load-balance loss, which only training reads,
+is ``moe.moe_dispatch``'s to return), and ``decode_step`` updates ``cache`` in
+place (the new token's K/V, the recurrent ``wkv``/``tm_prev``/``cm_prev``
+leaves, hymba's ``ssm`` state) and returns that same dict (no copy of the
+cache per token).
 """
 from __future__ import annotations
 
@@ -26,16 +29,17 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels.flash_attention.ops import flash_attention
-from . import rwkv6
+from . import rwkv6, ssm
 from .attention import attn_schema, out_project, qkv_project
 from .layers import apply_mlp, apply_norm, mlp_schema, norm_schema, sinusoidal_positions
+from .moe import moe_dispatch, moe_schema
 from .schema import P, Schema, init_params, stacked
 
 #: ModelConfig fields that select a family the port does not run yet
-UNPORTED = ("moe", "hybrid_parallel_ssm", "enc_dec", "frontend")
-#: decode-cache leaves that a step overwrites whole (rwkv6's recurrent state),
-#: unlike the K/V ring, where a step writes one slot
-RECURRENT = ("wkv", "tm_prev", "cm_prev")
+UNPORTED = ("enc_dec", "frontend")
+#: decode-cache leaves that a step overwrites whole (rwkv6's and hymba's
+#: recurrent state), unlike the K/V ring, where a step writes one slot
+RECURRENT = ("wkv", "tm_prev", "cm_prev", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -43,7 +47,8 @@ def check_family(cfg: ModelConfig) -> None:
     if found:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(found)} is not ported to repro_torch yet "
-            f"(the dense and attention-free families are; see ROADMAP.md, queue 1)"
+            f"(the dense, attention-free, MoE and hybrid families are; see "
+            f"ROADMAP.md, queue 1)"
         )
 
 
@@ -73,8 +78,15 @@ def block_schema(cfg: ModelConfig) -> Schema:
     check_family(cfg)
     if cfg.attention_free:
         return {**rwkv6.rwkv_schema(cfg), "norm1": norm_schema(cfg), "norm2": norm_schema(cfg)}
-    return {"norm1": norm_schema(cfg), "attn": attn_schema(cfg),
-            "norm2": norm_schema(cfg), "mlp": mlp_schema(cfg)}
+    s = {"norm1": norm_schema(cfg), "attn": attn_schema(cfg), "norm2": norm_schema(cfg)}
+    if cfg.moe is not None:
+        s["moe"] = moe_schema(cfg)
+    else:
+        s["mlp"] = mlp_schema(cfg)
+    if cfg.hybrid_parallel_ssm:
+        s["ssm"] = ssm.ssm_schema(cfg)
+        s["branch_scale"] = P((2,), (None,), init="ones")
+    return s
 
 
 def model_schema(cfg: ModelConfig) -> Schema:
@@ -109,8 +121,11 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
         return {"wkv": ((L, batch, h, n, n), torch.float32), "tm_prev": prev, "cm_prev": prev}
     sc = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     kv = ((L, batch, sc, cfg.n_kv_heads, cfg.head_dim), torch_dtype(cfg.dtype))
-    return {"k": kv, "v": kv,
+    spec = {"k": kv, "v": kv,
             "slot_pos": ((L, batch, sc), torch.int32)}  # per-sequence ring positions
+    if cfg.hybrid_parallel_ssm:
+        spec["ssm"] = ((L, batch, cfg.ssm.d_inner, cfg.ssm.state_size), torch.float32)
+    return spec
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> dict:
@@ -161,10 +176,23 @@ def _cache_attention(q, kc, vc, slot_pos, pos, window):
     return o.reshape(b, 1, hq, dh).to(q.dtype)
 
 
+def _ffn(cfg, p, h):
+    """Second half of a block: the MLP, or the MoE (its aux loss dropped)."""
+    if cfg.moe is not None:
+        return moe_dispatch(cfg, p["moe"], h)[0]
+    return apply_mlp(cfg, p["mlp"], h)
+
+
+def _mix(cfg, p, x, a, sy):
+    """hymba's parallel branches: x + (s0·attn + s1·ssm) / 2."""
+    scale = p["branch_scale"].to(x.dtype)
+    return x + 0.5 * (scale[0] * a + scale[1] * sy)
+
+
 def block_seq(cfg: ModelConfig, p, x, positions, *, causal=True, emit_cache=False):
     """One decoder block over a full sequence. Returns (x, this layer's cache
-    leaves or None): {"k", "v"} for attention, {"wkv", "tm_prev", "cm_prev"}
-    for rwkv6."""
+    leaves or None): {"k", "v"} for attention (and "ssm" for hymba),
+    {"wkv", "tm_prev", "cm_prev"} for rwkv6."""
     if cfg.attention_free:
         b = x.shape[0]
         h, n = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
@@ -178,9 +206,16 @@ def block_seq(cfg: ModelConfig, p, x, positions, *, causal=True, emit_cache=Fals
         return x + y, (emit if emit_cache else None)
     h = apply_norm(cfg, p["norm1"], x)
     a, (k, v) = _attn_seq(cfg, p["attn"], h, positions, causal=causal)
-    x = x + a
-    x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
-    return x, ({"k": k, "v": v} if emit_cache else None)
+    emit = {"k": k, "v": v}
+    if cfg.hybrid_parallel_ssm:
+        s0 = torch.zeros((x.shape[0], cfg.ssm.d_inner, cfg.ssm.state_size),
+                         dtype=torch.float32, device=x.device)
+        sy, emit["ssm"] = ssm.apply_ssm(cfg, p["ssm"], h, s0)
+        x = _mix(cfg, p, x, a, sy)
+    else:
+        x = x + a
+    x = x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
+    return x, (emit if emit_cache else None)
 
 
 def block_step(cfg: ModelConfig, p, x, pos, cache_l) -> torch.Tensor:
@@ -196,9 +231,15 @@ def block_step(cfg: ModelConfig, p, x, pos, cache_l) -> torch.Tensor:
             cache_l[name].copy_(new)
         return x + y
     h = apply_norm(cfg, p["norm1"], x)
-    x = x + _attn_step(cfg, p["attn"], h, pos, cache_l["k"], cache_l["v"],
-                       cache_l["slot_pos"], window=cfg.sliding_window)
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    a = _attn_step(cfg, p["attn"], h, pos, cache_l["k"], cache_l["v"],
+                   cache_l["slot_pos"], window=cfg.sliding_window)
+    if cfg.hybrid_parallel_ssm:
+        sy, state = ssm.apply_ssm_step(cfg, p["ssm"], h, cache_l["ssm"])
+        cache_l["ssm"].copy_(state)
+        x = _mix(cfg, p, x, a, sy)
+    else:
+        x = x + a
+    return x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
 
 
 # ---------------------------------------------------------------------------
@@ -244,8 +285,8 @@ def forward(cfg: ModelConfig, params, batch: dict, *, emit_cache: bool = False,
 
 def _assemble_cache(cfg: ModelConfig, emits: dict) -> dict:
     """Per-layer leaves stacked on a leading layer axis -> the decode cache
-    layout: rwkv6's recurrent state as it is; keys/values (L, B, S, Hkv, Dh)
-    with their ring positions."""
+    layout: rwkv6's and hymba's recurrent state as it is; keys/values
+    (L, B, S, Hkv, Dh) with their ring positions."""
     if cfg.attention_free:
         return emits
     k, v = emits["k"], emits["v"]
@@ -260,7 +301,7 @@ def _assemble_cache(cfg: ModelConfig, emits: dict) -> dict:
     else:
         slot_pos = torch.arange(sc, device=k.device)
     slot_pos = slot_pos.to(torch.int32).expand(L, b, sc).contiguous()
-    return {"k": k, "v": v, "slot_pos": slot_pos}
+    return {**emits, "k": k, "v": v, "slot_pos": slot_pos}
 
 
 def decode_step(cfg: ModelConfig, params, cache: dict, tokens, pos):

@@ -6,12 +6,21 @@ lane through ``decode_step``), every engine step decodes one token for all
 active slots, finished slots are freed immediately. The engine runs on the
 device its parameters live on.
 
-Recurrent state (rwkv6's ``wkv``/``tm_prev``/``cm_prev``) stays each
-request's own, unlike in the reference: ``decode_step`` runs every lane,
-and a lane that is not being fed would otherwise advance its state on a
-dummy token. The engine restores those lanes after each ``decode_step``
-and zeros a slot's state when it admits a request. A K/V cache needs
-neither: a dummy write lands where the lane's next real token writes.
+Recurrent state (rwkv6's ``wkv``/``tm_prev``/``cm_prev``, hymba's
+``ssm``) stays each request's own, unlike in the reference: ``decode_step``
+runs every lane, and a lane that is not being fed would otherwise advance
+its state on a dummy token. The engine restores those lanes after each
+``decode_step`` and zeros a slot's state when it admits a request. A K/V
+cache needs neither: a dummy write lands where the lane's next real token
+writes.
+
+MoE models route every lane's token through one dispatch, idle lanes'
+dummy tokens included, as the reference does. A token picks distinct
+experts, so a lane puts at most one row into an expert's buffer: while the
+slots are no more than the decode step's capacity (4 at the default 4 slots
+for mixtral-8x22b and kimi-k2-1t-a32b), nothing drops and a request's
+tokens are its own. With more slots than that, whether a token drops
+depends on its batch-mates' routes, in the port as in the reference.
 """
 from __future__ import annotations
 

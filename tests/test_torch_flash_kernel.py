@@ -69,6 +69,14 @@ BF16 = (
         (1, 2048, 2048, 16, 8, 128, True, None, "bfloat16"),  # prefill widths
     ]
 )
+# the MoE and hybrid slice's heads at lengths past their windows: hymba
+# (GQA group 5, Dh 64, window 1024) and mixtral (group 6, Dh 128, window
+# 4096), one kv head each, in both dtypes
+GQA_WINDOW = [
+    (1, 1100, 1100, 5, 1, 64, True, 1024, dt) for dt in ("float32", "bfloat16")
+] + [
+    (1, 4200, 4200, 6, 1, 128, True, 4096, dt) for dt in ("float32", "bfloat16")
+] + [(2, 1300, 1300, 10, 2, 64, True, 1024, "bfloat16")]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -292,7 +300,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES + RAGGED + BF16, ids=case_id)
+@pytest.mark.parametrize("case", CASES + RAGGED + BF16 + GQA_WINDOW, ids=case_id)
 def test_kernel_matches_plain(cuda_device, case):
     *_, causal, window, dt = case
     q, k, v = (torch.from_numpy(fold(a)).to(cuda_device, TORCH_DT[dt])

@@ -28,7 +28,8 @@ def test_package_has_the_slice_modules():
         assert f"repro_torch.lease_array.{name}" in MODULES
     for name in ("_nvcc", "device", "configs", "configs.base", "configs.archs",
                  "models", "models.schema", "models.layers", "models.attention",
-                 "models.transformer", "models.carry", "kernels",
+                 "models.transformer", "models.carry", "models.moe", "models.ssm",
+                 "kernels",
                  "kernels.flash_attention", "kernels.flash_attention.ref",
                  "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
                  "kernels.flash_attention._build", "models.rwkv6", "kernels.rwkv6",

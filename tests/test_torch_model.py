@@ -1,5 +1,6 @@
-"""The port's language models (the dense family and rwkv6) against
-``repro``'s, on the CPU.
+"""The port's language models (the dense family and rwkv6; the MoE and
+hybrid families in ``test_torch_moe.py`` and ``test_torch_hybrid.py``)
+against ``repro``'s, on the CPU.
 
 Weights are made by the reference's ``init_model`` and carried across with
 ``models.carry.params_from_reference``; tokens come from numpy. Everything
@@ -82,8 +83,7 @@ def test_dense_schemas_count_the_references_parameters(name):
         ref_transformer.model_schema(ref_configs.get_config(name)))
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x22b", "kimi-k2-1t-a32b", "hymba-1.5b",
-                                  "whisper-large-v3", "internvl2-2b"])
+@pytest.mark.parametrize("name", ["whisper-large-v3", "internvl2-2b"])
 def test_other_families_raise(name):
     cfg = configs.reduced(configs.get_config(name))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -135,3 +135,81 @@ def test_launcher_serves_rwkv_on_the_cpu(capsys):
                              "--slots", "2", "--max-new", "4", "--device", "cpu"])
     assert out["requests"] == 3 and out["tokens"] == 12
     assert "served 3 requests / 12 tokens" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------------ MoE, hybrid
+def family_weights(name, seed):
+    """A reduced fp32 config of both packages (vocab 128) and the port's
+    seeded init as numpy arrays for both engines, hymba's dt_bias and branch
+    scales drawn from numpy (its schema starts them at zeros and ones)."""
+    cfg = configs.reduced(configs.get_config(name), dtype="float32", vocab_size=128)
+    ref_cfg = ref_configs.reduced(ref_configs.get_config(name), dtype="float32",
+                                  vocab_size=128)
+    tree = jax.tree.map(lambda t: t.numpy(), init_model(cfg, seed, device="cpu"))
+    if cfg.hybrid_parallel_ssm:
+        rng = np.random.default_rng(seed)
+        layers = tree["layers"]
+        layers["ssm"]["dt_bias"] = rng.uniform(-2, 1, layers["ssm"]["dt_bias"].shape).astype(
+            np.float32)
+        layers["branch_scale"] = rng.uniform(0.5, 1.5, 2 * cfg.n_layers).reshape(
+            cfg.n_layers, 2).astype(np.float32)
+    return cfg, ref_cfg, tree, carry.params_from_reference(cfg, tree, device="cpu")
+
+
+def served_alone_by_the_reference(ref_cfg, tree, ps, max_new):
+    import warnings
+
+    out = {}
+    for rid, p in enumerate(ps):
+        with warnings.catch_warnings():  # repro's MoE dispatch warns (reference fault 4)
+            warnings.simplefilter("ignore", DeprecationWarning)
+            out[rid] = serve(RefServeEngine(ref_cfg, tree, slots=1, max_len=64), RefRequest,
+                             [p], max_new)[0][0]
+    return out
+
+
+def test_mixtral_requests_on_four_slots_equal_themselves_served_alone():
+    """Six requests on a 4-slot port engine (prompts admitted while other
+    lanes decode, slots reused) each get the greedy tokens the reference
+    engine gives them alone in one slot. Every lane routes through one
+    dispatch; with 4 slots the decode step's capacity is 4, so nothing
+    drops and no batch-mate changes a request's tokens."""
+    cfg, ref_cfg, tree, params = family_weights("mixtral-8x22b", seed=4)
+    rng = np.random.default_rng(5)
+    ps = [rng.integers(0, cfg.vocab_size, int(rng.integers(2, 8))).astype(np.int32)
+          for _ in range(6)]
+    got, _ = serve(ServeEngine(cfg, params, slots=4, max_len=64), Request, ps, 6)
+    assert sorted(got) == list(range(6))
+    assert got == served_alone_by_the_reference(ref_cfg, tree, ps, 6)
+    assert len({tuple(t) for t in got.values()}) > 1  # the requests' tokens differ
+
+
+def test_hymba_requests_keep_their_own_state():
+    """Six requests on a 4-slot port engine each get the greedy tokens the
+    reference engine gives them alone in one slot: no lane's SSM state
+    moves while another lane is fed, and a slot starts each request from
+    zero state. The reference's own 4-slot engine leaks both ways
+    (reference fault 3): some request's tokens there differ from alone."""
+    import warnings
+
+    cfg, ref_cfg, tree, params = family_weights("hymba-1.5b", seed=6)
+    rng = np.random.default_rng(7)
+    ps = [rng.integers(0, cfg.vocab_size, int(rng.integers(4, 9))).astype(np.int32)
+          for _ in range(6)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        leaky, _ = serve(RefServeEngine(ref_cfg, tree, slots=4, max_len=64), RefRequest, ps, 8)
+    alone = served_alone_by_the_reference(ref_cfg, tree, ps, 8)
+    got, _ = serve(ServeEngine(cfg, params, slots=4, max_len=64), Request, ps, 8)
+    assert sorted(got) == list(range(6))
+    assert got == alone
+    assert leaky != alone
+    assert len({tuple(t) for t in got.values()}) > 1
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "kimi-k2-1t-a32b", "hymba-1.5b"])
+def test_launcher_serves_moe_and_hybrid_on_the_cpu(capsys, name):
+    out = launch_serve.main(["--arch", name, "--reduced", "--requests", "3",
+                             "--slots", "2", "--max-new", "4", "--device", "cpu"])
+    assert out["requests"] == 3 and out["tokens"] == 12
+    assert "served 3 requests / 12 tokens" in capsys.readouterr().out
