@@ -8,6 +8,10 @@ from ..models import transformer
 
 
 def make_prefill_step(cfg: ModelConfig, *, logits_mode: str = "all"):
+    """(params, batch) -> (last logits, cache); ``batch`` as ``forward``
+    takes it (tokens, and whisper's ``frames`` or internvl2's
+    ``patch_embeds``), passed through unchanged."""
+
     def prefill_step(params, batch):
         logits, cache = transformer.forward(
             cfg, params, batch, emit_cache=True, logits_mode=logits_mode

@@ -2,8 +2,10 @@
 
 ``attention_full`` (score matrix) and ``attention_chunked`` (online softmax
 over KV chunks) are the port of ``repro.models.attention``: plain PyTorch,
-kept for the tests and for cross-attention. The model's sequence path calls
-the flash kernel instead (``transformer._attn_seq``).
+kept for the tests and for decode's cross-attention against the cached
+encoder K/V. The model's sequence path, prefill's cross-attention
+included, calls the flash kernel instead (``transformer._attn_seq``,
+``transformer._cross``).
 """
 from __future__ import annotations
 
@@ -42,13 +44,16 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * dh)).unflatten(-1, (h, dh))
 
 
+def project(cfg: ModelConfig, params, x: torch.Tensor, name: str) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, H, Dh) through ``w{name}`` (and ``b{name}``
+    under ``qkv_bias``), ``name`` one of q, k, v; no RoPE."""
+    y = _heads(x, params["w" + name])
+    return y + params["b" + name] if cfg.qkv_bias else y
+
+
 def qkv_project(cfg: ModelConfig, params, x: torch.Tensor, positions: Optional[torch.Tensor]):
     """x: (B, S, d) -> q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh); RoPE applied if configured."""
-    q = _heads(x, params["wq"])
-    k = _heads(x, params["wk"])
-    v = _heads(x, params["wv"])
-    if cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q, k, v = (project(cfg, params, x, name) for name in "qkv")
     if cfg.use_rope and positions is not None:
         inv = rope_freqs(cfg, x.device)
         q = apply_rope(q, positions, inv)

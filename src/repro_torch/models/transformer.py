@@ -1,26 +1,33 @@
 """Model assembly: schema, forward (prefill), decode step.
 
-The port of ``repro.models.transformer`` for dense GQA language models
-(internlm2, granite, qwen1.5, starcoder2 and the lm* example configs), the
-attention-free family (rwkv6), mixture-of-experts models (mixtral, kimi-k2:
-``moe`` in place of the MLP) and the hybrid family (hymba: attention and a
-selective SSM side by side in every block). The encoder-decoder and
-frontend families raise ``NotImplementedError`` (``ROADMAP.md``, queue 1).
+The port of ``repro.models.transformer``, for every family of the
+registry: dense GQA language models (internlm2, granite, qwen1.5, starcoder2
+and the lm* example configs), the attention-free family (rwkv6),
+mixture-of-experts models (mixtral, kimi-k2: ``moe`` in place of the MLP),
+the hybrid family (hymba: attention and a selective SSM side by side in
+every block), the encoder-decoder (whisper: a non-causal encoder over
+``batch["frames"]``, and decoder blocks with cross-attention to its output)
+and the vision frontend (internvl2: ``batch["patch_embeds"]`` in front of
+the text). The modality frontends themselves are stubs, as in the
+reference: frames and patches come in as embeddings (``frontends.py``).
 
 Parameters are the nested dicts of ``schema.init_params`` with the
 reference's keys and stacked ``[L, ...]`` layer leaves, in fp32. Layers run
 as a Python loop; each layer's master weights are cast to ``cfg.dtype`` as
 it runs, as ``repro``'s ``cast_tree`` does inside its layer scan.
-Sequence-mode attention (``forward``, prefill) goes through the flash
-kernel, and rwkv6's sequence-mode recurrence through the WKV6 kernel;
-decode, against the cache, is plain PyTorch.
+Sequence-mode attention (``forward``, prefill: self-attention, the
+encoder's and the cross-attention) goes through the flash kernel, and
+rwkv6's sequence-mode recurrence through the WKV6 kernel; decode, against
+the cache, is plain PyTorch.
 
 Differences from the reference's API: ``forward`` returns
 ``(logits, cache)`` (the MoE load-balance loss, which only training reads,
 is ``moe.moe_dispatch``'s to return), and ``decode_step`` updates ``cache`` in
 place (the new token's K/V, the recurrent ``wkv``/``tm_prev``/``cm_prev``
 leaves, hymba's ``ssm`` state) and returns that same dict (no copy of the
-cache per token).
+cache per token). whisper's decoder computes each layer's cross K/V from
+the encoder output inside the layer loop, not stacked before it as the
+reference does (the same values).
 """
 from __future__ import annotations
 
@@ -30,26 +37,14 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels.flash_attention.ops import flash_attention
 from . import rwkv6, ssm
-from .attention import attn_schema, out_project, qkv_project
+from .attention import attention_full, attn_schema, out_project, project, qkv_project
 from .layers import apply_mlp, apply_norm, mlp_schema, norm_schema, sinusoidal_positions
 from .moe import moe_dispatch, moe_schema
 from .schema import P, Schema, init_params, stacked
 
-#: ModelConfig fields that select a family the port does not run yet
-UNPORTED = ("enc_dec", "frontend")
 #: decode-cache leaves that a step overwrites whole (rwkv6's and hymba's
 #: recurrent state), unlike the K/V ring, where a step writes one slot
 RECURRENT = ("wkv", "tm_prev", "cm_prev", "ssm")
-
-
-def check_family(cfg: ModelConfig) -> None:
-    found = [name for name in UNPORTED if getattr(cfg, name)]
-    if found:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(found)} is not ported to repro_torch yet "
-            f"(the dense, attention-free, MoE and hybrid families are; see "
-            f"ROADMAP.md, queue 1)"
-        )
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -67,25 +62,31 @@ def cast_tree(tree: dict, dtype: torch.dtype) -> dict:
 
 
 def layer_params(params: dict, layer: int, dtype: torch.dtype) -> dict:
-    """Layer ``layer`` of the stacked ``params["layers"]``, cast to dtype."""
+    """Layer ``layer`` of the stacked ``params["layers"]`` (or of another
+    stack of layers, such as ``params["encoder"]``), cast to dtype."""
     return cast_tree(_map_tree(params["layers"], lambda a: a[layer]), dtype)
 
 
 # ---------------------------------------------------------------------------
 # Schema
 # ---------------------------------------------------------------------------
-def block_schema(cfg: ModelConfig) -> Schema:
-    check_family(cfg)
+def block_schema(cfg: ModelConfig, *, encoder: bool = False,
+                 decoder_cross: bool = False) -> Schema:
+    """One block's leaves. Encoder blocks take the MLP and no SSM; decoder
+    blocks of an encoder-decoder add ``norm_c`` and ``cross``."""
     if cfg.attention_free:
         return {**rwkv6.rwkv_schema(cfg), "norm1": norm_schema(cfg), "norm2": norm_schema(cfg)}
     s = {"norm1": norm_schema(cfg), "attn": attn_schema(cfg), "norm2": norm_schema(cfg)}
-    if cfg.moe is not None:
+    if cfg.moe is not None and not encoder:
         s["moe"] = moe_schema(cfg)
     else:
         s["mlp"] = mlp_schema(cfg)
-    if cfg.hybrid_parallel_ssm:
+    if cfg.hybrid_parallel_ssm and not encoder:
         s["ssm"] = ssm.ssm_schema(cfg)
         s["branch_scale"] = P((2,), (None,), init="ones")
+    if decoder_cross:
+        s["norm_c"] = norm_schema(cfg)
+        s["cross"] = attn_schema(cfg)
     return s
 
 
@@ -94,10 +95,15 @@ def model_schema(cfg: ModelConfig) -> Schema:
     s: Schema = {
         "embed": P((v, d), ("vocab", "embed"), scale=0.02),
         "final_norm": norm_schema(cfg),
-        "layers": stacked(block_schema(cfg), cfg.n_layers),
+        "layers": stacked(block_schema(cfg, decoder_cross=cfg.enc_dec), cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         s["unembed"] = P((d, v), ("embed", "vocab"))
+    if cfg.enc_dec:
+        s["encoder"] = {
+            "layers": stacked(block_schema(cfg, encoder=True), cfg.n_encoder_layers),
+            "final_norm": norm_schema(cfg),
+        }
     return s
 
 
@@ -112,8 +118,8 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
 # Cache
 # ---------------------------------------------------------------------------
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """Shapes/dtypes of the decode cache (leading ``layers`` axis on leaves)."""
-    check_family(cfg)
+    """Shapes/dtypes of the decode cache (leading ``layers`` axis on leaves):
+    the K/V ring, and whisper's cross K/V over the ``encoder_seq`` frames."""
     L = cfg.n_layers
     if cfg.attention_free:
         h, n = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
@@ -125,6 +131,9 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
             "slot_pos": ((L, batch, sc), torch.int32)}  # per-sequence ring positions
     if cfg.hybrid_parallel_ssm:
         spec["ssm"] = ((L, batch, cfg.ssm.d_inner, cfg.ssm.state_size), torch.float32)
+    if cfg.enc_dec:
+        spec["ck"] = spec["cv"] = (
+            (L, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim), torch_dtype(cfg.dtype))
     return spec
 
 
@@ -143,6 +152,19 @@ def _attn_seq(cfg, p, h, positions, *, causal=True):
     q, k, v = qkv_project(cfg, p, h, positions if cfg.use_rope else None)
     o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     return out_project(cfg, p, o), (k, v)
+
+
+def _cross_kv(cfg, p, enc_out):
+    """The encoder output's keys and values for one decoder layer's
+    cross-attention: (B, S_enc, Hkv, Dh) each."""
+    return project(cfg, p, enc_out, "k"), project(cfg, p, enc_out, "v")
+
+
+def _cross(cfg, p, x, ke, ve, attend):
+    """x + cross-attention of norm_c(x) over (ke, ve) by ``attend``: every
+    query sees every frame (no causal mask, no window)."""
+    qc = project(cfg, p["cross"], apply_norm(cfg, p["norm_c"], x), "q")
+    return x + out_project(cfg, p["cross"], attend(qc, ke, ve, causal=False, window=None))
 
 
 def _attn_step(cfg, p, h, pos, kc, vc, slot_pos, *, window):
@@ -189,10 +211,13 @@ def _mix(cfg, p, x, a, sy):
     return x + 0.5 * (scale[0] * a + scale[1] * sy)
 
 
-def block_seq(cfg: ModelConfig, p, x, positions, *, causal=True, emit_cache=False):
-    """One decoder block over a full sequence. Returns (x, this layer's cache
-    leaves or None): {"k", "v"} for attention (and "ssm" for hymba),
-    {"wkv", "tm_prev", "cm_prev"} for rwkv6."""
+def block_seq(cfg: ModelConfig, p, x, positions, *, causal=True, emit_cache=False,
+              enc_out=None):
+    """One block over a full sequence (an encoder block with
+    ``causal=False``). Returns (x, this layer's cache leaves or None):
+    {"k", "v"} for attention (and "ssm" for hymba, "ck", "cv" for a
+    decoder block given ``enc_out``), {"wkv", "tm_prev", "cm_prev"} for
+    rwkv6."""
     if cfg.attention_free:
         b = x.shape[0]
         h, n = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
@@ -214,6 +239,9 @@ def block_seq(cfg: ModelConfig, p, x, positions, *, causal=True, emit_cache=Fals
         x = _mix(cfg, p, x, a, sy)
     else:
         x = x + a
+    if enc_out is not None:  # whisper's decoder: cross-attention to the encoder
+        emit["ck"], emit["cv"] = _cross_kv(cfg, p["cross"], enc_out)
+        x = _cross(cfg, p, x, emit["ck"], emit["cv"], flash_attention)
     x = x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
     return x, (emit if emit_cache else None)
 
@@ -239,7 +267,26 @@ def block_step(cfg: ModelConfig, p, x, pos, cache_l) -> torch.Tensor:
         x = _mix(cfg, p, x, a, sy)
     else:
         x = x + a
+    if cfg.enc_dec:
+        x = _cross(cfg, p, x, cache_l["ck"], cache_l["cv"], attention_full)
     return x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
+
+
+# ---------------------------------------------------------------------------
+# Encoder (whisper)
+# ---------------------------------------------------------------------------
+def run_encoder(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, S_enc, d) in the compute dtype -> the encoder output: the
+    frames plus sinusoidal positions, the encoder blocks with non-causal
+    self-attention (through the flash kernel), the encoder's final norm."""
+    dtype = torch_dtype(cfg.dtype)
+    enc = params["encoder"]
+    h = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                      device=frames.device).to(frames.dtype)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for layer in range(cfg.n_encoder_layers):
+        h, _ = block_seq(cfg, layer_params(enc, layer, dtype), h, positions, causal=False)
+    return apply_norm(cfg, enc["final_norm"], h)
 
 
 # ---------------------------------------------------------------------------
@@ -256,21 +303,30 @@ def _unembed(cfg, params, h):
 
 def forward(cfg: ModelConfig, params, batch: dict, *, emit_cache: bool = False,
             logits_mode: str = "all"):
-    """``batch["tokens"]`` (B, S) -> (logits (B, S or 1, V), cache or None).
+    """``batch`` -> (logits (B, S or 1, V), cache or None). Its keys by
+    family (``frontends.input_specs``):
+
+    LM:     tokens (B, S)
+    vision: tokens (B, S_text) + patch_embeds (B, P, d), S = P + S_text
+    audio:  tokens (B, S) + frames (B, S_enc, d)
 
     ``logits_mode="last"`` unembeds only the final position (prefill needs
     only the next-token distribution).
     """
-    check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
+    enc_out = None
     h = _embed_tokens(cfg, params, batch["tokens"])
-    if not cfg.use_rope:
+    if cfg.enc_dec:
+        enc_out = run_encoder(cfg, params, batch["frames"].to(dtype))
+    elif cfg.frontend == "vision":
+        h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
+    if not cfg.use_rope:  # whisper's decoder too: positions added once
         h = h + sinusoidal_positions(h.shape[1], cfg.d_model, device=h.device).to(h.dtype)
     positions = torch.arange(h.shape[1], device=h.device)
     emits = []
     for layer in range(cfg.n_layers):
         h, emit = block_seq(cfg, layer_params(params, layer, dtype), h, positions,
-                            causal=True, emit_cache=emit_cache)
+                            causal=True, emit_cache=emit_cache, enc_out=enc_out)
         emits.append(emit)
     h = apply_norm(cfg, params["final_norm"], h)
     if logits_mode == "last":
@@ -285,8 +341,9 @@ def forward(cfg: ModelConfig, params, batch: dict, *, emit_cache: bool = False,
 
 def _assemble_cache(cfg: ModelConfig, emits: dict) -> dict:
     """Per-layer leaves stacked on a leading layer axis -> the decode cache
-    layout: rwkv6's and hymba's recurrent state as it is; keys/values
-    (L, B, S, Hkv, Dh) with their ring positions."""
+    layout: rwkv6's and hymba's recurrent state and whisper's cross K/V
+    as they are; keys/values (L, B, S, Hkv, Dh) with their ring
+    positions."""
     if cfg.attention_free:
         return emits
     k, v = emits["k"], emits["v"]
@@ -308,7 +365,6 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens, pos):
     """One token for every sequence. tokens: (B, 1); pos: an int or a (B,)
     tensor of per-sequence absolute positions (continuous batching).
     Returns (logits (B, 1, V), cache), the cache updated in place."""
-    check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
     b = tokens.shape[0]
     dev = next(iter(cache.values())).device

@@ -4,7 +4,9 @@ The port of ``repro.train.serve``. A fixed pool of batch slots; requests
 join free slots (their prompt is fed token by token into that slot's cache
 lane through ``decode_step``), every engine step decodes one token for all
 active slots, finished slots are freed immediately. The engine runs on the
-device its parameters live on.
+device its parameters live on. It serves language models, and a vision
+model (internvl2) on text prompts as the reference's engine does; it
+refuses an encoder-decoder (whisper), as the reference's does.
 
 Recurrent state (rwkv6's ``wkv``/``tm_prev``/``cm_prev``, hymba's
 ``ssm``) stays each request's own, unlike in the reference: ``decode_step``

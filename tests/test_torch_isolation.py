@@ -29,6 +29,7 @@ def test_package_has_the_slice_modules():
     for name in ("_nvcc", "device", "configs", "configs.base", "configs.archs",
                  "models", "models.schema", "models.layers", "models.attention",
                  "models.transformer", "models.carry", "models.moe", "models.ssm",
+                 "models.frontends",
                  "kernels",
                  "kernels.flash_attention", "kernels.flash_attention.ref",
                  "kernels.flash_attention.kernel", "kernels.flash_attention.ops",

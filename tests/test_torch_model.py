@@ -1,6 +1,8 @@
 """The port's language models (the dense family and rwkv6; the MoE and
-hybrid families in ``test_torch_moe.py`` and ``test_torch_hybrid.py``)
-against ``repro``'s, on the CPU.
+hybrid families in ``test_torch_moe.py`` and ``test_torch_hybrid.py``, the
+encoder-decoder in ``test_torch_enc_dec.py``, the vision frontend in
+``test_torch_frontends.py``) against ``repro``'s, on the CPU; every
+family's schema here.
 
 Weights are made by the reference's ``init_model`` and carried across with
 ``models.carry.params_from_reference``; tokens come from numpy. Everything
@@ -33,8 +35,7 @@ CFG = configs.reduced(configs.get_config("internlm2-1.8b"), dtype="float32")
 REF_CFG = ref_configs.reduced(ref_configs.get_config("internlm2-1.8b"), dtype="float32")
 SWA = dataclasses.replace(CFG, sliding_window=8)
 REF_SWA = dataclasses.replace(REF_CFG, sliding_window=8)
-PORTED = [n for n in configs.REGISTRY if not any(
-    getattr(configs.get_config(n), f) for f in transformer.UNPORTED)]
+PORTED = sorted(configs.REGISTRY)  # every family is ported
 RWKV = configs.reduced(configs.get_config("rwkv6-3b"), dtype="float32")
 REF_RWKV = ref_configs.reduced(ref_configs.get_config("rwkv6-3b"), dtype="float32")
 
@@ -81,15 +82,6 @@ def test_dense_schemas_count_the_references_parameters(name):
     assert {k: v.shape for k, v in ours.items()} == {k: v.shape for k, v in theirs.items()}
     assert schema.count_params(transformer.model_schema(cfg)) == ref_schema.count_params(
         ref_transformer.model_schema(ref_configs.get_config(name)))
-
-
-@pytest.mark.parametrize("name", ["whisper-large-v3", "internvl2-2b"])
-def test_other_families_raise(name):
-    cfg = configs.reduced(configs.get_config(name))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(cfg, {}, {"tokens": torch.zeros(1, 2, dtype=torch.int32)})
 
 
 def test_init_model_is_seeded_and_on_the_card_by_default():
