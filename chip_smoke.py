@@ -10,7 +10,9 @@ leaselint (phase 23), the MoE and hybrid families through the
 flash-attention kernels (phases 24-32: mixtral-8x22b at full width, its
 depth cut to 4 of 56 layers, and hymba-1.5b whole), and the
 encoder-decoder and vision-frontend families through them (phases 33-41:
-whisper-large-v3 and internvl2-2b whole).
+whisper-large-v3 and internvl2-2b whole), and training (phases 42-45: the
+flash backward kernel, internlm2-1.8b trained whole through the flash
+kernels forward and backward, an fp32 step, a checkpoint).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``); it exits nonzero
@@ -18,7 +20,7 @@ without them, and on any failed check.
 
 Phases (one line each):
   1. build the lease kernels from ``src/repro_torch/lease_array/csrc``, the
-     flash-attention kernels from
+     flash-attention kernels (forward and backward) from
      ``src/repro_torch/kernels/flash_attention/csrc`` and the WKV6 kernels
      from ``src/repro_torch/kernels/rwkv6/csrc`` and an empty kernel (phase
      19's launch floor), all nvcc runs at once; check from ``cuobjdump
@@ -177,6 +179,26 @@ Phases (one line each):
      share;
  38-41. the same as 25-28 for internvl2-2b whole (24 layers), 4 x (256
      random patch embeddings + 1792 text tokens), served on text prompts.
+ 42. the flash backward kernel (``csrc/flash_attention_bwd.cu``: D, dK/dV,
+     dQ) and the forward kernels' row log-sum-exp against
+     ``attention_bwd_ref`` and ``attention_lse_ref`` at internlm2's train
+     shape, mixtral's, hymba's, whisper's two non-causal ones and ragged
+     cases, bf16 and fp32 (fp32 below 1e-4 per gradient; bf16 at most twice
+     the bf16 plain run's error against the fp32 plain run plus 1e-3), two
+     runs bit-identical;
+ 43. the backward kernel's time at the train shape beside its bound (10 Dh
+     FLOP a live pair), the plain version and scaled_dot_product_attention's
+     backward; the forward kernels with and without the LSE, in turns;
+ 44. internlm2-1.8b whole (bf16 compute, fp32 master weights, remat
+     "dots"), train_4k's 4096 tokens, the global batch cut to 8 in 4
+     microbatches of 2: step 1's gradients through the kernels against a
+     plain-attention run on the same batch (per leaf below 5e-2, the loss
+     within 1e-2), then ``Trainer`` for 4 steps (every loss finite, every
+     parameter moved), step time, tokens/s, peak memory and a profiled
+     step's idle share;
+ 45. an fp32 step at full width and 4 layers through the kernels against
+     plain (per leaf below 1e-4), its state checkpointed, restored and
+     compared leaf by leaf.
 The line before the last holds every kernel's launches on its main path
 (phases 3-6 and the phase-21 directory ticks for the unbatched delayed
 kernel; the phase-12, 28, 32, 37 and 41 bf16 prefills for the wgmma
@@ -184,14 +206,17 @@ flash kernel, the phase-9, 25, 29, 34 and 38 prefills and phase-11
 serving for the fp32 3xTF32 one; the phase-17 bf16
 prefill for the tensor-core WKV6 kernel, the phase-14 prefill and
 phase-16 serving for the CUDA-core one; the phase-19 sweeps and the
-phase-20 shrinker probes for the batched lease kernels), time, plain
-time, bound and library time as JSON;
+phase-20 shrinker probes for the batched lease kernels; the phase-44 and
+45 training steps for the backward kernel's bf16 and fp32 entries, whose
+forward launches join the forward rows), time, plain time, bound and
+library time as JSON;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import heapq
 import json
+import math
 import re
 import subprocess
 import sys
@@ -373,13 +398,18 @@ def lease_kind(entry: str) -> str:
 
 
 def flash_kind(entry: str) -> str:
-    """'fp32-3xtf32/Dh128' (the mma.sync kernel, per head width) or
-    'bf16-wgmma/Dh<=128' (the wgmma kernel, per padded width) for the
-    instantiation named in a ptxas entry line or a SASS function name."""
+    """'fp32-3xtf32/Dh128' (the forward's mma.sync kernel, per head width),
+    'bf16-wgmma/Dh<=128' (the forward's wgmma kernel, per padded width),
+    'bwd-mma-dkdv/Dh128' and the like (the backward's passes, per head
+    width) or 'bwd-pre' for the instantiation named in a ptxas entry line
+    or a SASS function name."""
     if m := re.search(r"flash_wgmma_kernelILi(\d+)E", entry):
         return f"bf16-wgmma/Dh<={m[1]}"
-    m = re.search(r"flash_fwd_kernelILi(\d+)E", entry)
-    return f"fp32-3xtf32/Dh{m[1]}"
+    if m := re.search(r"flash_fwd_kernelILi(\d+)E", entry):
+        return f"fp32-3xtf32/Dh{m[1]}"
+    if m := re.search(r"bwd_(dkdv|dq)_(mma|f32)_kernelILi(\d+)E", entry):
+        return f"bwd-{m[2]}-{m[1]}/Dh{m[3]}"
+    return "bwd-pre"
 
 
 def wgmma_smem_bytes(dh_padded: int) -> int:
@@ -2774,6 +2804,388 @@ def moe_hybrid_slice(dev) -> tuple:
     return worst, launches
 
 
+#: the training slice (phases 42-45): internlm2-1.8b whole (configs/archs.py:9:
+#: 24 layers, d_model 2048, 16/8 heads of 128, d_ff 8192, vocab 92544, bf16
+#: compute over fp32 master weights, remat "dots") at train_4k's sequence of
+#: 4096 (configs/base.py:198); the global batch cut from 256 to 8, in 4
+#: microbatches of 2, to fit the card; 4 steps
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS = "internlm2-1.8b", 8, 4, 4096, 4
+#: the fp32 step of phase 45: the same widths, 4 of the 24 layers, 2 x 4096
+#: in 2 microbatches
+TRAIN_FP32_LAYERS, TRAIN_FP32_BATCH = 4, 2
+#: step 1's gradients, kernel run against the plain-attention run, per leaf
+#: ||d||_2 / ||g||_2: bf16 below PERF.md §2's bf16 logits limit, fp32 below
+#: the fp32 gradient limit of tests/test_torch_train.py
+TRAIN_BF16_TOL, TRAIN_FP32_TOL = 5e-2, 1e-4
+#: the backward kernel against attention_bwd_ref (tests/test_torch_flash_bwd_cuda.py):
+#: fp32 per gradient; bf16 at most twice the bf16 plain run's error against
+#: the fp32 plain run, plus BWD_BF16_SLACK (FlashAttention's own rule); the
+#: LSE's max |err| by dtype
+BWD_FP32_TOL, BWD_BF16_SLACK = 1e-4, 1e-3
+LSE_TOL = {"float32": 1e-4, "bfloat16": 5e-4}
+#: (label, bhq, bhkv, sq, sk, dh, causal, window): the slice's train shape,
+#: the other families' attention shapes, ragged cases
+BWD_CASES = [
+    ("internlm2-1.8b train", 32, 16, 4096, 4096, 128, True, None),
+    ("mixtral-8x22b 1 x 8192", 48, 8, 8192, 8192, 128, True, 4096),
+    ("hymba-1.5b 4 x 2048", 100, 20, 2048, 2048, 64, True, 1024),
+    ("whisper encoder", 160, 160, 1500, 1500, 64, False, None),
+    ("whisper cross-attention", 160, 160, 448, 1500, 64, False, None),
+    ("ragged causal 1500", 6, 2, 1500, 1500, 128, True, None),
+    ("ragged window, group 5", 5, 1, 333, 333, 48, True, 100),
+    ("ragged Sq < Sk", 4, 2, 65, 300, 80, True, None),
+]
+
+
+def grad_rel(got, want) -> float:
+    """||got - want||_2 / ||want||_2 in fp32."""
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def grad_leaves(tree):
+    """("a/b/c", leaf) of a nested dict, in ``leaf_paths`` order."""
+    from repro_torch.models.schema import leaf_paths
+
+    return [("/".join(path), x) for path, x in leaf_paths(tree)]
+
+
+def bwd_phase(dev) -> dict:
+    """Phase 42: the backward kernel (and the forward's LSE) against the
+    plain versions at ``BWD_CASES`` in both dtypes, two runs bit-identical.
+    Returns each dtype's max |err| of the gradients against the fp32 plain
+    run."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
+
+    t_phase = time.perf_counter()
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for n, (label, bhq, bhkv, sq, sk, dh, causal, w) in enumerate(BWD_CASES):
+        g = torch.Generator(device=dev).manual_seed(420 + n)
+        x32 = [torch.randn(h, s, dh, generator=g, device=dev)
+               for h, s in ((bhq, sq), (bhkv, sk), (bhkv, sk), (bhq, sq))]
+        readings = []
+        for dtn in ("bfloat16", "float32"):
+            q, k, v, do = (x.to(dt[dtn]) for x in x32)
+            with torch.no_grad():
+                o, lse = FK.flash_attention_fwd(q, k, v, causal=causal, window=w, with_lse=True)
+                lse_err = float((lse - attention_lse_ref(q, k, causal=causal, window=w))
+                                .abs().max())
+                got = FK.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=w)
+                again = FK.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=w)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                want = attention_bwd_ref(*(x.float() for x in (q, k, v, o, do)), lse,
+                                         causal=causal, window=w)
+                errs = [grad_rel(a, b) for a, b in zip(got, want)]
+                if dtn == "float32":
+                    limits = [BWD_FP32_TOL] * 3
+                else:
+                    plain = attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=w)
+                    limits = [2 * grad_rel(a, b) + BWD_BF16_SLACK for a, b in zip(plain, want)]
+                    del plain
+                worst[dtn] = max(worst[dtn], *(float((a.float() - b).abs().max())
+                                               for a, b in zip(got, want)))
+            for name, e, lim in zip(("dq", "dk", "dv"), errs, limits):
+                check(e < lim, f"phase 42 {label} {dtn}: {name} rel err {e:.3e} (limit {lim:.3e})")
+            check(lse_err < LSE_TOL[dtn], f"phase 42 {label} {dtn}: LSE max |err| {lse_err:.3e}")
+            check(same, f"phase 42 {label} {dtn}: two runs of the backward kernel differ")
+            readings.append(f"{dtn} dq/dk/dv " + "/".join(f"{e:.3e}" for e in errs)
+                            + " (limits " + "/".join(f"{x:.3e}" for x in limits)
+                            + f"), LSE max |err| {lse_err:.2e}")
+            del q, k, v, do, o, lse, got, again, want
+        print(f"phase 42 backward at {label} (BHq {bhq}, BHkv {bhkv}, Sq {sq}, Sk {sk}, "
+              f"Dh {dh}, {'causal' if causal else 'non-causal'}, window {w}): "
+              + "; ".join(readings) + "; two runs bit-identical", flush=True)
+        del x32
+        torch.cuda.empty_cache()
+    print(f"phase 42 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return worst
+
+
+def bwd_timing_phase(dev) -> dict:
+    """Phase 43: the backward kernel's time at the train shape (internlm2,
+    one microbatch: BHq 32, BHkv 16, S 4096, Dh 128, causal) beside its
+    bound, the plain version and scaled_dot_product_attention's backward
+    (forward and backward less forward); the forward kernels with and
+    without the LSE, in turns, at that shape and at phase 12's prefill
+    shape. Returns {dtype: (ms, plain ms, bound ms, bound by, library ms)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    b = TRAIN_BATCH // TRAIN_MICRO
+    bhq, bhkv, s, dh = b * cfg.n_heads, b * cfg.n_kv_heads, TRAIN_SEQ, cfg.head_dim
+    pairs = bhq * s * (s + 1) // 2
+    flop = 10 * dh * pairs  # five products of 2 Dh a live pair
+    g = torch.Generator(device=dev).manual_seed(43)
+    x32 = [torch.randn(h, s, dh, generator=g, device=dev) for h in (bhq, bhkv, bhkv, bhq)]
+    out = {}
+    for dtn, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        q, k, v, do = (x.to(dtype) for x in x32)
+        with torch.no_grad():
+            o, lse = FK.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+
+            def kernel():
+                return FK.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+
+            ms_k1 = time_ms(kernel, 3)
+            ms_k2 = time_ms(kernel, 3)
+            ms_plain = time_ms(lambda: attention_bwd_ref(q, k, v, o, do, lse, causal=True), 1)
+        q4, k4, v4, do4 = (x.view(b, -1, s, dh) for x in (q, k, v, do))
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q4, k4, v4)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+
+        def sdpa_grad():
+            return torch.autograd.grad(sdpa(), leaves, do4)
+
+        ms_fb, ms_f = time_ms(sdpa_grad, 3), time_ms(sdpa, 3)
+        ms_lib = ms_fb - ms_f
+        elt = q.element_size()
+        bytes_ms = ((4 * q.numel() + 4 * k.numel()) * elt + 4 * lse.numel()) \
+            / HBM_BYTES_PER_S * 1e3  # q o do k v lse read, dq dk dv written
+        if dtn == "bfloat16":
+            ops_ms = flop / BF16_FLOP_PER_S * 1e3
+        else:
+            ops_ms = min(flop / FP32_FLOP_PER_S, 3 * flop / TF32_FLOP_PER_S) * 1e3
+        bound = max(ops_ms, bytes_ms)
+        ms_k = (ms_k1 + ms_k2) / 2
+        out[dtn] = (ms_k, ms_plain, bound, "operations" if ops_ms >= bytes_ms else "bytes",
+                    ms_lib)
+        print(f"phase 43 backward timing ({dtn}, BHq {bhq}, BHkv {bhkv}, S {s}, Dh {dh}, "
+              f"causal; {pairs:.4e} live pairs, {flop:.3e} FLOP): kernel {ms_k:.4f} ms "
+              f"({ms_k1:.4f} / {ms_k2:.4f}; three launches; the bound is "
+              f"{bound / ms_k:.0%} of it), plain {ms_plain:.3f} ms, "
+              f"scaled_dot_product_attention backward {ms_lib:.4f} ms (forward and "
+              f"backward {ms_fb:.4f} less forward {ms_f:.4f}); bound {bound:.4f} ms "
+              f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f})", flush=True)
+        del q, k, v, do, o, lse, q4, k4, v4, do4, leaves
+        torch.cuda.empty_cache()
+    # the forward with and without the LSE, in turns: inference must not slow
+    for label, bb, ss in (("train", b, s), ("phase-12 prefill", LM_BATCH, LM_SEQ)):
+        bq, bk = bb * cfg.n_heads, bb * cfg.n_kv_heads
+        y = [torch.randn(h, ss, dh, generator=g, device=dev) for h in (bq, bk, bk)]
+        for dtn, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q, k, v = (x.to(dtype) for x in y)
+            with torch.no_grad():
+                def plain_fwd():
+                    return FK.flash_attention_fwd(q, k, v, causal=True)
+
+                def lse_fwd():
+                    return FK.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+
+                t = [time_ms(f, 10) for f in (plain_fwd, lse_fwd, lse_fwd, plain_fwd)]
+            no_lse, with_lse = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            print(f"phase 43 forward at the {label} shape ({dtn}, BHq {bq}, BHkv {bk}, S {ss}): "
+                  f"no LSE {no_lse:.4f} ms ({t[0]:.4f} / {t[3]:.4f}), with the LSE "
+                  f"{with_lse:.4f} ms ({t[1]:.4f} / {t[2]:.4f}), ratio "
+                  f"{with_lse / no_lse:.4f}", flush=True)
+            del q, k, v
+        del y
+    print(f"phase 43 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def train_slice(dev) -> tuple:
+    """Phases 42-45. 42-43: the backward kernel against plain and timed.
+    44: internlm2-1.8b whole, bf16 compute over fp32 master weights:
+    step 1's gradients through the kernels against a ``PlainAttention`` run
+    on the same batch, then ``Trainer`` for ``TRAIN_STEPS`` steps of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` in ``TRAIN_MICRO`` microbatches (the
+    bf16 kernels' main path): every loss finite, every parameter moved;
+    step time, tokens/s, peak memory, a profiled step's idle share. 45: the
+    fp32 step at full width and ``TRAIN_FP32_LAYERS`` layers against plain,
+    then a checkpoint of its state saved, restored and compared. Returns
+    (the kernels' rows for the JSON line, each forward entry's launches on
+    the training paths)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, SyntheticTokens
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.steps import accumulate_grads, make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import Trainer, TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sync = torch.cuda.synchronize
+    t_slice = time.perf_counter()
+    worst = bwd_phase(dev)
+    timing = bwd_timing_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ------------------------ 44. internlm2-1.8b whole: gradients, 4 steps
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    tc = TrainerConfig(steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       microbatches=TRAIN_MICRO, warmup=1, peak_lr=1e-4, log_every=1,
+                       seed=0)
+    # the trainer's first batch: its loader's, from the same seed
+    batch1 = ShardedLoader(SyntheticTokens(cfg.vocab_size, tc.seq_len, seed=tc.seed),
+                           tc.n_shards, tc.batch_size).next_batch()
+    params = init_model(cfg, tc.seed, device=dev)
+    n_params = sum(x.numel() for _, x in grad_leaves(params))
+    t0 = time.perf_counter()
+    grads, loss_k, _ = accumulate_grads(cfg, params, batch1, microbatches=TRAIN_MICRO)
+    sync()
+    grad_s = time.perf_counter() - t0
+    kernel_grads = {k: g.clone() for k, g in grad_leaves(grads)}
+    del grads
+    with PlainAttention():
+        t0 = time.perf_counter()
+        grads, loss_p, _ = accumulate_grads(cfg, params, batch1, microbatches=TRAIN_MICRO)
+        sync()
+        plain_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(loss_k)), "phase 44: step-1 loss not finite")
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(loss_rel < 1e-2, f"phase 44: step-1 loss kernel {float(loss_k):.6f} vs plain "
+          f"{float(loss_p):.6f} (rel {loss_rel:.3e}, limit 1e-2)")
+    readings = {k: grad_rel(kernel_grads[k], g) for k, g in grad_leaves(grads)}
+    for k, e in readings.items():
+        check(e < TRAIN_BF16_TOL, f"phase 44: gradient {k} kernel vs plain {e:.3e} "
+              f"(limit {TRAIN_BF16_TOL})")
+    print(f"phase 44 {TRAIN_ARCH} whole ({cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+          f"parameters, bf16 compute, fp32 master weights, remat {cfg.remat_policy!r}): step "
+          f"1's gradients over {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches, "
+          f"kernels {grad_s:.2f} s, plain attention {plain_s:.2f} s; loss kernel "
+          f"{float(loss_k):.6f}, plain {float(loss_p):.6f} (rel {loss_rel:.3e}); per leaf "
+          f"||d|| / ||g|| (limit {TRAIN_BF16_TOL}): "
+          + ", ".join(f"{k} {e:.3e}" for k, e in readings.items()), flush=True)
+    del grads, kernel_grads, params
+    torch.cuda.empty_cache()
+
+    tr = Trainer(cfg, tc, verbose=False, device=dev)
+    before = {k: x.to("cpu", copy=True) for k, x in grad_leaves(tr.params)}
+    stamps = []
+    FK.reset_launches()  # the bf16 kernels' training path: these 4 steps
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    hist = tr.run(on_step=lambda step, m: (sync(), stamps.append(time.perf_counter())))
+    counts = dict(FK.flash_attention_bhsd.launches_by_kernel)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"phase 44: losses {losses}")
+    moved = {k: float((x.cpu() != before[k]).float().mean()) for k, x in grad_leaves(tr.params)}
+    check(all(f > 0 for f in moved.values()), f"phase 44: parameters that did not move: "
+          f"{[k for k, f in moved.items() if f == 0]}")
+    bf16_fwd = FK.KERNELS[torch.bfloat16]
+    want_fwd = 2 * cfg.n_layers * TRAIN_MICRO * TRAIN_STEPS  # forward and its recompute
+    check(counts[bf16_fwd] == want_fwd, f"phase 44: {counts[bf16_fwd]} bf16 forward "
+          f"launches, not {want_fwd}")
+    for e in FK.BWD_KERNELS[torch.bfloat16]:
+        check(counts[e] == cfg.n_layers * TRAIN_MICRO * TRAIN_STEPS,
+              f"phase 44: {e} launched {counts[e]} times")
+    check(all(counts[e] == 0 for e in (*FK.BWD_KERNELS[torch.float32],
+                                        FK.KERNELS[torch.float32])),
+          "phase 44: a bf16 step launched an fp32 kernel")
+    mean_s = sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase 44 Trainer: {TRAIN_STEPS} steps, losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; grad norms " + ", ".join(f"{h['grad_norm']:.4f}" for h in hist)
+          + f"; step times " + ", ".join(f"{x:.3f}" for x in step_s)
+          + f" s (steps 2-{TRAIN_STEPS}: {mean_s:.3f} s, {tokens / mean_s:.0f} tokens/s); "
+          f"peak memory {peak_gb:.2f} GB; every leaf moved (least share of elements changed "
+          f"{min(moved.values()):.4f}); launches " + ", ".join(
+              f"{e} {counts[e]}" for e in (bf16_fwd, *FK.BWD_KERNELS[torch.bfloat16])),
+          flush=True)
+    batch = tr.loader.next_batch()
+    text, busy = profiled(lambda: tr._train_step(tr.params, tr.opt_state, batch))
+    print(f"phase 44 profile of one train step (bf16): {text}", flush=True)
+    launches = {bf16_fwd: counts[bf16_fwd]}
+    bwd_launches = {"bfloat16": sum(counts[e] for e in FK.BWD_KERNELS[torch.bfloat16])}
+    del tr, before, batch
+    torch.cuda.empty_cache()
+    print(f"phase 44 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------- 45. fp32 at full width, 4 layers: kernels vs plain; checkpoint
+    t_phase = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=TRAIN_FP32_LAYERS)
+    batch = ShardedLoader(SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, seed=1), 8,
+                          TRAIN_FP32_BATCH).next_batch()
+    params = init_model(cfg32, 1, device=dev)
+    FK.reset_launches()  # the fp32 kernels' training path: this phase's kernel runs
+    grads, loss_k, _ = accumulate_grads(cfg32, params, batch, microbatches=TRAIN_FP32_BATCH)
+    kernel_grads = {k: g.clone() for k, g in grad_leaves(grads)}
+    with PlainAttention():
+        grads, loss_p, _ = accumulate_grads(cfg32, params, batch, microbatches=TRAIN_FP32_BATCH)
+    readings = {k: grad_rel(kernel_grads[k], g) for k, g in grad_leaves(grads)}
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(loss_rel < 1e-5, f"phase 45: fp32 loss kernel vs plain rel {loss_rel:.3e}")
+    for k, e in readings.items():
+        check(e < TRAIN_FP32_TOL, f"phase 45: fp32 gradient {k} kernel vs plain {e:.3e}")
+    del grads, kernel_grads
+    opt = adamw_init(params)
+    step = make_train_step(cfg32, peak_lr=1e-4, warmup=1, total=10,
+                           microbatches=TRAIN_FP32_BATCH)
+    params, opt, m = step(params, opt, batch)
+    check(math.isfinite(float(m["loss"])), "phase 45: fp32 step loss not finite")
+    counts = dict(FK.flash_attention_bhsd.launches_by_kernel)
+    for e in FK.BWD_KERNELS[torch.float32]:
+        check(counts[e] == 2 * TRAIN_FP32_LAYERS * TRAIN_FP32_BATCH,
+              f"phase 45: {e} launched {counts[e]} times")
+    launches[FK.KERNELS[torch.float32]] = counts[FK.KERNELS[torch.float32]]
+    bwd_launches["float32"] = sum(counts[e] for e in FK.BWD_KERNELS[torch.float32])
+    print(f"phase 45 fp32 at full width, {TRAIN_FP32_LAYERS} layers, {TRAIN_FP32_BATCH} x "
+          f"{TRAIN_SEQ} in {TRAIN_FP32_BATCH} microbatches: loss kernel {float(loss_k):.7f}, "
+          f"plain {float(loss_p):.7f} (rel {loss_rel:.3e}); per leaf ||d|| / ||g|| (limit "
+          f"{TRAIN_FP32_TOL}): " + ", ".join(f"{k} {e:.3e}" for k, e in readings.items())
+          + f"; a train step: loss {float(m['loss']):.6f}, grad norm "
+          f"{float(m['grad_norm']):.4f}; launches " + ", ".join(
+              f"{e} {counts[e]}" for e in (FK.KERNELS[torch.float32],
+                                            *FK.BWD_KERNELS[torch.float32])), flush=True)
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    state = {"params": params, "opt": opt}
+    mgr = CheckpointManager(str(ckpt_dir), every_steps=1, keep=1, lease_guard=lambda: True)
+    t0 = time.perf_counter()
+    check(mgr.maybe_save(1, lambda: state), "phase 45: the checkpoint was not written")
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, at = restore_checkpoint(ckpt_dir, device=dev)
+    load_s = time.perf_counter() - t0
+    got, want = dict(grad_leaves(restored)), dict(grad_leaves(state))
+    check(at == 1 and set(got) == set(want), "phase 45: restored keys differ")
+    check(all(got[k].dtype == x.dtype and torch.equal(got[k], x) for k, x in want.items()),
+          "phase 45: the restored state differs")
+    size_gb = sum(p.stat().st_size for p in ckpt_dir.rglob("*") if p.is_file()) / 1e9
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"phase 45 checkpoint of that state ({len(want)} leaves, {size_gb:.2f} GB on disk): "
+          f"saved in {save_s:.1f} s, restored to the card in {load_s:.1f} s, every leaf "
+          f"identical", flush=True)
+    del params, opt, state, restored, got, want
+    torch.cuda.empty_cache()
+    print(f"phase 45 took {time.perf_counter() - t_phase:.1f} s; phases 42-45 "
+          f"{time.perf_counter() - t_slice:.1f} s", flush=True)
+
+    rows = []
+    for dtn, name in (("bfloat16", "flash_attention_bwd"), ("float32", "flash_attention_bwd_fp32")):
+        ms, plain_ms, bound, by, lib = timing[dtn]
+        rows.append(dict(name=name, route="cuda",
+                         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+                         replaces="src/repro/kernels/flash_attention/kernel.py:124",
+                         launches=bwd_launches[dtn], max_abs_err=worst[dtn], ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib))
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -2844,7 +3256,8 @@ def main() -> int:
     # the fp32 kernel takes its products on the tensor cores (HMMA, TF32)
     # and its tiles by cp.async (LDGSTS), at every head width
     flash_ops, hmma_forms = {}, set()
-    for name, ins in sass_functions(library_sass(flash_lib)).items():
+    flash_sass = sass_functions(library_sass(flash_lib))
+    for name, ins in flash_sass.items():
         if "flash_fwd_kernel" in name:
             flash_ops[flash_kind(name)] = {op: sum(o.startswith(op) for _, _, o, _ in ins)
                                            for op in ("HMMA", "LDGSTS", "LDSM")}
@@ -2856,6 +3269,16 @@ def main() -> int:
               f"{flash_lib.name}: {kind} holds {ops['HMMA']} HMMA, {ops['LDGSTS']} LDGSTS")
     check(all("TF32" in form for form in hmma_forms),
           f"{flash_lib.name}: fp32 entries issue {sorted(hmma_forms)}, not only TF32 HMMA")
+    # the backward's bf16 passes take their products on the tensor cores
+    # (bf16 HMMA), its fp32 passes and D's on the CUDA cores (no HMMA)
+    bwd_hmma = {flash_kind(name): sorted({o for _, _, o, _ in ins if o.startswith("HMMA")})
+                for name, ins in flash_sass.items() if "bwd_" in name}
+    check(len(bwd_hmma) == 4 * len(flash_kernel.HEAD_DIMS) + 1,
+          f"{flash_lib.name}: backward entries {sorted(bwd_hmma)}")
+    for kind, forms in bwd_hmma.items():
+        mma = kind.startswith("bwd-mma")
+        check(bool(forms) == mma and all("BF16" in f for f in forms),
+              f"{flash_lib.name}: {kind} issues {forms}")
     flash_dll = flash_build.load()
     print(f"phase 1 build: {flash_lib.name} (dynamic shared memory a block, as the "
           f"library reports it: fp32-3xtf32 " + ", ".join(
@@ -3215,6 +3638,11 @@ def main() -> int:
             by_name[name]["launches"] += launches[entry]
             by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], worst[dtn])
         torch.cuda.empty_cache()
+    train_rows, launches = train_slice(dev)
+    for entry, name in ((flash_kernel.KERNELS[torch.bfloat16], "flash_attention_bhsd"),
+                        (flash_kernel.KERNELS[torch.float32], "flash_attention_bhsd_fp32")):
+        by_name[name]["launches"] += launches[entry]
+    kernels.extend(train_rows)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
@@ -38,27 +39,40 @@ def nvcc_path() -> str:
     )
 
 
+def _run(cmd: list) -> str:
+    """Runs one nvcc command; its output, or RuntimeError with it."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def compile_library(lib: Path, sources: list, flags: list) -> Path:
     """Compile ``sources`` with ``flags`` into ``lib`` unless it exists; the
     compiler's report (registers, spills, shared memory per kernel) is kept
-    beside it as ``.log``. Raises RuntimeError with the compiler output on
-    failure."""
+    beside it as ``.log``. Several sources compile to objects side by side,
+    one nvcc each, and are then linked. Raises RuntimeError with the
+    compiler output on failure."""
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
+    tmpdir = Path(tempfile.mkdtemp(dir=lib.parent, prefix=f".{lib.stem}_"))
+    tmp = tmpdir / lib.name
     try:
-        cmd = [nvcc_path(), *flags, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        nvcc = nvcc_path()
+        if len(sources) == 1:
+            log = _run([nvcc, *flags, "-o", str(tmp), str(sources[0])])
+        else:
+            compile_flags = [f for f in flags if f != "-shared"]
+            objs = [tmpdir / f"{i}_{Path(src).stem}.o" for i, src in enumerate(sources)]
+            with ThreadPoolExecutor(len(sources)) as pool:
+                logs = list(pool.map(
+                    lambda so: _run([nvcc, *compile_flags, "-c", "-o", str(so[1]), str(so[0])]),
+                    zip(sources, objs)))
+            log = "".join(logs) + _run([nvcc, *flags, "-o", str(tmp), *map(str, objs)])
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)  # atomic: concurrent builders race harmlessly
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return lib

@@ -140,6 +140,7 @@ constexpr int WARPS = BQ / 16;
 constexpr int THREADS = 32 * WARPS;
 constexpr float MASKED = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Shapes and the shared-memory plan of one head width.
 template <int DH>
@@ -188,8 +189,8 @@ __device__ __forceinline__ void issue_rows(float* dst, const float* src, int r0,
 template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int sq, int sk, int group,
-                 int causal, int window, float scale) {
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int sq, int sk, int group, int causal, int window, float scale) {
   using P = Plan<DH>;
   constexpr int RS = P::RS, NT = P::NT, G = P::G;
   extern __shared__ float4 smem4[];
@@ -359,6 +360,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = w0 + g + 8 * r;
     if (row >= sq) continue;
+    // the row's log-sum-exp for the backward: m and l are in base 2 of
+    // the scaled scores
+    if (lse != nullptr && t == 0)
+      lse[(size_t)bh * sq + row] = (m_r[r] + log2f(fmaxf(l, 1e-30f))) * LN2;
     const float inv = 1.f / fmaxf(l, 1e-30f);
     float* orow = o + ((size_t)bh * sq + row) * DH;
 #pragma unroll
@@ -378,8 +383,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bhq, int bhkv,
-                   int sq, int sk, int causal, int window, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bhq,
+                   int bhkv, int sq, int sk, int causal, int window, float scale,
+                   cudaStream_t stream) {
   constexpr int bytes = Plan<DH>::BYTES;
   auto kernel = flash_fwd_kernel<DH>;
   // above 48 KB a block's shared memory must be opted into
@@ -391,7 +397,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bhq
   const dim3 grid(bhq, n_q);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), sq, sk, bhq / bhkv, causal, window, scale);
+      static_cast<float*>(o), static_cast<float*>(lse), sq, sk, bhq / bhkv, causal, window,
+      scale);
   return cudaGetLastError();
 }
 
@@ -399,16 +406,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bhq
 
 #define FLASH_WIDTHS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
 
-// q, k, v, o fp32, contiguous, 16-byte aligned. window <= 0 means no
-// window. Returns the cudaError_t of the launch (cudaErrorInvalidValue for
-// a head width the kernel does not take).
-extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, int bhq,
-                             int bhkv, int sq, int sk, int dh, int causal, int window,
+// q, k, v, o fp32, contiguous, 16-byte aligned. lse: null, or (BHq, Sq)
+// fp32 for each row's log-sum-exp of its scaled scores (the backward's
+// input). window <= 0 means no window. Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue for a head width the kernel does not take).
+extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                             int bhq, int bhkv, int sq, int sk, int dh, int causal, int window,
                              float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(DH) \
   case DH:             \
-    return launch<DH>(q, k, v, o, bhq, bhkv, sq, sk, causal, window, scale, s);
+    return launch<DH>(q, k, v, o, lse, bhq, bhkv, sq, sk, causal, window, scale, s);
   switch (dh) {
     FLASH_WIDTHS(FLASH_CASE)
     default:

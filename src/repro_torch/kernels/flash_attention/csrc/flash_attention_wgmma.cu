@@ -84,6 +84,7 @@ constexpr int ROW_BYTES = 128;
 constexpr int ATOM_BYTES = 8 * ROW_BYTES;  // 8 rows: one period of the swizzle
 constexpr float MASKED = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------ PTX helpers
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -393,7 +394,8 @@ template <int DHP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                   int sq, int sk, int dh, int group, int causal, int window, float scale_log2) {
+                   float* __restrict__ lse, int sq, int sk, int dh, int group, int causal,
+                   int window, float scale_log2) {
   using L = Smem<DHP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;  // the swizzle's period
@@ -496,6 +498,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
       const float inv = 1.f / fmaxf(l, 1e-30f);
       const int row = r0 + 8 * i;
       if (row >= sq) continue;
+      // the row's log-sum-exp for the backward: m and l are in base 2 of
+      // the scaled scores
+      if (lse != nullptr && cq == 0)
+        lse[(size_t)bh * sq + row] = (m_i[i] + log2f(fmaxf(l, 1e-30f))) * LN2;
       __nv_bfloat16* orow = o + ((size_t)bh * sq + row) * dh;
 #pragma unroll
       for (int j = 0; j < DHP / 8; ++j) {
@@ -543,8 +549,8 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int bh, int s, i
 }
 
 template <int DHP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bhq, int bhkv,
-                   int sq, int sk, int dh, int causal, int window, float scale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bhq,
+                   int bhkv, int sq, int sk, int dh, int causal, int window, float scale,
                    cudaStream_t stream) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
@@ -558,22 +564,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bhq
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + BQ - 1) / BQ, bhq);
-  kernel<<<grid, THREADS, bytes, stream>>>(tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), sq,
-                                           sk, dh, bhq / bhkv, causal, window, scale * LOG2E);
+  kernel<<<grid, THREADS, bytes, stream>>>(tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o),
+                                           static_cast<float*>(lse), sq, sk, dh, bhq / bhkv,
+                                           causal, window, scale * LOG2E);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o bf16, contiguous, 16-byte aligned. window <= 0 means no
-// window. Returns the cudaError_t of the launch (cudaErrorInvalidValue for
-// a head width the kernel does not take or a tensor map the driver
-// refuses, cudaErrorNotSupported without cuTensorMapEncodeTiled).
-extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, int bhq,
-                              int bhkv, int sq, int sk, int dh, int causal, int window,
+// q, k, v, o bf16, contiguous, 16-byte aligned. lse: null, or (BHq, Sq)
+// fp32 for each row's log-sum-exp of its scaled scores (the backward's
+// input). window <= 0 means no window. Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue for a head width the kernel does not take
+// or a tensor map the driver refuses, cudaErrorNotSupported without
+// cuTensorMapEncodeTiled).
+extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int bhq, int bhkv, int sq, int sk, int dh, int causal, int window,
                               float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh < 16 || dh > 128 || dh % 16) return cudaErrorInvalidValue;
-  if (dh <= 64) return launch<64>(q, k, v, o, bhq, bhkv, sq, sk, dh, causal, window, scale, s);
-  return launch<128>(q, k, v, o, bhq, bhkv, sq, sk, dh, causal, window, scale, s);
+  if (dh <= 64)
+    return launch<64>(q, k, v, o, lse, bhq, bhkv, sq, sk, dh, causal, window, scale, s);
+  return launch<128>(q, k, v, o, lse, bhq, bhkv, sq, sk, dh, causal, window, scale, s);
 }

@@ -17,7 +17,9 @@ This is a rule, not a fallback: nothing is chosen at run time, and on what
 its kernel does not take the wrapper raises. For CPU tensors it runs the
 plain chunked form, ``ref.wkv_chunked_bhsn``. ``wkv6_bhsn.launches`` counts
 kernel launches only, and ``.launches_by_kernel`` splits that count by
-entry point; ``reset_launches()`` zeros both.
+entry point; ``reset_launches()`` zeros both. The kernels have no backward
+yet: for CUDA inputs that want a gradient the wrapper raises rather than
+drop it (the CPU path is plain torch, which autograd differentiates).
 """
 from __future__ import annotations
 
@@ -62,6 +64,13 @@ def _kernel_operand(x: torch.Tensor, dtype=None) -> torch.Tensor:
     return x
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether a call on ``tensors`` (None skipped) must record an autograd
+    graph: grad mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in tensors)
+
+
 def wkv6_bhsn(r, k, v, logw, u, state=None):
     """r, k, v: (BH, S, N) fp32 or bf16; logw: (BH, S, N), <= 0; u: (BH, N);
     state: (BH, N, N) or None (zeros). -> (out (BH, S, N) fp32, final state
@@ -72,6 +81,11 @@ def wkv6_bhsn(r, k, v, logw, u, state=None):
     if r.device.type != "cuda":
         raise ValueError(f"WKV6 runs on CUDA (kernel) or CPU (plain) tensors, "
                          f"not {r.device}")
+    if needs_grad(r, k, v, logw, u, state):
+        raise RuntimeError(
+            "the WKV6 kernel has no backward yet (ROADMAP.md, queue 1): its "
+            "launch records no autograd graph and would drop the gradient of "
+            "its inputs; run under torch.no_grad(), or on the CPU")
     bh, s, n = r.shape
     if r.dtype not in KERNELS:
         raise ValueError(f"WKV6 takes r, k, v in {list(KERNELS)}, not {r.dtype}")

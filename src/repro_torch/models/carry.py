@@ -1,4 +1,5 @@
-"""Carry parameters and decode caches between ``repro`` and the port.
+"""Carry parameters, optimizer states and decode caches between ``repro``
+and the port.
 
 The reference's trees are nested dicts of arrays with the same keys and
 stacked ``[L, ...]`` layer leaves as the port's. These functions take and
@@ -43,6 +44,31 @@ def params_from_reference(cfg: ModelConfig, tree: dict, *, device="cuda") -> dic
         if tuple(np.shape(a)) != tuple(p.shape):
             raise ValueError(f"{'/'.join(path)}: shape {np.shape(a)}, schema {p.shape}")
         set_path(out, path, _tensor(a, dt, dev))
+    return out
+
+
+def opt_state_from_reference(cfg: ModelConfig, opt_state: dict, *, device="cuda") -> dict:
+    """The reference's AdamW state (``{"m", "v", "step"}``, numpy arrays) as
+    the port's (``optim.adamw_init``'s layout) on ``device``: the moments
+    keep their dtype (fp32, or bf16 for the reference's ``moment_dtype``),
+    checked against the parameters' schema as ``params_from_reference``
+    checks weights; the step an int32 scalar."""
+    dev = resolve_device(device)
+    want = dict(leaf_paths(model_schema(cfg)))
+    out = {}
+    for name in ("m", "v"):
+        got = dict(leaf_paths(opt_state[name]))
+        if set(got) != set(want):
+            raise ValueError(f"{name}: keys differ from the parameters' schema")
+        tree: dict = {}
+        for path, p in want.items():
+            a = np.asarray(got[path])
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}/{'/'.join(path)}: shape {a.shape}, schema {p.shape}")
+            dt = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
+            set_path(tree, path, _tensor(a, dt, dev))
+        out[name] = tree
+    out["step"] = torch.tensor(int(np.asarray(opt_state["step"])), dtype=torch.int32, device=dev)
     return out
 
 

@@ -45,6 +45,11 @@ def leaf_paths(tree: dict, prefix=()):
             yield prefix + (k,), v
 
 
+def map_tree(tree: dict, fn) -> dict:
+    """The nested dict with ``fn`` applied to every leaf."""
+    return {k: map_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 def set_path(tree: dict, path: tuple, value) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})

@@ -9,7 +9,8 @@ No conv1d frontend, as in the reference.
 ``ssm_scan`` takes the sequence in chunks of ``CHUNK``, as the reference does: within
 a chunk a token loop, all chunks at once, builds each position's decay
 product and input sum from the chunk's start; then a loop over the chunks
-carries the state from each chunk into the next. The reference runs an
+carries the state from each chunk into the next (in place, or out of place
+where autograd records the scan for a gradient). The reference runs an
 associative scan within the chunk; both compute the same first-order
 recurrence in fp32, summed in another order. The reference has no kernel for
 this, so this plain PyTorch scan is the port's version on every device.
@@ -51,6 +52,17 @@ def _selective(params, x: torch.Tensor, cfg: ModelConfig):
     return da, db_x, cmat, dt
 
 
+def _chunk_prefix(aa: torch.Tensor, bb: torch.Tensor):
+    """The token loop of ``ssm_scan`` out of place, for autograd (the same
+    products and sums in the same order): (decay products, states from a
+    zero state), each (B, chunks, CHUNK, di, st)."""
+    a_t, b_t = [aa[:, :, 0]], [bb[:, :, 0]]
+    for t in range(1, CHUNK):
+        b_t.append(torch.addcmul(bb[:, :, t], aa[:, :, t], b_t[-1]))
+        a_t.append(aa[:, :, t] * a_t[-1])
+    return torch.stack(a_t, 2), torch.stack(b_t, 2)
+
+
 def ssm_scan(params, x: torch.Tensor, state: torch.Tensor, cfg: ModelConfig):
     """x: (B,S,di); state: (B,di,st) -> (y (B,S,di), state')."""
     b, s, di = x.shape
@@ -63,9 +75,12 @@ def ssm_scan(params, x: torch.Tensor, state: torch.Tensor, cfg: ModelConfig):
     nc = (s + pad) // CHUNK
     aa = da.view(b, nc, CHUNK, di, st)  # becomes the decay product from the chunk's start
     bb = db.view(b, nc, CHUNK, di, st)  # becomes the state from a zero state at the start
-    for t in range(1, CHUNK):  # one read-modify-write a step (bb first: it reads aa[t] raw)
-        bb[:, :, t].addcmul_(aa[:, :, t], bb[:, :, t - 1])
-        aa[:, :, t].mul_(aa[:, :, t - 1])
+    if da.requires_grad or db.requires_grad:
+        aa, bb = _chunk_prefix(aa, bb)
+    else:
+        for t in range(1, CHUNK):  # one read-modify-write a step (bb first: it reads aa[t] raw)
+            bb[:, :, t].addcmul_(aa[:, :, t], bb[:, :, t - 1])
+            aa[:, :, t].mul_(aa[:, :, t - 1])
     h = state.float()
     starts = []
     for c in range(nc):

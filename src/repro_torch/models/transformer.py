@@ -1,4 +1,4 @@
-"""Model assembly: schema, forward (prefill), decode step.
+"""Model assembly: schema, forward (training and prefill), decode step, loss.
 
 The port of ``repro.models.transformer``, for every family of the
 registry: dense GQA language models (internlm2, granite, qwen1.5, starcoder2
@@ -15,14 +15,22 @@ Parameters are the nested dicts of ``schema.init_params`` with the
 reference's keys and stacked ``[L, ...]`` layer leaves, in fp32. Layers run
 as a Python loop; each layer's master weights are cast to ``cfg.dtype`` as
 it runs, as ``repro``'s ``cast_tree`` does inside its layer scan.
-Sequence-mode attention (``forward``, prefill: self-attention, the
-encoder's and the cross-attention) goes through the flash kernel, and
-rwkv6's sequence-mode recurrence through the WKV6 kernel; decode, against
-the cache, is plain PyTorch.
+Sequence-mode attention (``forward`` and ``loss_fn``: self-attention, the
+encoder's and the cross-attention) goes through the flash kernel, forward
+and, under autograd, backward (``kernels.flash_attention.kernel.
+FlashAttention``); rwkv6's sequence-mode recurrence goes through the WKV6
+kernel, which has no backward yet, so rwkv6 does not train on a card
+(``loss_fn`` raises there). Decode, against the cache, is plain PyTorch.
+
+``loss_fn`` is the reference's: next-token cross entropy in fp32 (labels
+below 0 masked; for the vision frontend the text's logits start after the
+patches) plus ``AUX_COEF`` times the sum of the layers' MoE load-balance
+losses, with each decoder layer recomputed in the backward as
+``cfg.remat_policy`` says (``_remat``).
 
 Differences from the reference's API: ``forward`` returns
-``(logits, cache)`` (the MoE load-balance loss, which only training reads,
-is ``moe.moe_dispatch``'s to return), and ``decode_step`` updates ``cache`` in
+``(logits, cache)`` (the aux loss, which only training reads, goes to
+``loss_fn`` through ``_forward``), and ``decode_step`` updates ``cache`` in
 place (the new token's K/V, the recurrent ``wkv``/``tm_prev``/``cm_prev``
 leaves, hymba's ``ssm`` state) and returns that same dict (no copy of the
 cache per token). whisper's decoder computes each layer's cross K/V from
@@ -31,7 +39,14 @@ reference does (the same values).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -40,8 +55,9 @@ from . import rwkv6, ssm
 from .attention import attention_full, attn_schema, out_project, project, qkv_project
 from .layers import apply_mlp, apply_norm, mlp_schema, norm_schema, sinusoidal_positions
 from .moe import moe_dispatch, moe_schema
-from .schema import P, Schema, init_params, stacked
+from .schema import P, Schema, init_params, map_tree, stacked
 
+AUX_COEF = 0.01  # MoE load-balance loss coefficient
 #: decode-cache leaves that a step overwrites whole (rwkv6's and hymba's
 #: recurrent state), unlike the K/V ring, where a step writes one slot
 RECURRENT = ("wkv", "tm_prev", "cm_prev", "ssm")
@@ -51,20 +67,16 @@ def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-def _map_tree(tree: dict, fn) -> dict:
-    return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
-
-
 def cast_tree(tree: dict, dtype: torch.dtype) -> dict:
     """Floating-point leaves cast to the compute dtype (fp32 master
     weights, ``cfg.dtype`` compute)."""
-    return _map_tree(tree, lambda a: a.to(dtype) if a.is_floating_point() else a)
+    return map_tree(tree, lambda a: a.to(dtype) if a.is_floating_point() else a)
 
 
 def layer_params(params: dict, layer: int, dtype: torch.dtype) -> dict:
     """Layer ``layer`` of the stacked ``params["layers"]`` (or of another
     stack of layers, such as ``params["encoder"]``), cast to dtype."""
-    return cast_tree(_map_tree(params["layers"], lambda a: a[layer]), dtype)
+    return cast_tree(map_tree(params["layers"], lambda a: a[layer]), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -199,10 +211,12 @@ def _cache_attention(q, kc, vc, slot_pos, pos, window):
 
 
 def _ffn(cfg, p, h):
-    """Second half of a block: the MLP, or the MoE (its aux loss dropped)."""
+    """Second half of a block: the MLP, or the MoE. Returns (out, the MoE
+    load-balance loss, fp32; 0 for the MLP)."""
     if cfg.moe is not None:
-        return moe_dispatch(cfg, p["moe"], h)[0]
-    return apply_mlp(cfg, p["mlp"], h)
+        y, aux, _dropped = moe_dispatch(cfg, p["moe"], h)
+        return y, aux.float()
+    return apply_mlp(cfg, p["mlp"], h), h.new_zeros((), dtype=torch.float32)
 
 
 def _mix(cfg, p, x, a, sy):
@@ -214,10 +228,10 @@ def _mix(cfg, p, x, a, sy):
 def block_seq(cfg: ModelConfig, p, x, positions, *, causal=True, emit_cache=False,
               enc_out=None):
     """One block over a full sequence (an encoder block with
-    ``causal=False``). Returns (x, this layer's cache leaves or None):
-    {"k", "v"} for attention (and "ssm" for hymba, "ck", "cv" for a
-    decoder block given ``enc_out``), {"wkv", "tm_prev", "cm_prev"} for
-    rwkv6."""
+    ``causal=False``). Returns (x, this layer's cache leaves or None, its
+    MoE aux loss): the leaves {"k", "v"} for attention (and "ssm" for
+    hymba, "ck", "cv" for a decoder block given ``enc_out``), {"wkv",
+    "tm_prev", "cm_prev"} for rwkv6."""
     if cfg.attention_free:
         b = x.shape[0]
         h, n = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
@@ -228,7 +242,7 @@ def block_seq(cfg: ModelConfig, p, x, positions, *, causal=True, emit_cache=Fals
         x = x + y
         y, cm_prev = rwkv6.apply_channel_mix(cfg, p["cm"], apply_norm(cfg, p["norm2"], x), pv0)
         emit = {"wkv": wkv, "tm_prev": tm_prev, "cm_prev": cm_prev}
-        return x + y, (emit if emit_cache else None)
+        return x + y, (emit if emit_cache else None), x.new_zeros((), dtype=torch.float32)
     h = apply_norm(cfg, p["norm1"], x)
     a, (k, v) = _attn_seq(cfg, p["attn"], h, positions, causal=causal)
     emit = {"k": k, "v": v}
@@ -242,8 +256,8 @@ def block_seq(cfg: ModelConfig, p, x, positions, *, causal=True, emit_cache=Fals
     if enc_out is not None:  # whisper's decoder: cross-attention to the encoder
         emit["ck"], emit["cv"] = _cross_kv(cfg, p["cross"], enc_out)
         x = _cross(cfg, p, x, emit["ck"], emit["cv"], flash_attention)
-    x = x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
-    return x, (emit if emit_cache else None)
+    y, aux = _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
+    return x + y, (emit if emit_cache else None), aux
 
 
 def block_step(cfg: ModelConfig, p, x, pos, cache_l) -> torch.Tensor:
@@ -269,7 +283,7 @@ def block_step(cfg: ModelConfig, p, x, pos, cache_l) -> torch.Tensor:
         x = x + a
     if cfg.enc_dec:
         x = _cross(cfg, p, x, cache_l["ck"], cache_l["cv"], attention_full)
-    return x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
+    return x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -285,12 +299,12 @@ def run_encoder(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
                                       device=frames.device).to(frames.dtype)
     positions = torch.arange(h.shape[1], device=h.device)
     for layer in range(cfg.n_encoder_layers):
-        h, _ = block_seq(cfg, layer_params(enc, layer, dtype), h, positions, causal=False)
+        h = block_seq(cfg, layer_params(enc, layer, dtype), h, positions, causal=False)[0]
     return apply_norm(cfg, enc["final_norm"], h)
 
 
 # ---------------------------------------------------------------------------
-# Forward / decode
+# Forward / loss / decode
 # ---------------------------------------------------------------------------
 def _embed_tokens(cfg, params, tokens):
     return params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
@@ -299,6 +313,75 @@ def _embed_tokens(cfg, params, tokens):
 def _unembed(cfg, params, h):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return h @ w.to(h.dtype)
+
+
+#: the operations whose outputs the "dots" policy keeps for the backward: the
+#: products with a weight (2-d matrix products; attention's and the
+#: experts' batched products are recomputed), as the reference's
+#: ``dots_with_no_batch_dims_saveable``
+SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` with its activations recomputed in the backward as
+    ``cfg.remat_policy`` says: "full" keeps none of them (a checkpoint a
+    layer), "dots" keeps the products with a weight (selective
+    checkpointing), anything else ("nothing") keeps every one."""
+    if cfg.remat_policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    return fn
+
+
+def _forward(cfg: ModelConfig, params, batch: dict, *, emit_cache: bool = False,
+             logits_mode: str = "all", remat: bool = False):
+    """``forward``, and the sum of the layers' MoE aux losses (fp32):
+    (logits, cache or None, aux). ``remat`` recomputes each decoder layer
+    in the backward by ``_remat``."""
+    dtype = torch_dtype(cfg.dtype)
+    if (cfg.attention_free and params["embed"].is_cuda and torch.is_grad_enabled()
+            and params["embed"].requires_grad):
+        raise NotImplementedError(
+            "rwkv6 does not train on a CUDA device yet: the WKV6 kernel has no "
+            "backward (ROADMAP.md, queue 1: rwkv6 training with a WKV6 backward "
+            "kernel); on the CPU, pass device='cpu'")
+    enc_out = None
+    h = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.enc_dec:
+        enc_out = run_encoder(cfg, params, batch["frames"].to(dtype))
+    elif cfg.frontend == "vision":
+        h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
+    if not cfg.use_rope:  # whisper's decoder too: positions added once
+        h = h + sinusoidal_positions(h.shape[1], cfg.d_model, device=h.device).to(h.dtype)
+    positions = torch.arange(h.shape[1], device=h.device)
+
+    def layer_fn(x, layer):
+        return block_seq(cfg, layer_params(params, layer, dtype), x, positions,
+                         causal=True, emit_cache=emit_cache, enc_out=enc_out)
+
+    body = _remat(cfg, layer_fn) if remat else layer_fn
+    aux = h.new_zeros((), dtype=torch.float32)
+    emits = []
+    for layer in range(cfg.n_layers):
+        h, emit, aux_l = body(h, layer)
+        aux = aux + aux_l
+        emits.append(emit)
+    h = apply_norm(cfg, params["final_norm"], h)
+    if logits_mode == "last":
+        h = h[:, -1:, :]
+    logits = _unembed(cfg, params, h)
+    cache = None
+    if emit_cache:
+        cache = _assemble_cache(cfg, {name: torch.stack([e[name] for e in emits])
+                                      for name in emits[0]})
+    return logits, cache, aux
 
 
 def forward(cfg: ModelConfig, params, batch: dict, *, emit_cache: bool = False,
@@ -313,30 +396,29 @@ def forward(cfg: ModelConfig, params, batch: dict, *, emit_cache: bool = False,
     ``logits_mode="last"`` unembeds only the final position (prefill needs
     only the next-token distribution).
     """
-    dtype = torch_dtype(cfg.dtype)
-    enc_out = None
-    h = _embed_tokens(cfg, params, batch["tokens"])
-    if cfg.enc_dec:
-        enc_out = run_encoder(cfg, params, batch["frames"].to(dtype))
-    elif cfg.frontend == "vision":
-        h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
-    if not cfg.use_rope:  # whisper's decoder too: positions added once
-        h = h + sinusoidal_positions(h.shape[1], cfg.d_model, device=h.device).to(h.dtype)
-    positions = torch.arange(h.shape[1], device=h.device)
-    emits = []
-    for layer in range(cfg.n_layers):
-        h, emit = block_seq(cfg, layer_params(params, layer, dtype), h, positions,
-                            causal=True, emit_cache=emit_cache, enc_out=enc_out)
-        emits.append(emit)
-    h = apply_norm(cfg, params["final_norm"], h)
-    if logits_mode == "last":
-        h = h[:, -1:, :]
-    logits = _unembed(cfg, params, h)
-    cache = None
-    if emit_cache:
-        cache = _assemble_cache(cfg, {name: torch.stack([e[name] for e in emits])
-                                      for name in emits[0]})
+    logits, cache, _aux = _forward(cfg, params, batch, emit_cache=emit_cache,
+                                   logits_mode=logits_mode)
     return logits, cache
+
+
+def loss_fn(cfg: ModelConfig, params, batch: dict, *, remat: bool = True):
+    """Next-token cross entropy (fp32) over ``batch["labels"]`` (B, S_text;
+    labels below 0 masked), plus ``AUX_COEF`` times the MoE aux loss.
+    Returns (loss, {"ce", "aux", "tokens"}), as the reference's. For the
+    vision frontend, position P - 1 + j of the P patches and the text
+    predicts text token j."""
+    logits, _, aux = _forward(cfg, params, batch, remat=remat)
+    labels = batch["labels"]
+    if cfg.frontend == "vision":
+        p_len = batch["patch_embeds"].shape[1]
+        logits = logits[:, p_len - 1:p_len - 1 + labels.shape[1]]
+    lf = logits.float()
+    mask = (labels >= 0).float()
+    gold = lf.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    ce = (torch.logsumexp(lf, dim=-1) - gold) * mask
+    ntok = mask.sum().clamp_min(1.0)
+    loss = ce.sum() / ntok
+    return loss + AUX_COEF * aux, {"ce": loss, "aux": aux, "tokens": ntok}
 
 
 def _assemble_cache(cfg: ModelConfig, emits: dict) -> dict:

@@ -1,1 +1,5 @@
-"""Serving of the port (``serve.ServeEngine``)."""
+"""Training (``loop``: ``Trainer``, ``TrainerConfig``) and serving
+(``serve``: ``ServeEngine``)."""
+from .loop import Trainer, TrainerConfig
+
+__all__ = ["Trainer", "TrainerConfig"]

@@ -284,7 +284,7 @@ def test_each_dtype_names_its_kernel():
     assert f'extern "C" int {K.KERNELS[torch.bfloat16]}(' in tensor_cores
     for op in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait", "setmaxnreg"):
         assert op in tensor_cores and op not in cores
-    assert _build.sources() == [_build.SOURCE, _build.WGMMA_SOURCE]
+    assert _build.sources() == [_build.SOURCE, _build.WGMMA_SOURCE, _build.BWD_SOURCE]
 
 
 def test_fp32_source_takes_three_tf32_products_on_the_tensor_cores():
@@ -359,7 +359,7 @@ def test_bf16_model_holds_the_relative_limit(case):
     assert rel_norm(bf16_model(q, k, v, causal=causal, window=window), want) < BF16_REL_TOL
 
 
-@pytest.mark.parametrize("attr", ["SOURCE", "WGMMA_SOURCE"])
+@pytest.mark.parametrize("attr", ["SOURCE", "WGMMA_SOURCE", "BWD_SOURCE"])
 def test_library_name_hashes_every_source(tmp_path, monkeypatch, attr):
     first = _build.library_path()
     src = tmp_path / getattr(_build, attr).name

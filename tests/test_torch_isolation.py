@@ -50,7 +50,10 @@ def test_package_has_the_slice_modules():
                  "analysis.staticcheck.purity",
                  "analysis.staticcheck.conventions",
                  "analysis.staticcheck.fixtures", "analysis.staticcheck.cli",
-                 "analysis.staticcheck.__main__"):
+                 "analysis.staticcheck.__main__", "optim", "optim.adamw",
+                 "optim.schedule", "data", "data.synthetic", "data.loader",
+                 "checkpoint", "checkpoint.io", "checkpoint.manager",
+                 "train.loop", "launch.train"):
         assert f"repro_torch.{name}" in MODULES
 
 

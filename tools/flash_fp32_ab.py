@@ -49,7 +49,7 @@ def build(src: Path, name: str, entry: str = "flash_fwd_f32") -> ctypes.CDLL:
     compile_library(lib, [src], list(NVCC_FLAGS))
     dll = ctypes.CDLL(str(lib))
     if entry == "flash_fwd_f32":
-        dll.flash_fwd_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        dll.flash_fwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
     getattr(dll, entry).restype = ctypes.c_int
     return dll
