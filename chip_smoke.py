@@ -25,9 +25,10 @@ Phases (one line each):
      from ``src/repro_torch/kernels/rwkv6/csrc`` and an empty kernel (phase
      19's launch floor), all nvcc runs at once; check from ``cuobjdump
      -sass`` that every fp32 flash entry holds HMMA (of the TF32 form only)
-     and LDGSTS, that only the bf16 WKV6 kernel holds HMMA and LDGSTS and
-     only the fp32 one bulk copies (UBLKCP), and print each entry's
-     registers, spills and dynamic shared memory;
+     and LDGSTS, that the bf16 backward's passes hold HGMMA (wgmma) and
+     UTMALDG (TMA) and no HMMA, that only the bf16 WKV6 kernel holds HMMA
+     and LDGSTS and only the fp32 one bulk copies (UBLKCP), and print each
+     entry's registers, spills and dynamic shared memory;
   2. hold both kernels bit-exact against their plain PyTorch versions on
      small traces (delay 0/2/4, asymmetric links, drift, restarts, extends,
      stale/equiv corruption, windows 1/3/16, a ragged cell count, a trace
@@ -179,13 +180,14 @@ Phases (one line each):
      share;
  38-41. the same as 25-28 for internvl2-2b whole (24 layers), 4 x (256
      random patch embeddings + 1792 text tokens), served on text prompts.
- 42. the flash backward kernel (``csrc/flash_attention_bwd.cu``: D, dK/dV,
-     dQ) and the forward kernels' row log-sum-exp against
-     ``attention_bwd_ref`` and ``attention_lse_ref`` at internlm2's train
-     shape, mixtral's, hymba's, whisper's two non-causal ones and ragged
-     cases, bf16 and fp32 (fp32 below 1e-4 per gradient; bf16 at most twice
-     the bf16 plain run's error against the fp32 plain run plus 1e-3), two
-     runs bit-identical;
+ 42. the flash backward kernels (D, then dK/dV and dQ: bf16 on wgmma in
+     ``csrc/flash_attention_bwd_wgmma.cu``, fp32 and D in
+     ``csrc/flash_attention_bwd.cu``) and the forward kernels' row
+     log-sum-exp against ``attention_bwd_ref`` and ``attention_lse_ref`` at
+     internlm2's train shape, mixtral's, hymba's, whisper's two non-causal
+     ones and ragged cases, bf16 and fp32 (fp32 below 1e-4 per gradient;
+     bf16 at most twice the bf16 plain run's error against the fp32 plain
+     run plus 1e-3), two runs bit-identical;
  43. the backward kernel's time at the train shape beside its bound (10 Dh
      FLOP a live pair), the plain version and scaled_dot_product_attention's
      backward; the forward kernels with and without the LSE, in turns;
@@ -400,15 +402,18 @@ def lease_kind(entry: str) -> str:
 def flash_kind(entry: str) -> str:
     """'fp32-3xtf32/Dh128' (the forward's mma.sync kernel, per head width),
     'bf16-wgmma/Dh<=128' (the forward's wgmma kernel, per padded width),
-    'bwd-mma-dkdv/Dh128' and the like (the backward's passes, per head
-    width) or 'bwd-pre' for the instantiation named in a ptxas entry line
-    or a SASS function name."""
+    'bwd-wgmma-dkdv/Dh<=128' and the like (the bf16 backward's passes, per
+    padded width), 'bwd-f32-dq/Dh128' and the like (the fp32 backward's, per
+    head width) or 'bwd-pre' for the instantiation named in a ptxas entry
+    line or a SASS function name."""
     if m := re.search(r"flash_wgmma_kernelILi(\d+)E", entry):
         return f"bf16-wgmma/Dh<={m[1]}"
     if m := re.search(r"flash_fwd_kernelILi(\d+)E", entry):
         return f"fp32-3xtf32/Dh{m[1]}"
-    if m := re.search(r"bwd_(dkdv|dq)_(mma|f32)_kernelILi(\d+)E", entry):
-        return f"bwd-{m[2]}-{m[1]}/Dh{m[3]}"
+    if m := re.search(r"bwd_(dkdv|dq)_wgmma_kernelILi(\d+)E", entry):
+        return f"bwd-wgmma-{m[1]}/Dh<={m[2]}"
+    if m := re.search(r"bwd_(dkdv|dq)_f32_kernelILi(\d+)E", entry):
+        return f"bwd-f32-{m[1]}/Dh{m[2]}"
     return "bwd-pre"
 
 
@@ -2927,7 +2932,7 @@ def bwd_timing_phase(dev) -> dict:
     flop = 10 * dh * pairs  # five products of 2 Dh a live pair
     g = torch.Generator(device=dev).manual_seed(43)
     x32 = [torch.randn(h, s, dh, generator=g, device=dev) for h in (bhq, bhkv, bhkv, bhq)]
-    out = {}
+    out, sdpa_fwd = {}, {}
     for dtn, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         q, k, v, do = (x.to(dtype) for x in x32)
         with torch.no_grad():
@@ -2949,7 +2954,7 @@ def bwd_timing_phase(dev) -> dict:
             return torch.autograd.grad(sdpa(), leaves, do4)
 
         ms_fb, ms_f = time_ms(sdpa_grad, 3), time_ms(sdpa, 3)
-        ms_lib = ms_fb - ms_f
+        ms_lib, sdpa_fwd[dtn] = ms_fb - ms_f, ms_f
         elt = q.element_size()
         bytes_ms = ((4 * q.numel() + 4 * k.numel()) * elt + 4 * lse.numel()) \
             / HBM_BYTES_PER_S * 1e3  # q o do k v lse read, dq dk dv written
@@ -2985,10 +2990,12 @@ def bwd_timing_phase(dev) -> dict:
 
                 t = [time_ms(f, 10) for f in (plain_fwd, lse_fwd, lse_fwd, plain_fwd)]
             no_lse, with_lse = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            lib = (f", scaled_dot_product_attention forward {sdpa_fwd[dtn]:.4f} ms"
+                   if label == "train" else "")
             print(f"phase 43 forward at the {label} shape ({dtn}, BHq {bq}, BHkv {bk}, S {ss}): "
                   f"no LSE {no_lse:.4f} ms ({t[0]:.4f} / {t[3]:.4f}), with the LSE "
                   f"{with_lse:.4f} ms ({t[1]:.4f} / {t[2]:.4f}), ratio "
-                  f"{with_lse / no_lse:.4f}", flush=True)
+                  f"{with_lse / no_lse:.4f}{lib}", flush=True)
             del q, k, v
         del y
     print(f"phase 43 took {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3176,10 +3183,11 @@ def train_slice(dev) -> tuple:
           f"{time.perf_counter() - t_slice:.1f} s", flush=True)
 
     rows = []
-    for dtn, name in (("bfloat16", "flash_attention_bwd"), ("float32", "flash_attention_bwd_fp32")):
+    csrc = "src/repro_torch/kernels/flash_attention/csrc/"
+    for dtn, name, src in (("bfloat16", "flash_attention_bwd", "flash_attention_bwd_wgmma.cu"),
+                           ("float32", "flash_attention_bwd_fp32", "flash_attention_bwd.cu")):
         ms, plain_ms, bound, by, lib = timing[dtn]
-        rows.append(dict(name=name, route="cuda",
-                         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        rows.append(dict(name=name, route="cuda", source=csrc + src,
                          replaces="src/repro/kernels/flash_attention/kernel.py:124",
                          launches=bwd_launches[dtn], max_abs_err=worst[dtn], ms=ms,
                          plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib))
@@ -3252,7 +3260,7 @@ def main() -> int:
         for lib in libs), flush=True)
     flash_log = flash_lib.with_suffix(".log").read_text()
     serialized = sorted({flash_kind(line) for line in flash_log.splitlines()
-                         if "C7512" in line and "flash_wgmma_kernel" in line})
+                         if "C7512" in line and "wgmma_kernel" in line})
     # the fp32 kernel takes its products on the tensor cores (HMMA, TF32)
     # and its tiles by cp.async (LDGSTS), at every head width
     flash_ops, hmma_forms = {}, set()
@@ -3269,16 +3277,19 @@ def main() -> int:
               f"{flash_lib.name}: {kind} holds {ops['HMMA']} HMMA, {ops['LDGSTS']} LDGSTS")
     check(all("TF32" in form for form in hmma_forms),
           f"{flash_lib.name}: fp32 entries issue {sorted(hmma_forms)}, not only TF32 HMMA")
-    # the backward's bf16 passes take their products on the tensor cores
-    # (bf16 HMMA), its fp32 passes and D's on the CUDA cores (no HMMA)
-    bwd_hmma = {flash_kind(name): sorted({o for _, _, o, _ in ins if o.startswith("HMMA")})
-                for name, ins in flash_sass.items() if "bwd_" in name}
-    check(len(bwd_hmma) == 4 * len(flash_kernel.HEAD_DIMS) + 1,
-          f"{flash_lib.name}: backward entries {sorted(bwd_hmma)}")
-    for kind, forms in bwd_hmma.items():
-        mma = kind.startswith("bwd-mma")
-        check(bool(forms) == mma and all("BF16" in f for f in forms),
-              f"{flash_lib.name}: {kind} issues {forms}")
+    # the backward's bf16 passes take their products on wgmma (HGMMA) and
+    # their tiles by TMA (UTMALDG), with no mma.sync (HMMA); its fp32 passes
+    # and D's run on the CUDA cores (neither)
+    bwd_ops = {flash_kind(name): {op: sum(o.startswith(op) for _, _, o, _ in ins)
+                                  for op in ("HGMMA", "UTMALDG", "HMMA")}
+               for name, ins in flash_sass.items() if "bwd_" in name}
+    check(len(bwd_ops) == 2 * len(flash_kernel.HEAD_DIMS) + 2 * 2 + 1,
+          f"{flash_lib.name}: backward entries {sorted(bwd_ops)}")
+    for kind, ops in bwd_ops.items():
+        wgmma = kind.startswith("bwd-wgmma")
+        check((ops["HGMMA"] > 0 and ops["UTMALDG"] > 0) == wgmma and ops["HMMA"] == 0
+              and (wgmma or ops["HGMMA"] == ops["UTMALDG"] == 0),
+              f"{flash_lib.name}: {kind} holds {ops}")
     flash_dll = flash_build.load()
     print(f"phase 1 build: {flash_lib.name} (dynamic shared memory a block, as the "
           f"library reports it: fp32-3xtf32 " + ", ".join(
@@ -3287,6 +3298,9 @@ def main() -> int:
           f"Dh<=128; fp32 SASS HMMA / LDGSTS / LDSM at Dh 128: "
           + " / ".join(str(flash_ops["fp32-3xtf32/Dh128"][op]) for op in ("HMMA", "LDGSTS", "LDSM"))
           + f" ({', '.join(sorted(hmma_forms))})"
+          + "; bf16 backward SASS HGMMA / UTMALDG: " + ", ".join(
+              f"{k} {v['HGMMA']} / {v['UTMALDG']}" for k, v in sorted(bwd_ops.items())
+              if k.startswith("bwd-wgmma"))
           + f"; wgmma serialized by ptxas (C7512) in: {', '.join(serialized) or 'none'}): "
           + ptxas_summary(flash_log, flash_kind), flush=True)
     # the tensor-core kernel issues mma.sync (HMMA) and cp.async (LDGSTS);

@@ -1,7 +1,6 @@
-"""Flash attention: the forward kernels of ``csrc/`` and the backward of
-``csrc/flash_attention_bwd.cu`` for the H100, their wrapper
-(``kernel.flash_attention_bhsd``, differentiable through
-``kernel.FlashAttention``), the (B, S, H, Dh) entry point
+"""Flash attention: the forward and backward kernels of ``csrc/`` for the
+H100, their wrapper (``kernel.flash_attention_bhsd``, differentiable
+through ``kernel.FlashAttention``), the (B, S, H, Dh) entry point
 (``ops.flash_attention``) and the plain versions (``ref``)."""
 from .kernel import FlashAttention, flash_attention_bhsd, reset_launches
 from .ops import flash_attention

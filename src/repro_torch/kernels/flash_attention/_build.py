@@ -1,13 +1,16 @@
 """Build and load the flash-attention CUDA kernels (``csrc/``).
 
-One library holds the three sources: ``flash_attention.cu`` (the fp32
+One library holds the four sources: ``flash_attention.cu`` (the fp32
 forward as three TF32 products on the tensor cores: mma.sync, cp.async;
 head widths 16..128 in steps of 16), ``flash_attention_wgmma.cu`` (the bf16
-forward, tensor cores: wgmma, TMA, mbarriers; widths padded to 64 and 128)
-and ``flash_attention_bwd.cu`` (the backward of both: bf16 on mma.sync,
-fp32 on the CUDA cores). It is named by a hash of every source and the
-flags; the sources compile side by side, one nvcc each. The wgmma source
-reaches the driver's ``cuTensorMapEncodeTiled`` through
+forward, tensor cores: wgmma, TMA, mbarriers; widths padded to 64 and 128),
+``flash_attention_bwd_wgmma.cu`` (the bf16 backward's dK/dV and dQ passes,
+built as the forward is) and ``flash_attention_bwd.cu`` (the backward's
+D = rowsum(do * o) for both dtypes and its fp32 passes, on the CUDA
+cores). The two wgmma sources include ``sm90.cuh``, their PTX helpers and
+tensor maps. The library is named by a hash of every source, the header
+and the flags; the sources compile side by side, one nvcc each. The wgmma
+sources reach the driver's ``cuTensorMapEncodeTiled`` through
 ``cudaGetDriverEntryPoint``, so the library links no ``-lcuda`` and the
 flags are those of every library of the port.
 """
@@ -25,8 +28,12 @@ CSRC = Path(__file__).with_name("csrc")
 SOURCE = CSRC / "flash_attention.cu"
 #: the bf16 forward on the tensor cores
 WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"
-#: the backward, both dtypes
+#: the backward's D (both dtypes) and its fp32 passes
 BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
+#: the backward's bf16 passes on the tensor cores
+BWD_WGMMA_SOURCE = CSRC / "flash_attention_bwd_wgmma.cu"
+#: the PTX helpers and tensor maps the two wgmma sources include
+SM90_HEADER = CSRC / "sm90.cuh"
 #: the C entry point of each forward kernel, both with one signature
 ENTRY_POINTS = ("flash_fwd_f32", "flash_fwd_bf16")
 #: the backward's entry points by dtype suffix: D = rowsum(do * o), then
@@ -36,12 +43,14 @@ BWD_ENTRY_POINTS = tuple(f"{stage}_{dt}" for dt in ("f32", "bf16") for stage in 
 
 
 def sources() -> list:
-    return [SOURCE, WGMMA_SOURCE, BWD_SOURCE]
+    return [SOURCE, WGMMA_SOURCE, BWD_SOURCE, BWD_WGMMA_SOURCE]
 
 
 def library_path() -> Path:
+    """The library's path, named by a hash of the sources, the header they
+    include and the flags: an edit to any of them rebuilds."""
     h = hashlib.sha256()
-    for src in sources():
+    for src in [*sources(), SM90_HEADER]:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libflash_attention_{h.hexdigest()[:16]}.so"

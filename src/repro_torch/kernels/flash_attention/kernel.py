@@ -16,10 +16,16 @@ kernels, and the dtype alone decides which (``KERNELS``):
 When a gradient is wanted (grad mode on and an input that requires grad),
 the call goes through ``FlashAttention``, a ``torch.autograd.Function``:
 its forward asks the kernel for the rows' log-sum-exp as well, and its
-backward launches the three entries of ``csrc/flash_attention_bwd.cu``
-(``BWD_KERNELS``). The launchers themselves (``flash_attention_fwd``,
-``flash_attention_bwd``) record no autograd graph, so they refuse a call
-that wants one rather than drop its gradient.
+backward launches three entries (``BWD_KERNELS``), again by dtype:
+D = rowsum(do ∘ o) from ``csrc/flash_attention_bwd.cu``, then the dK/dV
+and dQ passes. bf16 passes are ``csrc/flash_attention_bwd_wgmma.cu``'s,
+built as the bf16 forward is (``wgmma``, Q/dO or K/V tiles by TMA into an
+mbarrier ring, a producer warpgroup and two consumer warpgroups; P and dS
+rounded to bf16 as the A operands of their products); fp32 passes stay on
+the CUDA cores in ``csrc/flash_attention_bwd.cu``. Both are two
+deterministic passes without atomics. The launchers themselves
+(``flash_attention_fwd``, ``flash_attention_bwd``) record no autograd
+graph, so they refuse a call that wants one rather than drop its gradient.
 
 This is a rule, not a fallback: nothing is chosen at run time, and on what
 its kernel does not take the wrapper raises. For CPU tensors it runs the

@@ -4,10 +4,11 @@
 the whole (Sq, Sk) score matrix: the CPU path of ``flash_attention_bhsd``
 and the yardstick the kernel is held against on the card.
 ``attention_lse_ref`` is the row log-sum-exp the forward kernels emit for
-the backward, and ``attention_bwd_ref`` the backward kernel's function
-(``csrc/flash_attention_bwd.cu``) from its explicit formulas. The backward
-pair works in fp32 and takes the kv heads a few at a time, so that the
-score matrices of long sequences fit beside a model on the card.
+the backward, and ``attention_bwd_ref`` the backward kernels' function
+(``csrc/flash_attention_bwd_wgmma.cu``, ``csrc/flash_attention_bwd.cu``)
+from its explicit formulas. The backward pair works in fp32 and takes the
+kv heads a few at a time, so that the score matrices of long sequences fit
+beside a model on the card.
 """
 from __future__ import annotations
 

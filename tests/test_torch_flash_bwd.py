@@ -13,7 +13,13 @@ The kernel itself runs on the card only
 (``tests/test_torch_flash_bwd_cuda.py``, ``chip_smoke.py`` phase 42); here
 the wrappers take their plain versions for CPU tensors, and the predicate
 that sends a CUDA call through ``FlashAttention`` (or, for WKV6, makes it
-raise) is pinned.
+raise) is pinned. ``wgmma_bwd_model`` is the bf16 kernel's arithmetic
+(``csrc/flash_attention_bwd_wgmma.cu``) in plain torch: bf16 inputs, fp32
+products summed 16 deep in the kernel's order, P^T and dS^T rounded to
+bf16 before dV and dK, dS before dQ. It is held, under the bf16 rule of
+phase 42 (per gradient at most twice the bf16 plain run's error plus
+1e-3), against ``attention_bwd_ref`` on the upcast inputs and against
+``jax.grad`` of the reference's ``attention_full``.
 """
 import jax
 import jax.numpy as jnp
@@ -29,6 +35,7 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref,
     attention_lse_ref,
     attention_ref,
+    live_mask,
 )
 from repro_torch.kernels.rwkv6 import kernel as WK
 
@@ -118,6 +125,123 @@ def test_plain_backward_matches_jax_grad_of_the_reference(case):
             assert rel(got, np.asarray(w)) < TOL
 
 
+#: the bf16 kernel's model: groups 1, 2 and 5, Dh 48, 64 and 128, a window,
+#: Sq < Sk causal and not (b, sq, sk, hq, hkv, dh, causal, window)
+BF16_CASES = [
+    (1, 70, 70, 2, 2, 64, True, None),     # group 1, Dh 64
+    (2, 45, 45, 4, 2, 128, True, 20),      # group 2, Dh 128, a window, ragged
+    (1, 50, 50, 5, 1, 48, True, None),     # group 5, Dh 48
+    (1, 30, 80, 4, 2, 48, True, None),     # causal Sq < Sk: keys past every row
+    (2, 20, 45, 4, 2, 64, False, None),    # non-causal, Sq < Sk
+    (1, 60, 60, 5, 1, 128, False, 25),     # group 5, non-causal with a window
+]
+BF16_SLACK = 1e-3
+LOG2E = 1.4426950408889634
+
+
+def bf16(x):
+    """fp32 values rounded to bf16 (nearest even) and back."""
+    return x.bfloat16().float()
+
+
+def k16_sum(a, b, eq: str, axis_a: int, axis_b: int):
+    """einsum(eq, a, b) in fp32, the contracted axis taken 16 at a time and
+    the slices' products added in ascending order, as a wgmma k-loop adds
+    them to its accumulator."""
+    n = a.shape[axis_a]
+    out = None
+    for s in range(0, n, 16):
+        part = torch.einsum(eq, a.narrow(axis_a, s, min(16, n - s)),
+                            b.narrow(axis_b, s, min(16, n - s)))
+        out = part if out is None else out + part
+    return out
+
+
+def wgmma_bwd_model(q, k, v, o, do, lse, *, causal=True, window=None, live=None):
+    """(dq, dk, dv) in bf16 by the bf16 wgmma backward's arithmetic: q, k, v,
+    o, do bf16, lse fp32. S = Q K^T and dP = dO V^T exact products summed 16
+    head dims at a time; P = 2^(S scale log2 e - lse log2 e) on live pairs;
+    dS = P (dP - D), D = rowsum(do o) in fp32; dV = sum over the group's
+    heads, then over rows 16 at a time, of bf16(P)^T dO; dK the same of
+    bf16(dS)^T Q, times the scale; dQ over keys 16 at a time of bf16(dS) K,
+    times the scale. ``live`` (Sq, Sk) replaces the mask of ``causal`` and
+    ``window``."""
+    bhq, sq, dh = q.shape
+    bhkv, sk, _ = k.shape
+    g = bhq // bhkv
+    scale = 1.0 / np.sqrt(dh)
+    if live is None:
+        live = live_mask(sq, sk, causal=causal, window=window)
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    kg, vg = kf.repeat_interleave(g, 0), vf.repeat_interleave(g, 0)
+    s = k16_sum(qf, kg, "hqd,hkd->hqk", 2, 2)
+    dp = k16_sum(dof, vg, "hqd,hkd->hqk", 2, 2)
+    sl2 = np.float32(scale * LOG2E)
+    p = torch.exp2(s * sl2 - lse.float()[..., None] * np.float32(LOG2E))
+    p = torch.where(live[None], p, torch.zeros(()))
+    d = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dp - d)
+    pb, dsb = bf16(p), bf16(ds)
+    dq = k16_sum(dsb, kg, "hqk,hkd->hqd", 2, 1) * np.float32(scale)
+    # dK/dV: the group's heads in turn, each head's rows 16 at a time
+    dk = torch.zeros(bhkv, sk, dh)
+    dv = torch.zeros(bhkv, sk, dh)
+    for h in range(g):
+        heads = slice(h, bhq, g)
+        dv = dv + k16_sum(pb[heads], dof[heads], "hqk,hqd->hkd", 1, 1)
+        dk = dk + k16_sum(dsb[heads], qf[heads], "hqk,hqd->hkd", 1, 1)
+    return dq.bfloat16(), (dk * np.float32(scale)).bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=case_id)
+def test_wgmma_model_holds_the_bf16_rule(case):
+    """The bf16 kernel's model against ``attention_bwd_ref`` in fp32 on the
+    upcast inputs, and against ``jax.vjp`` of the reference's
+    ``attention_full`` at those inputs, each per gradient within twice the
+    bf16 plain run's error plus 1e-3 (phase 42's rule)."""
+    *_, causal, window = case
+    arrays = inputs(case, seed=6)
+    q, k, v, do = (fold(a).bfloat16() for a in arrays)
+    o = attention_ref(q, k, v, causal=causal, window=window)
+    lse = attention_lse_ref(q, k, causal=causal, window=window)
+    got = wgmma_bwd_model(q, k, v, o, do, lse, causal=causal, window=window)
+    plain = attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
+    up = [x.float() for x in (q, k, v, o, do)]
+    want = attention_bwd_ref(*up, lse, causal=causal, window=window)
+
+    def attend(qa, ka, va):
+        return ref_full(qa, ka, va, causal=causal, window=window)
+
+    b = case[0]
+    grads = jax.vjp(attend, *(jnp.asarray(unfold(x, b)) for x in up[:3]))[1](
+        jnp.asarray(unfold(up[4], b)))
+    for name, gm, pl, w, jg in zip(("dq", "dk", "dv"), got, plain, want, grads):
+        assert gm.dtype == torch.bfloat16
+        gm, pl, w = (unfold(x.float(), b) for x in (gm, pl, w))
+        jg = np.asarray(jg)
+        assert rel(gm, w) < 2 * rel(pl, w) + BF16_SLACK, (name, rel(gm, w), rel(pl, w))
+        assert rel(gm, jg) < 2 * rel(pl, jg) + BF16_SLACK, (name, rel(gm, jg), rel(pl, jg))
+
+
+def test_wgmma_model_catches_a_leaked_mask():
+    """A model that lets the first masked key of each row through (a tile
+    mask one off) misses the bf16 rule: the rule can fail."""
+    case = BF16_CASES[0]
+    *_, causal, window = case
+    q, k, v, do = (fold(a).bfloat16() for a in inputs(case, seed=6))
+    o = attention_ref(q, k, v, causal=causal, window=window)
+    lse = attention_lse_ref(q, k, causal=causal, window=window)
+    want = attention_bwd_ref(*(x.float() for x in (q, k, v, o, do)), lse, causal=causal,
+                             window=window)
+    plain = attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
+    one_off = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool).tril(1)  # key q + 1 leaks
+    bad = wgmma_bwd_model(q, k, v, o, do, lse, live=one_off)
+    worst = max(rel(b.float().numpy(), w.float().numpy()) / (2 * rel(p.float().numpy(),
+                                                              w.float().numpy()) + BF16_SLACK)
+                for b, p, w in zip(bad, plain, want))
+    assert worst > 1
+
+
 @pytest.mark.parametrize("case", CASES, ids=case_id)
 def test_lse_matches_float64(case):
     b, sq, sk, hq, hkv, dh, causal, window = case
@@ -189,11 +313,17 @@ def test_counts_name_every_entry():
                                              "flash_bwd_dq_bf16")
     from repro_torch.kernels.flash_attention import _build
 
-    src = _build.BWD_SOURCE.read_text()
+    # D and the fp32 passes in flash_attention_bwd.cu, the bf16 passes (on
+    # wgmma, no mma.sync) in flash_attention_bwd_wgmma.cu; each entry once
+    srcs = {p: p.read_text() for p in (_build.BWD_SOURCE, _build.BWD_WGMMA_SOURCE)}
+    wgmma = {"flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16"}
     for entry in _build.BWD_ENTRY_POINTS:
-        assert f'extern "C" int {entry}(' in src
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
-    assert "atomicAdd" not in src  # deterministic: no block adds into another's output
+        home = _build.BWD_WGMMA_SOURCE if entry in wgmma else _build.BWD_SOURCE
+        assert f'extern "C" int {entry}(' in srcs[home]
+        assert sum(f'extern "C" int {entry}(' in s for s in srcs.values()) == 1
+    assert all("mma.sync" not in s for s in srcs.values())
+    for src in srcs.values():
+        assert "atomicAdd" not in src  # deterministic: no block adds into another's output
 
 
 @pytest.mark.parametrize("policy", ["nothing", "full", "dots"])

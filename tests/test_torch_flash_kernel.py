@@ -276,15 +276,21 @@ def test_wrapper_refuses_what_does_not_fit():
 def test_each_dtype_names_its_kernel():
     """bf16 launches the wgmma kernel, fp32 the mma.sync one (three TF32
     products): each entry point is defined in its own source, and only the
-    bf16 source issues wgmma and TMA loads into an mbarrier ring."""
+    bf16 sources (the forward and the backward's passes, with the header of
+    PTX helpers they include) issue wgmma and TMA loads into an mbarrier
+    ring."""
     assert set(K.KERNELS) == {torch.float32, torch.bfloat16}
     assert sorted(K.KERNELS.values()) == sorted(_build.ENTRY_POINTS)
-    cores, tensor_cores = _build.SOURCE.read_text(), _build.WGMMA_SOURCE.read_text()
+    cores, header = _build.SOURCE.read_text(), _build.SM90_HEADER.read_text()
+    tensor_cores = _build.WGMMA_SOURCE.read_text()
     assert f'extern "C" int {K.KERNELS[torch.float32]}(' in cores
     assert f'extern "C" int {K.KERNELS[torch.bfloat16]}(' in tensor_cores
+    for src in (_build.WGMMA_SOURCE, _build.BWD_WGMMA_SOURCE):
+        assert '#include "sm90.cuh"' in src.read_text()
     for op in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait", "setmaxnreg"):
-        assert op in tensor_cores and op not in cores
-    assert _build.sources() == [_build.SOURCE, _build.WGMMA_SOURCE, _build.BWD_SOURCE]
+        assert op in tensor_cores + header and op not in cores
+    assert _build.sources() == [_build.SOURCE, _build.WGMMA_SOURCE, _build.BWD_SOURCE,
+                                _build.BWD_WGMMA_SOURCE]
 
 
 def test_fp32_source_takes_three_tf32_products_on_the_tensor_cores():
@@ -296,6 +302,24 @@ def test_fp32_source_takes_three_tf32_products_on_the_tensor_cores():
                "cp.async.cg.shared.global", "ldmatrix.sync.aligned",
                'extern "C" int flash_fwd_f32_smem_bytes('):
         assert op in cores, op
+
+
+def test_bf16_backward_source_takes_wgmma_and_tma():
+    """The bf16 backward's passes issue wgmma and take their tiles by TMA
+    (the helpers of ``sm90.cuh``, where every PTX statement of the bf16
+    kernels lives), with no mma.sync and no atomics; the fp32 backward
+    keeps neither."""
+    bwd, header = _build.BWD_WGMMA_SOURCE.read_text(), _build.SM90_HEADER.read_text()
+    for op in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait", "setmaxnreg"):
+        assert op in header, op
+    for helper in ("wgmma_ss_n64(", "wgmma_ss_n128(", "wgmma_rs_n64(", "wgmma_rs_n128(",
+                   "tma_load_3d(", "mbar_wait(", "reg_alloc<"):
+        assert helper in bwd, helper
+    assert "asm" not in bwd  # the PTX is the header's
+    for src in (bwd, header, _build.BWD_SOURCE.read_text()):
+        assert "mma.sync" not in src and "atomicAdd" not in src
+    fp32 = _build.BWD_SOURCE.read_text()
+    assert not any(x in fp32 for x in ("wgmma_", "tma_load", "sm90.cuh"))
 
 
 def test_tf32_rounds_to_nearest_ties_away_and_splits_exactly():
@@ -359,7 +383,8 @@ def test_bf16_model_holds_the_relative_limit(case):
     assert rel_norm(bf16_model(q, k, v, causal=causal, window=window), want) < BF16_REL_TOL
 
 
-@pytest.mark.parametrize("attr", ["SOURCE", "WGMMA_SOURCE", "BWD_SOURCE"])
+@pytest.mark.parametrize("attr", ["SOURCE", "WGMMA_SOURCE", "BWD_SOURCE", "BWD_WGMMA_SOURCE",
+                                  "SM90_HEADER"])
 def test_library_name_hashes_every_source(tmp_path, monkeypatch, attr):
     first = _build.library_path()
     src = tmp_path / getattr(_build, attr).name

@@ -1,0 +1,148 @@
+#!/usr/bin/env python3
+"""The bf16 flash kernels (forward and backward) on host threads, without a card.
+
+    python3 tools/sm90_emu.py [--csrc DIR] [CASE ...]
+
+Builds ``csrc/flash_attention_wgmma.cu`` and ``csrc/flash_attention_bwd_wgmma.cu``
+with g++ into ``build/sm90_emu/libemu.so``: ``sm90.cuh``'s block between its
+``PTX helpers`` and ``end PTX helpers`` marks is swapped for the host versions
+in ``tools/sm90_emu/emu_ptx.h``, and the CUDA surface they stand on (bf16, the
+runtime and driver types, ``__syncthreads``, shuffles, ``<<<...>>>`` launches)
+for ``tools/sm90_emu/emu_cuda.h``. A block runs its threads as
+``std::thread``s, blocks one after another; an mbarrier is a phase, a count
+of pending arrivals and a transaction count under a mutex (a wait that lasts
+20 s aborts, naming the barrier: a deadlock); a TMA load copies its box at
+once, zeros out of bounds, in the 128-byte swizzle, and completes its bytes;
+a wgmma reads its operands through their descriptors (K-major rows, or
+MN-major with the panel stride as leading byte offset) and the A fragments
+of its warpgroup's 128 threads, and adds into each thread's accumulator
+fragment. The swizzle, descriptors and fragment layouts are this emulator's
+reading of them, which the forward kernel's results on the card confirm
+for the forms it shares with the backward; the forward runs here too, as
+the emulator's own check.
+
+Then each case (all, or the given indices of ``CASES``) runs the forward
+(its output and LSE against ``attention_ref`` and ``attention_lse_ref``)
+and the backward's two passes (D from plain torch) against
+``attention_bwd_ref`` under phase 42's bf16 rule, on CPU tensors. It
+catches logic faults (masks, tile ranges, ring phases, the order of
+arrivals) before a chip call; a case takes a few seconds. ``--csrc`` builds
+another copy of the sources (a variant, or a copy with a planted fault).
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import math
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+EMU = ROOT / "tools" / "sm90_emu"
+OUT = ROOT / "build" / "sm90_emu"
+#: (bhq, bhkv, sq, sk, dh, causal, window)
+CASES = [
+    (2, 1, 130, 130, 64, True, None),
+    (2, 2, 200, 200, 128, True, None),
+    (5, 1, 333, 333, 48, True, 100),
+    (4, 4, 77, 200, 16, False, None),
+    (8, 1, 129, 129, 112, True, None),
+    (4, 2, 65, 300, 80, True, None),
+    (2, 2, 150, 150, 32, False, 40),
+    (6, 2, 256, 256, 128, True, None),
+    (3, 3, 300, 190, 64, False, None),
+]
+
+
+def build(csrc: Path) -> Path:
+    """The host build of the two wgmma sources in ``csrc``."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    hdr = (csrc / "sm90.cuh").read_text()
+    hdr = re.sub(r"#include <cuda\.h>.*?#include <stdint\.h>\n", '#include "emu_cuda.h"\n', hdr,
+                 flags=re.S)
+    hdr = re.sub(r"// -+ PTX helpers\n.*?// -+ end PTX helpers\n", '#include "emu_ptx.h"\n', hdr,
+                 flags=re.S)
+    (OUT / "sm90_emu.h").write_text(hdr)
+    objs = []
+    for name in ("flash_attention_wgmma.cu", "flash_attention_bwd_wgmma.cu"):
+        t = (csrc / name).read_text()
+        t = t.replace('#include "sm90.cuh"', '#include "sm90_emu.h"')
+        t = re.sub(r"#include <cuda(_bf16|_runtime)?\.h>.*\n", "", t)
+        t = t.replace("#include <math.h>", '#include "emu_cuda.h"\n#include <math.h>')
+        t = t.replace("extern __shared__ uint8_t smem_raw[];", "uint8_t* smem_raw = emu_smem();")
+        t = re.sub(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", t, flags=re.S)
+        # the forward's own fence and setmaxnreg statements
+        t = re.sub(r'asm volatile\("(fence\.mbarrier_init|setmaxnreg)[^\n]*\n', ";\n", t)
+        src = OUT / (name[:-3] + "_emu.cpp")
+        src.write_text(t)
+        objs.append(str(src))
+    lib = OUT / "libemu.so"
+    subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-I", str(EMU),
+                    "-I", str(OUT), "-o", str(lib), *objs], check=True)
+    return lib
+
+
+def rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def run_case(lib, bhq, bhkv, sq, sk, dh, causal, window, seed=0) -> bool:
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref,
+        attention_lse_ref,
+        attention_ref,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(h, s, dh, generator=g).bfloat16()
+                   for h, s in ((bhq, sq), (bhkv, sk), (bhkv, sk), (bhq, sq)))
+    o, lse = torch.empty_like(q), torch.empty(bhq, sq)
+    tail = (bhq, bhkv, sq, sk, dh, int(causal), 0 if window is None else window,
+            1 / math.sqrt(dh), None)
+    assert lib.flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                              lse.data_ptr(), *tail) == 0
+    fwd = rel(o, attention_ref(q, k, v, causal=causal, window=window))
+    lse_err = float((lse - attention_lse_ref(q, k, causal=causal, window=window)).abs().max())
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           delta.data_ptr())
+    assert lib.flash_bwd_dkdv_bf16(*ins, dk.data_ptr(), dv.data_ptr(), *tail) == 0
+    assert lib.flash_bwd_dq_bf16(*ins, dq.data_ptr(), None, *tail) == 0
+    want = attention_bwd_ref(*(x.float() for x in (q, k, v, o, do)), lse, causal=causal,
+                             window=window)
+    plain = attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
+    errs = [rel(a, b) for a, b in zip((dq, dk, dv), want)]
+    limits = [2 * rel(a, b) + 1e-3 for a, b in zip(plain, want)]
+    ok = all(e < x for e, x in zip(errs, limits)) and fwd < 5e-3 and lse_err < 5e-4
+    print(f"{'ok ' if ok else 'BAD'} BHq {bhq} BHkv {bhkv} Sq {sq} Sk {sk} Dh {dh} "
+          f"{'causal' if causal else 'non-causal'} window {window}: forward rel {fwd:.2e}, LSE "
+          f"{lse_err:.1e}; dq/dk/dv " + "/".join(f"{e:.2e}" for e in errs) + " (limits "
+          + "/".join(f"{x:.2e}" for x in limits) + ")", flush=True)
+    return ok
+
+
+def main(argv) -> int:
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.flash_attention import _build
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--csrc", type=Path, default=_build.CSRC)
+    ap.add_argument("cases", type=int, nargs="*")
+    args = ap.parse_args(argv)
+    lib = ctypes.CDLL(str(build(args.csrc)))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_fwd_bf16.argtypes = [ptr] * 5 + [i32] * 7 + [ctypes.c_float, ptr]
+    for name in ("flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16"):
+        getattr(lib, name).argtypes = [ptr] * 8 + [i32] * 7 + [ctypes.c_float, ptr]
+    ok = all([run_case(lib, *CASES[i]) for i in (args.cases or range(len(CASES)))])
+    print("every case passed" if ok else "FAILED")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
