@@ -24,11 +24,13 @@ Phases (one line each):
      ``src/repro_torch/kernels/flash_attention/csrc`` and the WKV6 kernels
      from ``src/repro_torch/kernels/rwkv6/csrc`` and an empty kernel (phase
      19's launch floor), all nvcc runs at once; check from ``cuobjdump
-     -sass`` that every fp32 flash entry holds HMMA (of the TF32 form only)
-     and LDGSTS, that the bf16 backward's passes hold HGMMA (wgmma) and
-     UTMALDG (TMA) and no HMMA, that only the bf16 WKV6 kernel holds HMMA
-     and LDGSTS and only the fp32 one bulk copies (UBLKCP), and print each
-     entry's registers, spills and dynamic shared memory;
+     -sass`` that every fp32 flash entry, forward and backward passes,
+     holds HMMA (of the TF32 form only) and LDGSTS and no HGMMA or UTMALDG,
+     that the bf16 backward's passes hold HGMMA (wgmma) and UTMALDG (TMA)
+     and no HMMA, that D's holds none of them, that only the bf16 WKV6
+     kernel holds HMMA and LDGSTS and only the fp32 one bulk copies
+     (UBLKCP), and print each entry's registers, spills and dynamic shared
+     memory (the fp32 backward passes must spill nothing);
   2. hold both kernels bit-exact against their plain PyTorch versions on
      small traces (delay 0/2/4, asymmetric links, drift, restarts, extends,
      stale/equiv corruption, windows 1/3/16, a ragged cell count, a trace
@@ -426,8 +428,8 @@ def wgmma_smem_bytes(dh_padded: int) -> int:
     return dh_padded // 64 * panel * (1 + 2 * stages) + 8 * (1 + 2 * stages) + 1024
 
 
-def ptxas_summary(log: str, kind_of=lease_kind) -> str:
-    """Most registers and total spill bytes per kernel family, from the
+def ptxas_table(log: str, kind_of=lease_kind) -> dict:
+    """{kernel family: (most registers, total spill bytes)} from the
     ``-Xptxas -v`` report kept beside a built library."""
     regs, spills, kind = {}, {}, None
     for line in log.splitlines():
@@ -441,8 +443,13 @@ def ptxas_summary(log: str, kind_of=lease_kind) -> str:
             n = sum(int(words[i - 2]) for i, w in enumerate(words)
                     if w == "spill")  # "<n> bytes spill stores|loads"
             spills[kind] = spills.get(kind, 0) + n
-    return ", ".join(f"{k} {regs[k]} registers / {spills.get(k, 0)} B spilled"
-                     for k in sorted(regs))
+    return {k: (regs[k], spills.get(k, 0)) for k in sorted(regs)}
+
+
+def ptxas_summary(log: str, kind_of=lease_kind) -> str:
+    """Most registers and total spill bytes per kernel family, as text."""
+    return ", ".join(f"{k} {r} registers / {s} B spilled"
+                     for k, (r, s) in ptxas_table(log, kind_of).items())
 
 
 def run_trace_breakdown(run, kernel="lease_window_delayed"):
@@ -3129,10 +3136,18 @@ def train_slice(dev) -> tuple:
                           TRAIN_FP32_BATCH).next_batch()
     params = init_model(cfg32, 1, device=dev)
     FK.reset_launches()  # the fp32 kernels' training path: this phase's kernel runs
+    sync()
+    t0 = time.perf_counter()
     grads, loss_k, _ = accumulate_grads(cfg32, params, batch, microbatches=TRAIN_FP32_BATCH)
+    sync()
+    grad_s = time.perf_counter() - t0
     kernel_grads = {k: g.clone() for k, g in grad_leaves(grads)}
     with PlainAttention():
+        sync()
+        t0 = time.perf_counter()
         grads, loss_p, _ = accumulate_grads(cfg32, params, batch, microbatches=TRAIN_FP32_BATCH)
+        sync()
+        plain_s = time.perf_counter() - t0
     readings = {k: grad_rel(kernel_grads[k], g) for k, g in grad_leaves(grads)}
     loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     check(loss_rel < 1e-5, f"phase 45: fp32 loss kernel vs plain rel {loss_rel:.3e}")
@@ -3142,7 +3157,11 @@ def train_slice(dev) -> tuple:
     opt = adamw_init(params)
     step = make_train_step(cfg32, peak_lr=1e-4, warmup=1, total=10,
                            microbatches=TRAIN_FP32_BATCH)
+    sync()
+    t0 = time.perf_counter()
     params, opt, m = step(params, opt, batch)
+    sync()
+    step_s = time.perf_counter() - t0
     check(math.isfinite(float(m["loss"])), "phase 45: fp32 step loss not finite")
     counts = dict(FK.flash_attention_bhsd.launches_by_kernel)
     for e in FK.BWD_KERNELS[torch.float32]:
@@ -3151,10 +3170,11 @@ def train_slice(dev) -> tuple:
     launches[FK.KERNELS[torch.float32]] = counts[FK.KERNELS[torch.float32]]
     bwd_launches["float32"] = sum(counts[e] for e in FK.BWD_KERNELS[torch.float32])
     print(f"phase 45 fp32 at full width, {TRAIN_FP32_LAYERS} layers, {TRAIN_FP32_BATCH} x "
-          f"{TRAIN_SEQ} in {TRAIN_FP32_BATCH} microbatches: loss kernel {float(loss_k):.7f}, "
+          f"{TRAIN_SEQ} in {TRAIN_FP32_BATCH} microbatches: gradients through the kernels "
+          f"{grad_s:.3f} s, through plain attention {plain_s:.3f} s; loss kernel {float(loss_k):.7f}, "
           f"plain {float(loss_p):.7f} (rel {loss_rel:.3e}); per leaf ||d|| / ||g|| (limit "
           f"{TRAIN_FP32_TOL}): " + ", ".join(f"{k} {e:.3e}" for k, e in readings.items())
-          + f"; a train step: loss {float(m['loss']):.6f}, grad norm "
+          + f"; a train step in {step_s:.3f} s: loss {float(m['loss']):.6f}, grad norm "
           f"{float(m['grad_norm']):.4f}; launches " + ", ".join(
               f"{e} {counts[e]}" for e in (FK.KERNELS[torch.float32],
                                             *FK.BWD_KERNELS[torch.float32])), flush=True)
@@ -3185,7 +3205,7 @@ def train_slice(dev) -> tuple:
     rows = []
     csrc = "src/repro_torch/kernels/flash_attention/csrc/"
     for dtn, name, src in (("bfloat16", "flash_attention_bwd", "flash_attention_bwd_wgmma.cu"),
-                           ("float32", "flash_attention_bwd_fp32", "flash_attention_bwd.cu")):
+                           ("float32", "flash_attention_bwd_fp32", "flash_attention_bwd_tf32.cu")):
         ms, plain_ms, bound, by, lib = timing[dtn]
         rows.append(dict(name=name, route="cuda", source=csrc + src,
                          replaces="src/repro/kernels/flash_attention/kernel.py:124",
@@ -3278,19 +3298,42 @@ def main() -> int:
     check(all("TF32" in form for form in hmma_forms),
           f"{flash_lib.name}: fp32 entries issue {sorted(hmma_forms)}, not only TF32 HMMA")
     # the backward's bf16 passes take their products on wgmma (HGMMA) and
-    # their tiles by TMA (UTMALDG), with no mma.sync (HMMA); its fp32 passes
-    # and D's run on the CUDA cores (neither)
-    bwd_ops = {flash_kind(name): {op: sum(o.startswith(op) for _, _, o, _ in ins)
-                                  for op in ("HGMMA", "UTMALDG", "HMMA")}
-               for name, ins in flash_sass.items() if "bwd_" in name}
+    # their tiles by TMA (UTMALDG), with no mma.sync (HMMA); its fp32
+    # passes take theirs as TF32 mma.sync (HMMA) and their tiles by
+    # cp.async (LDGSTS), with neither HGMMA nor UTMALDG; D's holds none
+    bwd_ops, bwd_forms = {}, set()
+    for name, ins in flash_sass.items():
+        if "bwd_" in name:
+            kind = flash_kind(name)
+            bwd_ops[kind] = {op: sum(o.startswith(op) for _, _, o, _ in ins)
+                             for op in ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")}
+            if kind.startswith("bwd-f32"):
+                bwd_forms |= {o for _, _, o, _ in ins if o.startswith("HMMA")}
     check(len(bwd_ops) == 2 * len(flash_kernel.HEAD_DIMS) + 2 * 2 + 1,
           f"{flash_lib.name}: backward entries {sorted(bwd_ops)}")
     for kind, ops in bwd_ops.items():
-        wgmma = kind.startswith("bwd-wgmma")
-        check((ops["HGMMA"] > 0 and ops["UTMALDG"] > 0) == wgmma and ops["HMMA"] == 0
-              and (wgmma or ops["HGMMA"] == ops["UTMALDG"] == 0),
+        wgmma, tf32 = kind.startswith("bwd-wgmma"), kind.startswith("bwd-f32")
+        check((ops["HGMMA"] > 0) == (ops["UTMALDG"] > 0) == wgmma
+              and (ops["HMMA"] > 0) == (ops["LDGSTS"] > 0) == tf32,
               f"{flash_lib.name}: {kind} holds {ops}")
+    check(bwd_forms and all("TF32" in form for form in bwd_forms),
+          f"{flash_lib.name}: fp32 backward passes issue {sorted(bwd_forms)}, not only TF32 HMMA")
+    # the fp32 passes at every head width: registers, spills (none), and
+    # the dynamic shared memory a block, as the library reports it
     flash_dll = flash_build.load()
+    bwd32 = {k: v for k, v in ptxas_table(flash_log, flash_kind).items()
+             if k.startswith("bwd-f32")}
+    check(len(bwd32) == 2 * len(flash_kernel.HEAD_DIMS)
+          and all(s == 0 for _, s in bwd32.values()),
+          f"{flash_lib.name}: fp32 backward passes spill: {bwd32}")
+    print(f"phase 1 build: {flash_lib.name} fp32 backward passes (3xTF32 on mma.sync; "
+          f"registers / spilled / dynamic shared memory a block, SASS HMMA / LDGSTS): "
+          + ", ".join(f"{k} {r} / {s} B / "
+                      f"{flash_dll.flash_bwd_f32_smem_bytes(int(k.split('Dh')[1]), 'dq/' in k)}"
+                      f" B, {bwd_ops[k]['HMMA']} / {bwd_ops[k]['LDGSTS']}"
+                      for k, (r, s) in sorted(bwd32.items(), key=lambda kv: (
+                          kv[0].split("/")[0], int(kv[0].split("Dh")[1]))))
+          + f" ({', '.join(sorted(bwd_forms))})", flush=True)
     print(f"phase 1 build: {flash_lib.name} (dynamic shared memory a block, as the "
           f"library reports it: fp32-3xtf32 " + ", ".join(
               f"{flash_dll.flash_fwd_f32_smem_bytes(dh)} B at Dh {dh}" for dh in (64, 128))

@@ -1,18 +1,21 @@
 """Build and load the flash-attention CUDA kernels (``csrc/``).
 
-One library holds the four sources: ``flash_attention.cu`` (the fp32
+One library holds the five sources: ``flash_attention.cu`` (the fp32
 forward as three TF32 products on the tensor cores: mma.sync, cp.async;
 head widths 16..128 in steps of 16), ``flash_attention_wgmma.cu`` (the bf16
 forward, tensor cores: wgmma, TMA, mbarriers; widths padded to 64 and 128),
-``flash_attention_bwd_wgmma.cu`` (the bf16 backward's dK/dV and dQ passes,
-built as the forward is) and ``flash_attention_bwd.cu`` (the backward's
-D = rowsum(do * o) for both dtypes and its fp32 passes, on the CUDA
-cores). The two wgmma sources include ``sm90.cuh``, their PTX helpers and
-tensor maps. The library is named by a hash of every source, the header
-and the flags; the sources compile side by side, one nvcc each. The wgmma
-sources reach the driver's ``cuTensorMapEncodeTiled`` through
-``cudaGetDriverEntryPoint``, so the library links no ``-lcuda`` and the
-flags are those of every library of the port.
+``flash_attention_bwd.cu`` (the backward's D = rowsum(do * o), both
+dtypes), ``flash_attention_bwd_tf32.cu`` (the fp32 backward's dK/dV and dQ
+passes, built as the fp32 forward is) and ``flash_attention_bwd_wgmma.cu``
+(the bf16 backward's passes, built as the bf16 forward is). The two fp32
+tensor-core sources include ``sm80_tf32.cuh`` (cp.async, ldmatrix, the
+tf32 mma.sync, the 3xTF32 split), the two wgmma sources ``sm90.cuh``
+(their PTX helpers and tensor maps). The library is named by a hash of
+every source, both headers and the flags; the sources compile side by
+side, one nvcc each. The wgmma sources reach the driver's
+``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``, so the
+library links no ``-lcuda`` and the flags are those of every library of
+the port.
 """
 from __future__ import annotations
 
@@ -28,12 +31,16 @@ CSRC = Path(__file__).with_name("csrc")
 SOURCE = CSRC / "flash_attention.cu"
 #: the bf16 forward on the tensor cores
 WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"
-#: the backward's D (both dtypes) and its fp32 passes
+#: the backward's D = rowsum(do * o), both dtypes
 BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
+#: the backward's fp32 passes (3xTF32 on mma.sync)
+BWD_TF32_SOURCE = CSRC / "flash_attention_bwd_tf32.cu"
 #: the backward's bf16 passes on the tensor cores
 BWD_WGMMA_SOURCE = CSRC / "flash_attention_bwd_wgmma.cu"
 #: the PTX helpers and tensor maps the two wgmma sources include
 SM90_HEADER = CSRC / "sm90.cuh"
+#: the PTX helpers the two fp32 tensor-core sources include
+TF32_HEADER = CSRC / "sm80_tf32.cuh"
 #: the C entry point of each forward kernel, both with one signature
 ENTRY_POINTS = ("flash_fwd_f32", "flash_fwd_bf16")
 #: the backward's entry points by dtype suffix: D = rowsum(do * o), then
@@ -43,14 +50,14 @@ BWD_ENTRY_POINTS = tuple(f"{stage}_{dt}" for dt in ("f32", "bf16") for stage in 
 
 
 def sources() -> list:
-    return [SOURCE, WGMMA_SOURCE, BWD_SOURCE, BWD_WGMMA_SOURCE]
+    return [SOURCE, WGMMA_SOURCE, BWD_SOURCE, BWD_TF32_SOURCE, BWD_WGMMA_SOURCE]
 
 
 def library_path() -> Path:
-    """The library's path, named by a hash of the sources, the header they
+    """The library's path, named by a hash of the sources, the headers they
     include and the flags: an edit to any of them rebuilds."""
     h = hashlib.sha256()
-    for src in [*sources(), SM90_HEADER]:
+    for src in [*sources(), SM90_HEADER, TF32_HEADER]:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libflash_attention_{h.hexdigest()[:16]}.so"
@@ -70,8 +77,9 @@ def load() -> ctypes.CDLL:
     stream. Backward: ``flash_bwd_pre_*`` o, do, delta, rows, dh, stream;
     ``flash_bwd_dkdv_*`` and ``flash_bwd_dq_*`` q, k, v, do, lse, delta,
     out0, out1, bhq, bhkv, sq, sk, dh, causal, window, scale, stream.
-    And ``flash_fwd_f32_smem_bytes(dh)``, the fp32 forward's dynamic shared
-    memory a block."""
+    And ``flash_fwd_f32_smem_bytes(dh)`` and ``flash_bwd_f32_smem_bytes(dh,
+    dq)``, the fp32 forward's and backward passes' (the dQ pass's if ``dq``)
+    dynamic shared memory a block."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     signatures = {name: [ptr] * 5 + [i32] * 7 + [ctypes.c_float, ptr] for name in ENTRY_POINTS}
@@ -84,4 +92,6 @@ def load() -> ctypes.CDLL:
         fn.restype = i32
     lib.flash_fwd_f32_smem_bytes.argtypes = [i32]
     lib.flash_fwd_f32_smem_bytes.restype = i32
+    lib.flash_bwd_f32_smem_bytes.argtypes = [i32, i32]
+    lib.flash_bwd_f32_smem_bytes.restype = i32
     return lib

@@ -21,9 +21,11 @@ D = rowsum(do ∘ o) from ``csrc/flash_attention_bwd.cu``, then the dK/dV
 and dQ passes. bf16 passes are ``csrc/flash_attention_bwd_wgmma.cu``'s,
 built as the bf16 forward is (``wgmma``, Q/dO or K/V tiles by TMA into an
 mbarrier ring, a producer warpgroup and two consumer warpgroups; P and dS
-rounded to bf16 as the A operands of their products); fp32 passes stay on
-the CUDA cores in ``csrc/flash_attention_bwd.cu``. Both are two
-deterministic passes without atomics. The launchers themselves
+rounded to bf16 as the A operands of their products); fp32 passes are
+``csrc/flash_attention_bwd_tf32.cu``'s, built as the fp32 forward is
+(every product as three TF32 ``mma.sync`` products, Q/dO or K/V tiles by
+``cp.async`` into two stages). Both are two deterministic passes without
+atomics. The launchers themselves
 (``flash_attention_fwd``, ``flash_attention_bwd``) record no autograd
 graph, so they refuse a call that wants one rather than drop its gradient.
 

@@ -19,7 +19,14 @@ products summed 16 deep in the kernel's order, P^T and dS^T rounded to
 bf16 before dV and dK, dS before dQ. It is held, under the bf16 rule of
 phase 42 (per gradient at most twice the bf16 plain run's error plus
 1e-3), against ``attention_bwd_ref`` on the upcast inputs and against
-``jax.grad`` of the reference's ``attention_full``.
+``jax.grad`` of the reference's ``attention_full``. ``tf32x3_bwd_model``
+(``tests/test_torch_flash_kernel.py``) is the fp32 kernel's arithmetic
+(``csrc/flash_attention_bwd_tf32.cu``): every product as three TF32
+products, its tiles in their order, the group's heads in order, P in base
+2. It is held at ``CASES`` to phase 42's fp32 limit, 1e-4 per gradient in
+‖Δ‖₂/‖g‖₂, against ``attention_bwd_ref`` and ``jax.vjp`` of the
+reference's ``attention_full``; with one TF32 product, or a mask one key
+off, it misses that limit.
 """
 import jax
 import jax.numpy as jnp
@@ -38,6 +45,7 @@ from repro_torch.kernels.flash_attention.ref import (
     live_mask,
 )
 from repro_torch.kernels.rwkv6 import kernel as WK
+from test_torch_flash_kernel import tf32x3_bwd_model
 
 TOL = 1e-5
 #: (b, sq, sk, hq, hkv, dh, causal, window)
@@ -242,6 +250,58 @@ def test_wgmma_model_catches_a_leaked_mask():
     assert worst > 1
 
 
+#: the fp32 kernel against the plain backward and the reference's gradient
+#: (phase 42's fp32 limit); its model reads ~3e-7, one TF32 product ~5e-4
+FP32_LIMIT = 1e-4
+
+
+def fp32_model_errors(case, seed=6, **model):
+    """tf32x3_bwd_model's (dq, dk, dv) at ``case``, each as ‖Δ‖₂/‖g‖₂
+    against ``attention_bwd_ref`` and against ``jax.vjp`` of the reference's
+    ``attention_full``, in the (B, S, H, Dh) layout."""
+    *_, causal, window = case
+    arrays = inputs(case, seed=seed)
+    q, k, v, do = (fold(a) for a in arrays)
+    o = attention_ref(q, k, v, causal=causal, window=window)
+    lse = attention_lse_ref(q, k, causal=causal, window=window)
+    model.setdefault("causal", causal)
+    model.setdefault("window", window)
+    got = [unfold(g, case[0]) for g in tf32x3_bwd_model(q, k, v, o, do, lse, **model)]
+    plain = [unfold(g, case[0]) for g in attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                                            window=window)]
+    grads = jax.vjp(lambda qa, ka, va: ref_full(qa, ka, va, causal=causal, window=window),
+                    *(jnp.asarray(a) for a in arrays[:3]))[1](jnp.asarray(arrays[3]))
+    return ([rel(a, b) for a, b in zip(got, plain)],
+            [rel(a, np.asarray(b)) for a, b in zip(got, grads)])
+
+
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_tf32x3_bwd_model_holds_the_fp32_limit(case):
+    """The fp32 kernel's arithmetic at groups 1, 2, 5 and 6, windows, ragged
+    lengths, Sq < Sk and Sq > Sk, Dh 16/32/48: within 1e-4 of the plain
+    backward and of the reference's gradient, per gradient."""
+    plain, ref = fp32_model_errors(case)
+    assert max(plain) < FP32_LIMIT, plain
+    assert max(ref) < FP32_LIMIT, ref
+
+
+def test_one_tf32_product_misses_the_fp32_limit():
+    """Why every product of the fp32 backward is three TF32 products: one
+    keeps 11 bits and lands several times outside 1e-4."""
+    plain, ref = fp32_model_errors(CASES[5], products=1)
+    assert min(plain) > 3 * FP32_LIMIT and min(ref) > 3 * FP32_LIMIT, (plain, ref)
+
+
+def test_tf32x3_bwd_model_catches_a_leaked_mask():
+    """The model with the first masked key of each row let through (a mask
+    one off, over every tile) misses the fp32 limit by orders of magnitude:
+    the limit can fail."""
+    case = CASES[0]
+    live = torch.ones(case[1], case[2], dtype=torch.bool).tril(1)  # key q + 1 leaks
+    plain, ref = fp32_model_errors(case, causal=False, live=live)
+    assert min(plain) > 1e3 * FP32_LIMIT and min(ref) > 1e3 * FP32_LIMIT, (plain, ref)
+
+
 @pytest.mark.parametrize("case", CASES, ids=case_id)
 def test_lse_matches_float64(case):
     b, sq, sk, hq, hkv, dh, causal, window = case
@@ -313,15 +373,20 @@ def test_counts_name_every_entry():
                                              "flash_bwd_dq_bf16")
     from repro_torch.kernels.flash_attention import _build
 
-    # D and the fp32 passes in flash_attention_bwd.cu, the bf16 passes (on
-    # wgmma, no mma.sync) in flash_attention_bwd_wgmma.cu; each entry once
-    srcs = {p: p.read_text() for p in (_build.BWD_SOURCE, _build.BWD_WGMMA_SOURCE)}
-    wgmma = {"flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16"}
+    # D in flash_attention_bwd.cu, the fp32 passes (3xTF32 on mma.sync,
+    # through sm80_tf32.cuh) in flash_attention_bwd_tf32.cu, the bf16 passes
+    # (on wgmma, no mma.sync) in flash_attention_bwd_wgmma.cu; each entry once
+    srcs = {p: p.read_text() for p in (_build.BWD_SOURCE, _build.BWD_TF32_SOURCE,
+                                        _build.BWD_WGMMA_SOURCE)}
+    homes = {"flash_bwd_dkdv_bf16": _build.BWD_WGMMA_SOURCE,
+             "flash_bwd_dq_bf16": _build.BWD_WGMMA_SOURCE,
+             "flash_bwd_dkdv_f32": _build.BWD_TF32_SOURCE,
+             "flash_bwd_dq_f32": _build.BWD_TF32_SOURCE}
     for entry in _build.BWD_ENTRY_POINTS:
-        home = _build.BWD_WGMMA_SOURCE if entry in wgmma else _build.BWD_SOURCE
+        home = homes.get(entry, _build.BWD_SOURCE)
         assert f'extern "C" int {entry}(' in srcs[home]
         assert sum(f'extern "C" int {entry}(' in s for s in srcs.values()) == 1
-    assert all("mma.sync" not in s for s in srcs.values())
+    assert all("mma.sync" not in srcs[p] for p in (_build.BWD_SOURCE, _build.BWD_WGMMA_SOURCE))
     for src in srcs.values():
         assert "atomicAdd" not in src  # deterministic: no block adds into another's output
 

@@ -1,6 +1,7 @@
-"""The flash-attention backward kernel (``csrc/flash_attention_bwd.cu``) and
-the forward kernels' row log-sum-exp against their plain versions, on the
-card. Every test here is marked ``cuda`` and skips without a CUDA device;
+"""The flash-attention backward kernels (D from ``csrc/flash_attention_bwd.cu``,
+the passes from ``csrc/flash_attention_bwd_tf32.cu`` in fp32 and
+``csrc/flash_attention_bwd_wgmma.cu`` in bf16) and the forward kernels' row
+log-sum-exp against their plain versions, on the card. Every test here is marked ``cuda`` and skips without a CUDA device;
 the file imports no JAX, so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_bwd_cuda.py
@@ -13,7 +14,9 @@ FlashAttention's own rule, the kernel's error against the fp32 plain run
 on the same (upcast) inputs at most twice the bf16 plain run's plus 1e-3.
 The LSE within 1e-4 (fp32) and 5e-4 (bf16) of ``attention_lse_ref``: a row's
 log-sum-exp is ~10 and both kernels sum fp32 weights of exact or 3xTF32
-scores. Two runs of the kernel give the same bits.
+scores. Two runs of the kernel give the same bits. The fp32 passes are
+also held to ``tf32x3_bwd_model`` (their arithmetic in plain torch, from
+``tests/test_torch_flash_kernel.py``) at small shapes, every head width.
 """
 import math
 
@@ -30,6 +33,7 @@ from repro_torch.kernels.flash_attention.ref import (
 from repro_torch.kernels.rwkv6 import kernel as WK
 from repro_torch.launch import steps
 from repro_torch.models import init_model
+from test_torch_flash_kernel import tf32x3_bwd_model
 
 FP32_TOL = 1e-4
 BF16_SLACK = 1e-3
@@ -48,6 +52,27 @@ SHAPES = [
     ("ragged-sq-lt-sk", 4, 2, 65, 300, 80, True, None),
 ]
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+#: the fp32 passes against their model: every head width, GQA groups 1-6,
+#: windows, ragged lengths about the steps (32 or 64 rows) and blocks (64
+#: keys, 128 rows), Sq < Sk and Sq > Sk (b·h, b·hkv, sq, sk, dh, causal,
+#: window)
+MODEL_SHAPES = [
+    (2, 2, 40, 40, 16, True, None),
+    (4, 2, 37, 37, 32, True, 9),
+    (5, 1, 333, 333, 48, True, 100),
+    (6, 1, 200, 200, 64, True, 12),
+    (4, 2, 65, 300, 80, True, None),
+    (2, 1, 130, 130, 96, True, None),
+    (2, 2, 30, 50, 112, False, 10),
+    (4, 4, 45, 20, 128, False, None),
+    (6, 2, 300, 300, 128, True, None),
+]
+#: kernel against model, per gradient in ‖Δ‖₂/‖g‖₂: both take the same
+#: operand bits and differ in the order and rounding of fp32 sums (the
+#: tensor core truncates its inner sums) and in ex2.approx; a host
+#: emulation with exact inner sums reads 2-5e-7 (tools/sm90_emu.py --fp32),
+#: one TF32 product alone ~5e-4
+MODEL_TOL = 1e-5
 
 
 @pytest.fixture
@@ -103,6 +128,22 @@ def test_backward_kernel_matches_plain(cuda_device, shape, dt):
         assert e < lim, (name, e, lim)
     assert lse_err < LSE_TOL[dtype]
     assert same, "two runs of the backward kernel differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MODEL_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_fp32_kernel_matches_its_model(cuda_device, shape):
+    bhq, bhkv, sq, sk, dh, causal, window = shape
+    rng = np.random.default_rng(26)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((h, s, dh), np.float32))
+                   for h, s in ((bhq, sq), (bhkv, sk), (bhkv, sk), (bhq, sq)))
+    card = [x.to(cuda_device) for x in (q, k, v, do)]
+    with torch.no_grad():
+        o, lse = K.flash_attention_fwd(*card[:3], causal=causal, window=window, with_lse=True)
+        got = K.flash_attention_bwd(*card[:3], o, card[3], lse, causal=causal, window=window)
+    want = tf32x3_bwd_model(q, k, v, o.cpu(), do, lse.cpu(), causal=causal, window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert rel(a.cpu(), b) < MODEL_TOL, (name, rel(a.cpu(), b))
 
 
 @pytest.mark.cuda

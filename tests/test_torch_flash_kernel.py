@@ -12,10 +12,13 @@ no JAX, so it runs on a machine with the card:
 
 The rest run anywhere: CPU tensors take the plain version and count no
 launch, the wrapper refuses inputs that do not fit together, each dtype
-names its kernel, the library's name hashes every source,
-``tf32x3_model`` holds the fp32 tolerance where one TF32 product does not,
+names its kernel, the library's name hashes every source and header, the
+fp32 sources take their PTX from ``sm80_tf32.cuh``, ``tf32x3_model``
+holds the fp32 tolerance where one TF32 product does not,
 and ``BF16_REL_TOL`` passes ``bf16_model`` and fails a planted tail leak at
-whisper's non-causal shapes.
+whisper's non-causal shapes. ``tf32x3_bwd_model`` is the fp32 backward's
+arithmetic, held on the CPU in ``tests/test_torch_flash_bwd.py`` and
+against the kernel on the card in ``tests/test_torch_flash_bwd_cuda.py``.
 """
 import math
 
@@ -26,7 +29,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels.flash_attention import _build
 from repro_torch.kernels.flash_attention import kernel as K
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref, live_mask
 from repro_torch.models import forward, init_model
 
 # (b, sq, sk, hq, hkv, dh, causal, window, dtype): tests/test_kernels_flash.py
@@ -208,6 +211,92 @@ def tf32x3_model(q, k, v, *, causal=True, window=None, products=3):
     return out
 
 
+#: the fp32 backward's keys a dK/dV block and query rows a dQ block
+BWD_BKV, BWD_BQ = 64, 128
+
+
+def bwd_step(dh):
+    """The query rows (dK/dV) or keys (dQ) a step of the fp32 backward
+    streams."""
+    return 64 if dh <= 64 else 32
+
+
+def tf32x3_bwd_model(q, k, v, o, do, lse, *, causal=True, window=None, products=3,
+                     live=None):
+    """The arithmetic of ``csrc/flash_attention_bwd_tf32.cu`` in plain torch:
+    (dq, dk, dv) fp32 from q, k, v, o, do (B·H, S, Dh) fp32 and the rows'
+    LSE, with D = rowsum(do o) in fp32 (the D launch). Q, dO, LSE and D are
+    zero-filled past Sq, K and V past Sk. dK/dV: blocks of ``BWD_BKV`` keys
+    walk, for each query head of the group in order, the ``bwd_step``-row
+    tiles of queries in the block's reach, in order: S^T = K Q^T and
+    dP^T = V dO^T (``tf32_product``: the small products first),
+    P^T = 2^(S^T·scale·log2 e − lse·log2 e) on live pairs and exactly 0
+    elsewhere, dS^T = P^T (dP^T − D), then dV += P^T dO and dK += dS^T Q.
+    dQ: blocks of ``BWD_BQ`` rows walk the ``bwd_step``-key tiles in reach: S,
+    P, dP = dO V^T, dS, dQ += dS K. Every product is three TF32 products
+    (``products=1``: a_hi b_hi alone), and a step's dV, dK or dQ product is
+    summed apart before it is added; dK and dQ end times the scale.
+    ``live`` (Sq, Sk) replaces the mask of ``causal`` and ``window``, not
+    the tiles they reach."""
+    bhq, sq, dh = q.shape
+    bhkv, sk, _ = k.shape
+    grp = bhq // bhkv
+    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32)
+    log2e = torch.tensor(LOG2E, dtype=torch.float32)
+    sl2 = scale * log2e
+    if live is None:
+        live = live_mask(sq, sk, causal=causal, window=window)
+    n_q, n_k = -(-sq // BWD_BQ) * BWD_BQ, -(-sk // BWD_BKV) * BWD_BKV
+
+    def pad(x, n):  # zeros past the length, along dim 1
+        return torch.nn.functional.pad(x.float(), (0, 0) * (x.ndim - 2) + (0, n - x.shape[1]))
+
+    qf, dof = pad(q, n_q), pad(do, n_q)
+    kf, vf = pad(k, n_k), pad(v, n_k)
+    l2 = pad(lse, n_q) * log2e
+    d = pad((do.float() * o.float()).sum(-1), n_q)
+    lv = torch.zeros(n_q, n_k, dtype=torch.bool)
+    lv[:sq, :sk] = live
+
+    bs = bwd_step(dh)
+
+    def tiles(lo, hi):  # the steps' starts over [lo, hi)
+        return range(lo // bs * bs, hi, bs) if lo < hi else range(0)
+
+    dk, dv = torch.zeros(bhkv, n_k, dh), torch.zeros(bhkv, n_k, dh)
+    for k0 in range(0, sk, BWD_BKV):
+        keys = slice(k0, k0 + BWD_BKV)
+        q_lo = k0 if causal else 0
+        q_hi = min(sq, min(k0 + BWD_BKV, sk) - 1 + window) if window is not None else sq
+        for h in range(grp):
+            heads = slice(h, bhq, grp)  # query head h of each kv head's group
+            for q0 in tiles(q_lo, q_hi):
+                rows = slice(q0, q0 + bs)
+                qt, dot = qf[heads, rows], dof[heads, rows]
+                st = tf32_product(kf[:, keys], qt.transpose(1, 2), products)
+                pt = torch.exp2(st * sl2 - l2[heads, rows][:, None, :])
+                pt = torch.where(lv[rows, keys].T[None], pt, torch.zeros(()))
+                dpt = tf32_product(vf[:, keys], dot.transpose(1, 2), products)
+                dst = pt * (dpt - d[heads, rows][:, None, :])
+                dv[:, keys] += tf32_product(pt, dot, products)
+                dk[:, keys] += tf32_product(dst, qt, products)
+    kg, vg = kf.repeat_interleave(grp, 0), vf.repeat_interleave(grp, 0)
+    dq = torch.zeros(bhq, n_q, dh)
+    for q0 in range(0, sq, BWD_BQ):
+        rows = slice(q0, q0 + BWD_BQ)
+        k_lo = max(0, q0 - window + 1) if window is not None else 0
+        k_hi = min(sk, min(q0 + BWD_BQ, sq)) if causal else sk
+        for kt0 in tiles(k_lo, k_hi):
+            keys = slice(kt0, kt0 + bs)
+            s = tf32_product(qf[:, rows], kg[:, keys].transpose(1, 2), products)
+            p = torch.exp2(s * sl2 - l2[:, rows][..., None])
+            p = torch.where(lv[rows, keys][None], p, torch.zeros(()))
+            dp = tf32_product(dof[:, rows], vg[:, keys].transpose(1, 2), products)
+            ds = p * (dp - d[:, rows][..., None])
+            dq[:, rows] += tf32_product(ds, kg[:, keys], products)
+    return dq[:, :sq] * scale, dk[:, :sk] * scale, dv[:, :sk]
+
+
 #: the bf16 kernel's key tile: K and V are zero-filled past Sk up to it
 BF16_BK = 128
 
@@ -290,25 +379,52 @@ def test_each_dtype_names_its_kernel():
     for op in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait", "setmaxnreg"):
         assert op in tensor_cores + header and op not in cores
     assert _build.sources() == [_build.SOURCE, _build.WGMMA_SOURCE, _build.BWD_SOURCE,
-                                _build.BWD_WGMMA_SOURCE]
+                                _build.BWD_TF32_SOURCE, _build.BWD_WGMMA_SOURCE]
 
 
 def test_fp32_source_takes_three_tf32_products_on_the_tensor_cores():
     """The fp32 kernel issues tf32 mma.sync, takes its fragments by
-    ldmatrix, brings its tiles in by cp.async and reports its shared memory
-    to the host."""
-    cores = _build.SOURCE.read_text()
+    ldmatrix, brings its tiles in by cp.async (the helpers of
+    ``sm80_tf32.cuh``, which it includes) and reports its shared memory to
+    the host."""
+    cores, header = _build.SOURCE.read_text(), _build.TF32_HEADER.read_text()
+    assert '#include "sm80_tf32.cuh"' in cores
     for op in ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
-               "cp.async.cg.shared.global", "ldmatrix.sync.aligned",
-               'extern "C" int flash_fwd_f32_smem_bytes('):
-        assert op in cores, op
+               "cp.async.cg.shared.global", "ldmatrix.sync.aligned"):
+        assert op in header, op
+    for helper in ("mma_tf32(", "ldsm_x4(", "cp_async16(", "split(",
+                   'extern "C" int flash_fwd_f32_smem_bytes('):
+        assert helper in cores, helper
+
+
+def test_fp32_backward_source_takes_three_tf32_products_and_cp_async():
+    """The fp32 backward's passes issue tf32 mma.sync (three products a
+    pair of operands), take their fragments by ldmatrix and their tiles by
+    cp.async, all through ``sm80_tf32.cuh`` (where every PTX statement of
+    the fp32 kernels lives), with no atomics, wgmma or TMA;
+    ``flash_attention_bwd.cu`` keeps D alone."""
+    bwd, header = _build.BWD_TF32_SOURCE.read_text(), _build.TF32_HEADER.read_text()
+    assert '#include "sm80_tf32.cuh"' in bwd and "asm" not in bwd
+    for op in ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32", "cp.async.cg.shared.global",
+               "cp.async.ca.shared.global", "cp.async.wait_group", "ldmatrix.sync.aligned"):
+        assert op in header, op
+    for helper in ("mma_tf32(", "ldsm_x4(", "cp_async16(", "cp_async4(", "cp_async_wait_all(",
+                   "split(", 'extern "C" int flash_bwd_f32_smem_bytes('):
+        assert helper in bwd, helper
+    for src in (bwd, header):
+        assert not any(x in src for x in ("atomicAdd", "wgmma.mma_async", "wgmma_",
+                                          "cp.async.bulk", "tma_load", "mbar_", "sm90.cuh"))
+    d_only = _build.BWD_SOURCE.read_text()
+    assert "flash_bwd_pre_f32(" in d_only and "flash_bwd_pre_bf16(" in d_only
+    assert not any(x in d_only for x in ('extern "C" int flash_bwd_dkdv', 'extern "C" int flash_bwd_dq',
+                                         "_kernel<DH>", "mma_tf32(", "cp_async", "asm"))
 
 
 def test_bf16_backward_source_takes_wgmma_and_tma():
     """The bf16 backward's passes issue wgmma and take their tiles by TMA
     (the helpers of ``sm90.cuh``, where every PTX statement of the bf16
-    kernels lives), with no mma.sync and no atomics; the fp32 backward
-    keeps neither."""
+    kernels lives), with no mma.sync and no atomics; D's source and the
+    fp32 passes' keep neither wgmma nor TMA."""
     bwd, header = _build.BWD_WGMMA_SOURCE.read_text(), _build.SM90_HEADER.read_text()
     for op in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait", "setmaxnreg"):
         assert op in header, op
@@ -318,8 +434,8 @@ def test_bf16_backward_source_takes_wgmma_and_tma():
     assert "asm" not in bwd  # the PTX is the header's
     for src in (bwd, header, _build.BWD_SOURCE.read_text()):
         assert "mma.sync" not in src and "atomicAdd" not in src
-    fp32 = _build.BWD_SOURCE.read_text()
-    assert not any(x in fp32 for x in ("wgmma_", "tma_load", "sm90.cuh"))
+    for src in (_build.BWD_SOURCE, _build.BWD_TF32_SOURCE, _build.TF32_HEADER):
+        assert not any(x in src.read_text() for x in ("wgmma_", "tma_load", "sm90.cuh"))
 
 
 def test_tf32_rounds_to_nearest_ties_away_and_splits_exactly():
@@ -383,8 +499,8 @@ def test_bf16_model_holds_the_relative_limit(case):
     assert rel_norm(bf16_model(q, k, v, causal=causal, window=window), want) < BF16_REL_TOL
 
 
-@pytest.mark.parametrize("attr", ["SOURCE", "WGMMA_SOURCE", "BWD_SOURCE", "BWD_WGMMA_SOURCE",
-                                  "SM90_HEADER"])
+@pytest.mark.parametrize("attr", ["SOURCE", "WGMMA_SOURCE", "BWD_SOURCE", "BWD_TF32_SOURCE",
+                                  "BWD_WGMMA_SOURCE", "SM90_HEADER", "TF32_HEADER"])
 def test_library_name_hashes_every_source(tmp_path, monkeypatch, attr):
     first = _build.library_path()
     src = tmp_path / getattr(_build, attr).name

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""bf16 flash-attention backward kernels side by side on one card, in turns.
+"""Flash-attention backward kernels side by side on one card, in turns.
 
-    python3 tools/flash_bwd_ab.py OTHER.cu [OTHER.cu ...]
+    python3 tools/flash_bwd_ab.py [--fp32] OTHER.cu [OTHER.cu ...]
 
-Each OTHER.cu is a bf16 backward source with the C entries
+Each OTHER.cu is a backward source with the C entries
 ``flash_bwd_dkdv_bf16`` and ``flash_bwd_dq_bf16`` of
-``csrc/flash_attention_bwd_wgmma.cu`` (for instance an earlier commit's
+``csrc/flash_attention_bwd_wgmma.cu`` or, with ``--fp32``,
+``flash_bwd_dkdv_f32`` and ``flash_bwd_dq_f32`` of
+``csrc/flash_attention_bwd_tf32.cu`` (for instance an earlier commit's
 ``csrc/flash_attention_bwd.cu``, from ``git show <commit>:src/repro_torch/
 kernels/flash_attention/csrc/flash_attention_bwd.cu``, or a variant of the
 port's source). Each is built with the port's nvcc flags, and ``csrc/`` on
 the include path, into its own library under ``build/flash_bwd_ab/``; the
 port's library is built as ``_build.build`` makes it. D = rowsum(do * o) is
-the port's ``flash_bwd_pre_bf16`` for every source.
+the port's ``flash_bwd_pre_*`` for every source.
 
 It prints the card's name and power limit first, then each library's
 registers and spills from its ``-Xptxas -v`` report. Then, at the model
@@ -23,8 +25,10 @@ turns (port, the others, the others again in reverse, port):
 * the backward's CUDA-event time (its three launches), and the dK/dV and
   dQ passes' times alone;
 * each gradient's ||err||_2 / ||g||_2 against ``attention_bwd_ref`` in fp32
-  on the same (upcast) inputs, beside the limit phase 42 holds it to (twice
-  the bf16 plain run's error plus 1e-3).
+  on the same (upcast) inputs, beside the limit phase 42 holds it to (bf16:
+  twice the bf16 plain run's error plus 1e-3; fp32: 1e-4);
+* the bound: 10 Dh FLOP a live pair at the bf16 peak, or in fp32 three
+  TF32 products each at the TF32 peak.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "flash_bwd_ab"
-PASSES = ("flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16")
+PASSES = {dt: (f"flash_bwd_dkdv_{dt}", f"flash_bwd_dq_{dt}") for dt in ("bf16", "f32")}
 
 
 def build(src: Path, name: str) -> Path:
@@ -50,9 +54,9 @@ def build(src: Path, name: str) -> Path:
     return compile_library(lib, [src], [*NVCC_FLAGS, "-I", str(_build.CSRC)])
 
 
-def bind(path: Path) -> ctypes.CDLL:
+def bind(path: Path, passes) -> ctypes.CDLL:
     dll = ctypes.CDLL(str(path))
-    for entry in PASSES:
+    for entry in passes:
         fn = getattr(dll, entry)
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                                      ctypes.c_void_p]
@@ -61,13 +65,13 @@ def bind(path: Path) -> ctypes.CDLL:
 
 
 class Mixed:
-    """The port's library with the bf16 dK/dV and dQ entries of another."""
+    """The port's library with the dK/dV and dQ entries ``passes`` of another."""
 
-    def __init__(self, port, other):
-        self.port, self.other = port, other
+    def __init__(self, port, other, passes):
+        self.port, self.other, self.passes = port, other, passes
 
     def __getattr__(self, name):
-        return getattr(self.other if name in PASSES else self.port, name)
+        return getattr(self.other if name in self.passes else self.port, name)
 
 
 def main(argv) -> int:
@@ -79,9 +83,13 @@ def main(argv) -> int:
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
+    fp32 = "--fp32" in argv
+    argv = [a for a in argv if a != "--fp32"]
     if not torch.cuda.is_available() or not argv:
         print(__doc__, file=sys.stderr)
         return 2
+    passes = PASSES["f32" if fp32 else "bf16"]
+    dtype = torch.float32 if fp32 else torch.bfloat16
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
@@ -91,16 +99,17 @@ def main(argv) -> int:
     for i, src in enumerate(argv):
         name = f"{i + 1}:{Path(src).name}"
         paths[name] = build(Path(src), f"other{i + 1}")
-        libs[name] = Mixed(port, bind(paths[name]))
+        libs[name] = Mixed(port, bind(paths[name], passes), passes)
 
-    def kind(entry):  # the bf16 passes of this source and of earlier ones
+    def kind(entry):  # the passes of this source and of earlier ones
         m = re.search(r"bwd_(dkdv|dq)_mma_kernelILi(\d+)E", entry)
         return f"bwd-mma-{m[1]}/Dh{m[2]}" if m else CS.flash_kind(entry)
 
+    ours = ("bwd-f32",) if fp32 else ("bwd-wgmma", "bwd-mma")
     for name, path in paths.items():
         summary = CS.ptxas_summary(path.with_suffix(".log").read_text(), kind)
         print(f"{name} ({path.name}) ptxas: " + ", ".join(
-            s for s in summary.split(", ") if s.startswith(("bwd-wgmma", "bwd-mma"))), flush=True)
+            s for s in summary.split(", ") if s.startswith(ours)), flush=True)
     names = list(libs)
     order = names + names[::-1]  # port, the others, the others reversed, port
     saved = _build.load
@@ -110,15 +119,19 @@ def main(argv) -> int:
             if label.startswith("ragged"):
                 continue
             g = torch.Generator(device=dev).manual_seed(420 + n)
-            q, k, v, do = (torch.randn(h, s, dh, generator=g, device=dev).bfloat16()
+            q, k, v, do = (torch.randn(h, s, dh, generator=g, device=dev).to(dtype)
                            for h, s in ((bhq, sq), (bhkv, sk), (bhkv, sk), (bhq, sq)))
             with torch.no_grad():
                 o, lse = FK.flash_attention_fwd(q, k, v, causal=causal, window=w, with_lse=True)
                 want = attention_bwd_ref(*(x.float() for x in (q, k, v, o, do)), lse,
                                          causal=causal, window=w)
-                plain = attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=w)
-                limits = [2 * CS.grad_rel(a, b) + CS.BWD_BF16_SLACK for a, b in zip(plain, want)]
-                del plain
+                if fp32:
+                    limits = [CS.BWD_FP32_TOL] * 3
+                else:
+                    plain = attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=w)
+                    limits = [2 * CS.grad_rel(a, b) + CS.BWD_BF16_SLACK
+                              for a, b in zip(plain, want)]
+                    del plain
                 delta = (do.float() * o.float()).sum(-1)
                 outs = [torch.empty_like(x) for x in (k, v, q)]
                 tail = (bhq, bhkv, sq, sk, dh, int(causal), 0 if w is None else w,
@@ -126,7 +139,7 @@ def main(argv) -> int:
                 ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                        delta.data_ptr())
                 errs, times = {}, {x: [] for x in names}
-                passes = {x: {p: [] for p in PASSES} for x in names}
+                per_pass = {x: {p: [] for p in passes} for x in names}
                 for name in names:
                     _build.load = lambda name=name: libs[name]
                     got = FK.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=w)
@@ -137,20 +150,22 @@ def main(argv) -> int:
                     _build.load = lambda name=name: libs[name]
                     times[name].append(CS.time_ms(lambda: FK.flash_attention_bwd(
                         q, k, v, o, do, lse, causal=causal, window=w), 5))
-                    for entry, outs_ in ((PASSES[0], (outs[0].data_ptr(), outs[1].data_ptr())),
-                                         (PASSES[1], (outs[2].data_ptr(), None))):
+                    for entry, outs_ in ((passes[0], (outs[0].data_ptr(), outs[1].data_ptr())),
+                                         (passes[1], (outs[2].data_ptr(), None))):
                         fn = getattr(lib, entry)
-                        passes[name][entry].append(CS.time_ms(
+                        per_pass[name][entry].append(CS.time_ms(
                             lambda: fn(*ins, *outs_, *tail), 5))
             pairs = sum(min(i + 1 if causal else sk, sk) - max(0, i - w + 1 if w else 0)
                         for i in range(sq)) * bhq
-            bound = 10 * dh * pairs / CS.BF16_FLOP_PER_S * 1e3
+            flop = 10 * dh * pairs
+            bound = (3 * flop / CS.TF32_FLOP_PER_S if fp32 else flop / CS.BF16_FLOP_PER_S) * 1e3
             mean = lambda x: sum(x) / len(x)
-            print(f"{label} (BHq {bhq}, BHkv {bhkv}, Sq {sq}, Sk {sk}, Dh {dh}, "
+            print(f"{label} ({dtype}, BHq {bhq}, BHkv {bhkv}, Sq {sq}, Sk {sk}, Dh {dh}, "
                   f"{'causal' if causal else 'non-causal'}, window {w}; bound {bound:.4f} ms, "
-                  f"10 Dh FLOP a live pair): " + "; ".join(
+                  f"10 Dh FLOP a live pair{', 3xTF32' if fp32 else ''}): " + "; ".join(
                       f"{x} {mean(times[x]):.4f} ms ({' / '.join(f'{t:.4f}' for t in times[x])}; "
-                      f"dK/dV {mean(passes[x][PASSES[0]]):.4f}, dQ {mean(passes[x][PASSES[1]]):.4f}), "
+                      f"dK/dV {mean(per_pass[x][passes[0]]):.4f}, "
+                      f"dQ {mean(per_pass[x][passes[1]]):.4f}), "
                       f"dq/dk/dv {'/'.join(f'{e:.3e}' for e in errs[x])}"
                       for x in names)
                   + " (limits " + "/".join(f"{x:.3e}" for x in limits) + ")", flush=True)

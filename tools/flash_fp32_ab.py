@@ -18,7 +18,10 @@ again in reverse, port):
 * the host time (synchronised) of phase 9's full-width fp32 internlm2-1.8b
   prefill of 4 x 2048 tokens, with that kernel in every layer, warmed.
 
-It prints the card's name and power limit first. After the timings come
+It prints the card's name and power limit first, then whether each other
+source's forward kernel issues the port's SASS, instruction for
+instruction, at every head width (``cuobjdump -sass``; opcodes and
+operands, addresses aside). After the timings come
 two probes of the instruction the fp32 kernel is built on: what the port's
 ``ldsm_x4`` and ``mma_tf32`` give on one warp against float64 products of
 their operands with the 13 low bits cleared and with them rounded (which
@@ -42,11 +45,12 @@ OUT = ROOT / "build" / "flash_fp32_ab"
 
 def build(src: Path, name: str, entry: str = "flash_fwd_f32") -> ctypes.CDLL:
     from repro_torch._nvcc import NVCC_FLAGS, compile_library
+    from repro_torch.kernels.flash_attention import _build
 
     OUT.mkdir(parents=True, exist_ok=True)
     lib = OUT / f"lib{name}.so"
     lib.unlink(missing_ok=True)
-    compile_library(lib, [src], list(NVCC_FLAGS))
+    compile_library(lib, [src], [*NVCC_FLAGS, "-I", str(_build.CSRC)])
     dll = ctypes.CDLL(str(lib))
     if entry == "flash_fwd_f32":
         dll.flash_fwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
@@ -157,6 +161,18 @@ def fragment_probe() -> str:
             f"{float((got - rounded).abs().max()):.3e}")
 
 
+def same_sass(port: Path, other: Path, CS) -> str:
+    """For each head width, whether the forward kernel of ``other`` issues
+    the SASS of the port's, instruction for instruction (predicate, opcode,
+    operands; addresses aside), with the two instruction counts."""
+    fwd = [{CS.flash_kind(n): [i[1:] for i in ins] for n, ins in
+            CS.sass_functions(CS.library_sass(lib)).items() if "flash_fwd_kernel" in n}
+           for lib in (port, other)]
+    return ", ".join(f"{kind} {'same' if ins == fwd[1].get(kind) else 'DIFFERS'} "
+                     f"({len(ins)} / {len(fwd[1].get(kind, []))})"
+                     for kind, ins in sorted(fwd[0].items()))
+
+
 def mma_ceiling(CS) -> str:
     """TFLOP/s of back-to-back tf32 mma.sync.m16n8k8 (2048 FLOP each) for
     (warps a block, accumulators a warp), one block an SM."""
@@ -201,6 +217,8 @@ def main(argv) -> int:
     libs = {"port": FK._build.load()}
     for i, src in enumerate(argv):
         libs[f"{i + 1}:{Path(src).name}"] = build(Path(src), f"other{i + 1}")
+        print(f"SASS of {i + 1}:{Path(src).name} against the port's forward: "
+              + same_sass(FK._build.build(), OUT / f"libother{i + 1}.so", CS), flush=True)
     names = list(libs)
     order = names + names[::-1]  # port, the others, the others reversed, port
     saved = FK._build.load

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The bf16 flash kernels (forward and backward) on host threads, without a card.
+"""The flash kernels (forward and backward) on host threads, without a card.
 
-    python3 tools/sm90_emu.py [--csrc DIR] [CASE ...]
+    python3 tools/sm90_emu.py [--csrc DIR] [--fp32] [CASE ...]
 
 Builds ``csrc/flash_attention_wgmma.cu`` and ``csrc/flash_attention_bwd_wgmma.cu``
 with g++ into ``build/sm90_emu/libemu.so``: ``sm90.cuh``'s block between its
@@ -28,6 +28,19 @@ and the backward's two passes (D from plain torch) against
 catches logic faults (masks, tile ranges, ring phases, the order of
 arrivals) before a chip call; a case takes a few seconds. ``--csrc`` builds
 another copy of the sources (a variant, or a copy with a planted fault).
+
+``--fp32`` builds the fp32 kernels instead, ``csrc/flash_attention.cu``
+(the forward) and ``csrc/flash_attention_bwd_tf32.cu`` (the backward's
+passes), into ``build/sm90_emu/libemu_fp32.so``: ``sm80_tf32.cuh``'s PTX
+block is swapped for ``tools/sm90_emu/emu_tf32.h`` (cp.async as copies
+made at the thread's wait, ldmatrix and the tf32 mma.sync as exchanges
+among a warp's lanes, operands read with their 13 low bits cleared). Each
+case then holds the forward to ``tf32x3_model`` (1e-5 max |err|, the
+card's limit: the forward is proven on the card, so this checks the
+emulator) and ``attention_ref``, and the backward's passes (D from plain
+torch) to ``tf32x3_bwd_model`` and, per gradient, to ``attention_bwd_ref``
+within 1e-4 in ||err||_2 / ||g||_2 (phase 42's fp32 limit); both models
+are ``tests/test_torch_flash_kernel.py``'s.
 """
 from __future__ import annotations
 
@@ -84,6 +97,32 @@ def build(csrc: Path) -> Path:
     return lib
 
 
+def build_fp32(csrc: Path) -> Path:
+    """The host build of the two fp32 tensor-core sources in ``csrc``."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    hdr = (csrc / "sm80_tf32.cuh").read_text()
+    hdr = hdr.replace("#include <cuda_runtime.h>\n#include <stdint.h>\n",
+                      '#include "emu_cuda.h"\n')
+    hdr = re.sub(r"// -+ PTX helpers\n.*?// -+ end PTX helpers\n", '#include "emu_tf32.h"\n',
+                 hdr, flags=re.S)
+    (OUT / "sm80_tf32_emu.h").write_text(hdr)
+    objs = []
+    for name in ("flash_attention.cu", "flash_attention_bwd_tf32.cu"):
+        t = (csrc / name).read_text()
+        t = t.replace('#include "sm80_tf32.cuh"', '#include "sm80_tf32_emu.h"')
+        t = t.replace("#include <cuda_runtime.h>\n", "")
+        t = t.replace("#include <math.h>", '#include "emu_cuda.h"\n#include <math.h>')
+        t = t.replace("extern __shared__ float4 smem4[];", "float4* smem4 = (float4*)emu_smem();")
+        t = re.sub(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", t, flags=re.S)
+        src = OUT / (name[:-3] + "_emu.cpp")
+        src.write_text(t)
+        objs.append(str(src))
+    lib = OUT / "libemu_fp32.so"
+    subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-I", str(EMU),
+                    "-I", str(OUT), "-o", str(lib), *objs], check=True)
+    return lib
+
+
 def rel(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
 
@@ -126,20 +165,89 @@ def run_case(lib, bhq, bhkv, sq, sk, dh, causal, window, seed=0) -> bool:
     return ok
 
 
+#: (bhq, bhkv, sq, sk, dh, causal, window): every head width the fp32
+#: kernels take, GQA groups 1, 2, 5 and 6, windows, Sq < Sk and Sq > Sk,
+#: lengths ragged about the steps (32 or 64 rows) and blocks (64 keys, 128
+#: rows)
+FP32_CASES = [
+    (2, 2, 40, 40, 16, True, None),
+    (4, 2, 37, 37, 32, True, 9),
+    (5, 1, 150, 150, 48, True, 40),
+    (6, 1, 50, 50, 64, True, 12),
+    (4, 2, 20, 45, 80, False, None),
+    (2, 1, 130, 130, 96, True, None),
+    (2, 2, 30, 50, 112, False, 10),
+    (4, 4, 45, 20, 128, False, None),
+    (2, 1, 140, 300, 128, True, None),
+]
+#: the fp32 backward against its model: the two differ in the order and
+#: rounding of fp32 sums only
+BWD_MODEL_TOL = 1e-5
+
+
+def run_case_fp32(lib, bhq, bhkv, sq, sk, dh, causal, window, seed=0) -> bool:
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_flash_kernel import MODEL_TOL, tf32x3_bwd_model, tf32x3_model
+
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref,
+        attention_lse_ref,
+        attention_ref,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(h, s, dh, generator=g)
+                   for h, s in ((bhq, sq), (bhkv, sk), (bhkv, sk), (bhq, sq)))
+    o, lse = torch.empty_like(q), torch.empty(bhq, sq)
+    tail = (bhq, bhkv, sq, sk, dh, int(causal), 0 if window is None else window,
+            1 / math.sqrt(dh), None)
+    assert lib.flash_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                             lse.data_ptr(), *tail) == 0
+    fwd_model = float((o - tf32x3_model(q, k, v, causal=causal, window=window)).abs().max())
+    fwd = float((o - attention_ref(q, k, v, causal=causal, window=window)).abs().max())
+    lse_err = float((lse - attention_lse_ref(q, k, causal=causal, window=window)).abs().max())
+    delta = (do * o).sum(-1).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           delta.data_ptr())
+    assert lib.flash_bwd_dkdv_f32(*ins, dk.data_ptr(), dv.data_ptr(), *tail) == 0
+    assert lib.flash_bwd_dq_f32(*ins, dq.data_ptr(), None, *tail) == 0
+    got = (dq, dk, dv)
+    model = tf32x3_bwd_model(q, k, v, o, do, lse, causal=causal, window=window)
+    want = attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
+    errs = [rel(a, b) for a, b in zip(got, want)]
+    model_errs = [rel(a, b) for a, b in zip(got, model)]
+    ok = (all(e < 1e-4 for e in errs) and all(e < BWD_MODEL_TOL for e in model_errs)
+          and fwd_model < MODEL_TOL and fwd < 5e-5 and lse_err < 1e-4)
+    print(f"{'ok ' if ok else 'BAD'} BHq {bhq} BHkv {bhkv} Sq {sq} Sk {sk} Dh {dh} "
+          f"{'causal' if causal else 'non-causal'} window {window}: forward max |err| "
+          f"{fwd:.2e} (model {fwd_model:.2e}), LSE {lse_err:.1e}; dq/dk/dv "
+          + "/".join(f"{e:.2e}" for e in errs) + " (limit 1e-4), against the model "
+          + "/".join(f"{e:.2e}" for e in model_errs) + f" (limit {BWD_MODEL_TOL:g})",
+          flush=True)
+    return ok
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.flash_attention import _build
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--csrc", type=Path, default=_build.CSRC)
+    ap.add_argument("--fp32", action="store_true",
+                    help="the fp32 kernels (sm80_tf32.cuh) instead of the bf16 ones")
     ap.add_argument("cases", type=int, nargs="*")
     args = ap.parse_args(argv)
-    lib = ctypes.CDLL(str(build(args.csrc)))
+    dt = "f32" if args.fp32 else "bf16"
+    lib = ctypes.CDLL(str((build_fp32 if args.fp32 else build)(args.csrc)))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_fwd_bf16.argtypes = [ptr] * 5 + [i32] * 7 + [ctypes.c_float, ptr]
-    for name in ("flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16"):
+    getattr(lib, f"flash_fwd_{dt}").argtypes = [ptr] * 5 + [i32] * 7 + [ctypes.c_float, ptr]
+    for name in (f"flash_bwd_dkdv_{dt}", f"flash_bwd_dq_{dt}"):
         getattr(lib, name).argtypes = [ptr] * 8 + [i32] * 7 + [ctypes.c_float, ptr]
-    ok = all([run_case(lib, *CASES[i]) for i in (args.cases or range(len(CASES)))])
+    cases, run = (FP32_CASES, run_case_fp32) if args.fp32 else (CASES, run_case)
+    ok = all([run(lib, *cases[i]) for i in (args.cases or range(len(cases)))])
     print("every case passed" if ok else "FAILED")
     return 0 if ok else 1
 

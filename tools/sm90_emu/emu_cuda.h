@@ -1,6 +1,7 @@
-// Host-thread emulation of the CUDA surface the bf16 flash kernels use
-// (tools/sm90_emu.py): the keywords, bf16, the runtime and driver types,
-// blocks of std::threads with their barriers, shuffles and launches.
+// Host-thread emulation of the CUDA surface the flash kernels use
+// (tools/sm90_emu.py): the keywords, bf16, the vector types, the runtime and
+// driver types, blocks of std::threads with their barriers, shuffles and
+// launches.
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -35,6 +36,10 @@ inline thread_local uint3e threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 
 struct float2 { float x, y; } __attribute__((aligned(8)));
+struct float4 { float x, y, z, w; } __attribute__((aligned(16)));
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
+inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 struct uint4 { unsigned x, y, z, w; };
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
@@ -137,10 +142,13 @@ struct EmuBlock {
   // per warpgroup: the rs A fragments and a barrier
   uint32_t a_slots[8][128][4];
   std::vector<std::unique_ptr<std::barrier<>>> wg_sync;
-  // per warp: shuffle slots
+  // per warp: shuffle slots, and two sets (by the parity of the exchange)
+  // of 8 words a lane for ldmatrix and mma.sync (emu_tf32.h)
   float shfl[64][32];
+  std::vector<uint32_t> xchg;
   std::vector<std::unique_ptr<std::barrier<>>> warp_sync;
-  EmuBlock(size_t bytes, int threads) : smem_bytes(bytes), sync(threads) {
+  EmuBlock(size_t bytes, int threads)
+      : smem_bytes(bytes), sync(threads), xchg((threads + 31) / 32 * 2 * 32 * 8) {
     smem = (uint8_t*)aligned_alloc(1024, (bytes + 1023) / 1024 * 1024 + 1024);
     memset(smem, 0xA5, bytes);  // garbage, as on the card
     for (int w = 0; w < (threads + 127) / 128; ++w) wg_sync.emplace_back(new std::barrier<>(128));
