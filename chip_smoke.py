@@ -10,9 +10,11 @@ leaselint (phase 23), the MoE and hybrid families through the
 flash-attention kernels (phases 24-32: mixtral-8x22b at full width, its
 depth cut to 4 of 56 layers, and hymba-1.5b whole), and the
 encoder-decoder and vision-frontend families through them (phases 33-41:
-whisper-large-v3 and internvl2-2b whole), and training (phases 42-45: the
+whisper-large-v3 and internvl2-2b whole), training (phases 42-45: the
 flash backward kernel, internlm2-1.8b trained whole through the flash
-kernels forward and backward, an fp32 step, a checkpoint).
+kernels forward and backward, an fp32 step, a checkpoint) and rwkv6
+training (phases 46-49: the WKV6 backward kernel, rwkv6-3b trained whole
+through the WKV6 kernels forward and backward, an fp32 step).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``); it exits nonzero
@@ -29,8 +31,10 @@ Phases (one line each):
      that the bf16 backward's passes hold HGMMA (wgmma) and UTMALDG (TMA)
      and no HMMA, that D's holds none of them, that only the bf16 WKV6
      kernel holds HMMA and LDGSTS and only the fp32 one bulk copies
-     (UBLKCP), and print each entry's registers, spills and dynamic shared
-     memory (the fp32 backward passes must spill nothing);
+     (UBLKCP), that the WKV6 backward's h and g passes hold LDGSTS and
+     none of its passes HMMA or UBLKCP, and print each entry's registers,
+     spills and dynamic shared memory (the fp32 flash backward passes and
+     every WKV6 backward pass must spill nothing);
   2. hold both kernels bit-exact against their plain PyTorch versions on
      small traces (delay 0/2/4, asymmetric links, drift, restarts, extends,
      stale/equiv corruption, windows 1/3/16, a ragged cell count, a trace
@@ -108,10 +112,12 @@ Phases (one line each):
      reference bench's sweep (1024 scenarios x 32 cells x 16 ticks, A 3,
      P 4), zero-delay (sync kernel) and with delay <= 2 and drops (delayed
      kernel), both collect modes, bit-exact against the plain batched
-     version; (b) 64 chaos scenarios (phase 4's mix) x 2^14 cells x 128
-     ticks at A 5, P 8 in summary mode from a warmed engine, equal to 64
-     separate ``run_trace`` calls from the same state, max owner count <=
-     1, the engine unchanged; then each batched kernel's time, launches
+     version on the first 128 scenarios (the plain version loops over
+     scenarios one at a time); (b) 64 chaos scenarios (phase 4's mix) x
+     2^14 cells x 128 ticks at A 5, P 8 in summary mode from a warmed
+     engine, equal to 64 separate ``run_trace`` calls from the same state,
+     bit-exact against the plain batched version on the first 8, max owner
+     count <= 1, the engine unchanged; then each batched kernel's time, launches
      and bound (at the bench sweep three ways: the kernel's own device time
      under the profiler, a call in a CUDA graph, and host-paced calls from
      Python, beside an empty kernel's, the launch floor), and where one
@@ -203,6 +209,31 @@ Phases (one line each):
  45. an fp32 step at full width and 4 layers through the kernels against
      plain (per leaf below 1e-4), its state checkpointed, restored and
      compared leaf by leaf.
+ 46. the WKV6 backward kernel (``csrc/wkv6_bwd.cu``: passes h, g, sum)
+     against ``wkv6_bwd_ref`` in fp32 and bf16 r/k/v at the reference's
+     five cases, ragged lengths at every head size, states, decays down to
+     -33 and the training microbatch (per gradient below 1e-4; bf16's dr,
+     dk, dv twice their bf16 rounding), two runs bit-identical, and a
+     planted fault (the plain backward with dlogw's sum a token off) caught;
+ 47. its time at the training microbatch (40 heads of 64, S 4096), each
+     pass and in total, beside its bound and the plain version (autograd of
+     the chunked form's backward);
+ 48. rwkv6-3b whole (bf16 compute, fp32 master weights, remat "dots"),
+     train_4k's 4096 tokens, the global batch cut to 8 in 8 microbatches of
+     1: each WKV6 forward kernel at the training microbatch against a
+     float64 witness (the chunked form in float64; below phase 13's
+     tolerance), then step 1's gradients on its first microbatch through
+     the kernels against the same witness under autograd (the loss within
+     1e-2; per leaf below 5e-2 or twice the floor, whichever is larger: the
+     floor is a plain-WKV run's distance from the witness), then
+     ``Trainer`` for 4
+     steps (every loss finite, every parameter moved, the forward kernel
+     launched twice a layer and microbatch, each backward pass once, no
+     fp32 entry), step time, tokens/s, peak memory and a profiled step's
+     idle share;
+ 49. fp32 at full width and 4 layers: the gradients as in 48 (the loss
+     within 1e-5, per leaf below 1e-4 or twice the floor), then a train
+     step.
 The line before the last holds every kernel's launches on its main path
 (phases 3-6 and the phase-21 directory ticks for the unbatched delayed
 kernel; the phase-12, 28, 32, 37 and 41 bf16 prefills for the wgmma
@@ -212,8 +243,10 @@ prefill for the tensor-core WKV6 kernel, the phase-14 prefill and
 phase-16 serving for the CUDA-core one; the phase-19 sweeps and the
 phase-20 shrinker probes for the batched lease kernels; the phase-44 and
 45 training steps for the backward kernel's bf16 and fp32 entries, whose
-forward launches join the forward rows), time, plain time, bound and
-library time as JSON;
+forward launches join the forward rows; the phase-48 and 49 training
+steps for the WKV6 backward's bf16 and fp32 passes, whose forward launches
+join the WKV6 forward rows), time, plain time, bound and library time as
+JSON;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -498,6 +531,14 @@ def run_trace_breakdown(run, kernel="lease_window_delayed"):
     return spent, total
 
 
+T_START = time.perf_counter()
+
+
+def stamp(after: str) -> None:
+    """Prints the run's wall time so far, after the phases named."""
+    print(f"{time.perf_counter() - T_START:.1f} s since the start, after {after}", flush=True)
+
+
 def check(ok, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -693,30 +734,37 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cu
                 "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
-def profile_call(fn):
+def profile_call(fn, warm: bool = True, host_ops: bool = True):
     """One call of ``fn`` under ``torch.profiler``: (wall ms, device busy
     ms, the three device kernels with the most time as (name, events, ms),
     device events, runtime launch calls). Busy is the union of the device
     events' intervals. Late in a long process a session leaves its first
     ~30 device events unrecorded, so each session traces a warm-up call of
-    ``fn`` first and keeps only the second call's events. A session that
-    records no device event is taken again (the check fails after four);
-    the two counts are returned for the reader to compare (a launch call of
-    zero bytes puts nothing on the device)."""
+    ``fn`` first and keeps only the second call's events (``warm``). A
+    session that records no device event is taken again (the check fails
+    after four); the two counts are returned for the reader to compare (a
+    launch call of zero bytes puts nothing on the device). ``host_ops``
+    records the host's operator events beside the device's and the
+    runtime's; a training step of ~10^5 launches is traced without them
+    and without the warm-up (rwkv6-3b's step took 111 s to profile with
+    both, ~20 s of it the two traced steps)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * host_ops
     for _ in range(4):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+        with profile(activities=activities, schedule=schedule(
+                wait=0, warmup=1, active=1, repeat=1) if warm else None) as prof:
+            if warm:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-            prof.step()
+            if warm:
+                prof.step()
         events = prof.events()
         launches = sum(e.name in LAUNCH_CALLS for e in events
                        if e.device_type == torch.autograd.DeviceType.CPU)
@@ -790,11 +838,11 @@ def report_steps(phase: int, params, batch, prefill, decode, cache) -> float:
     return busy["prefill_step"]
 
 
-def profiled(fn) -> tuple:
-    """(``profile_call(fn)`` as text: wall, device busy and idle shares, the
-    device events beside the runtime's launch calls, the kernels with the
-    most device time; the device busy ms)."""
-    wall, busy, top, n_events, launches = profile_call(fn)
+def profiled(fn, **kw) -> tuple:
+    """(``profile_call(fn, **kw)`` as text: wall, device busy and idle
+    shares, the device events beside the runtime's launch calls, the
+    kernels with the most device time; the device busy ms)."""
+    wall, busy, top, n_events, launches = profile_call(fn, **kw)
     return (f"{wall:.1f} ms wall under the profiler, device busy {busy:.2f} ms "
             f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; {n_events} device events for "
             f"{launches} runtime launch calls; most device time: "
@@ -1112,8 +1160,12 @@ WKV_CHUNK = 32  # the Pallas kernel's chunk, for the matrix form's operation cou
 
 
 def wkv_kind(entry: str) -> str:
-    """'fp32/N64' (the CUDA-core kernel) or 'bf16-mma/N64' (the tensor-core
-    kernel) for the instantiation named in a ptxas entry line."""
+    """'fp32/N64' (the CUDA-core forward kernel), 'bf16-mma/N64' (the
+    tensor-core one) or 'bwd-g-bf16/N64' and the like (the backward's
+    passes h, g and sum by dtype) for the instantiation named in a ptxas
+    entry line or a SASS function name."""
+    if m := re.search(r"wkv6_bwd_(h|g|sum)_kernelILi(\d+)E(13__nv_bfloat16|f)", entry):
+        return f"bwd-{m[1]}-{'fp32' if m[3] == 'f' else 'bf16'}/N{m[2]}"
     m = re.search(r"wkv6_(mma_)?kernelILi(\d+)E", entry)
     return f"{'bf16-mma' if m[1] else 'fp32'}/N{m[2]}"
 
@@ -1156,7 +1208,8 @@ def decay_base_omega(b, s, h, n, seed):
 class SwapWKV:
     """Within this block the model's WKV6 recurrence runs ``fn`` in place of
     the kernel wrapper: by default the plain chunked form on the card (the
-    yardstick of phases 14 and 17)."""
+    yardstick of phases 14 and 17, beside the witness of 48 and 49;
+    autograd differentiates it)."""
 
     def __init__(self, fn=None):
         self.fn = fn
@@ -1460,6 +1513,21 @@ BENCH_SWEEP = dict(scenarios=1024, n_cells=32, n_ticks=16, n_acceptors=3,
 #: phase 19b: 64 scenarios x 2^14 cells x 128 ticks at DEFAULT_CELL, phase
 #: 4's fault mix
 CHAOS_SWEEP_B, CHAOS_SWEEP_N = 64, 1 << 14
+#: the scenarios of each phase-19 sweep held against the plain batched
+#: version, which loops over scenarios one at a time (the whole bench
+#: sweep's plain run took 135 s, the chaos sweep's 71 s): the first 128
+#: of the bench sweep's 1024 and the first 8 of the chaos sweep's 64
+BENCH_PLAIN_B, CHAOS_PLAIN_B = 128, 8
+
+
+def first_scenarios(args, kw, delayed, b):
+    """``batched_kernel_args``' arguments cut to the sweep's first ``b``
+    scenarios: the planes' leading axis (the state is shared)."""
+    import torch
+
+    lead = 3 if delayed else 2  # (packed, net, t0) or (packed, t0)
+    return ((*args[:lead], *(x[:b] for x in args[lead:])),
+            {k: x[:b] if isinstance(x, torch.Tensor) else x for k, x in kw.items()})
 
 
 def bench_sweep_setup(dev, delayed: bool):
@@ -1600,16 +1668,17 @@ def sweep_slice(dev) -> list:
             sync()
             if delayed and collect == "summary":
                 # the plain batched summary is window_summary of the plain
-                # loop's rows, which the owners run just gave (one loop of
-                # 1024 scenarios, ~80 s on the card, saved)
+                # loop's rows, which the owners run just gave
                 want = K.window_summary(*rows)
             else:
+                p_args, p_kw = first_scenarios(args, kw, delayed, BENCH_PLAIN_B)
                 t0 = time.perf_counter()
-                want = pfn(*args, **kw)
+                want = pfn(*p_args, **p_kw)
                 sync()
                 plain_ms[kname, collect] = (time.perf_counter() - t0) * 1e3
                 rows = want
-            equal(got, want, f"bench sweep delayed={delayed} {collect}", kname)
+            equal([x[:BENCH_PLAIN_B] for x in got], want,
+                  f"bench sweep delayed={delayed} {collect}", kname)
             # the kernel's own device time (profiler), a call in a CUDA
             # graph of back-to-back calls, and host-paced calls from Python
             call = (lambda a, k: lambda: kfn(*a, **k))(args, kw)
@@ -1623,12 +1692,14 @@ def sweep_slice(dev) -> list:
             res = results[delayed, collect]
             check(int(res.max_owner_count.max()) <= 1,
                   f"bench sweep delayed={delayed}: §4 violated")
+            # the sweep's path against the kernel on all its scenarios (the
+            # kernel equals plain on the first BENCH_PLAIN_B above)
             if collect == "owners":
-                equal((res.owners, res.counts), want,
-                      f"bench sweep delayed={delayed} path vs plain", kname)
-                smax, sown, sfin = K.window_summary(*want)
+                equal((res.owners, res.counts), got,
+                      f"bench sweep delayed={delayed} path vs kernel", kname)
+                smax, sown, sfin = K.window_summary(*got)
             else:
-                smax, sown, sfin = want
+                smax, sown, sfin = got
             # the reference's owned_frac: float32 owned count times the
             # float32 reciprocal of T·N (its compiled jnp mean)
             T, N = BENCH_SWEEP["n_ticks"], BENCH_SWEEP["n_cells"]
@@ -1646,12 +1717,14 @@ def sweep_slice(dev) -> list:
         print(f"phase 19a sweep {BENCH_SWEEP['scenarios']} x "
               f"{BENCH_SWEEP['n_cells']} cells x {BENCH_SWEEP['n_ticks']} "
               f"ticks ({'delay <= 2, drops' if delayed else 'zero delay'}): "
-              f"{kname} bit-exact vs plain in summary and owners mode; kernel "
+              f"{kname} bit-exact vs plain in summary and owners mode (the first "
+              f"{BENCH_PLAIN_B} scenarios), the sweep's path vs the kernel on all; kernel "
               + "; ".join(f"{c} " + ", ".join(f"{k} {fmt_ms(v)}"
                                               for k, v in times[kname, c].items())
                           for c in ("summary", "owners")) + "; plain " + " / ".join(
                   f"{plain_ms[kname, c]:.1f} ms {c}" for c in ("summary", "owners")
-                  if (kname, c) in plain_ms) + f"; owned {owned:.4f}", flush=True)
+                  if (kname, c) in plain_ms) + f" ({BENCH_PLAIN_B} scenarios); owned "
+              f"{owned:.4f}", flush=True)
     print(f"phase 19a took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # -------------------------- 19b. the full-width chaos sweep, checked
@@ -1680,11 +1753,14 @@ def sweep_slice(dev) -> list:
     got = K.lease_window_delayed_batched(*args, **kw)
     check(torch.equal(got[1].sum(-1), torch.stack(owned_counts)),
           "chaos sweep: owned counts differ from the run_trace calls")
+    p_args, p_kw = first_scenarios(args, kw, True, CHAOS_PLAIN_B)
     t0 = time.perf_counter()
-    want = K.lease_window_delayed_batched_torch(*args, **kw)
+    want = K.lease_window_delayed_batched_torch(*p_args, **p_kw)
     sync()
     plain_chaos = (time.perf_counter() - t0) * 1e3
-    equal(got, want, "chaos sweep kernel vs plain", "lease_window_delayed_batched")
+    equal([x[:CHAOS_PLAIN_B] for x in got], want, "chaos sweep kernel vs plain",
+          "lease_window_delayed_batched")
+    del p_args, p_kw, want
     ticked = torch.zeros(1, dtype=torch.int64, device=dev)
     K.lease_window_delayed_batched(*args, ticked=ticked, **kw)
     sync()
@@ -1701,7 +1777,8 @@ def sweep_slice(dev) -> list:
           f"same state (max owner count, owned count, final owners), max owner "
           f"count {int(res_c.max_owner_count.max())}, owned "
           f"{float(res_c.owned_frac.mean()):.4f}, engine unchanged; kernel "
-          f"bit-exact vs plain; scenario generation {setup_c:.1f} s, the sweep "
+          f"bit-exact vs plain on the first {CHAOS_PLAIN_B} scenarios (plain "
+          f"{plain_chaos:.1f} ms); scenario generation {setup_c:.1f} s, the sweep "
           f"{main_s:.2f} s, the run_trace calls {solo_s:.1f} s", flush=True)
     print(f"phase 19b where one sweep's {ms_sweep:.1f} ms go: " + ", ".join(
         f"{k} {v:.1f} ms" for k, v in spent.items())
@@ -1750,7 +1827,8 @@ def sweep_slice(dev) -> list:
     print(f"phase 19 timing: delayed batched {ms_chaos:.3f} ms at the chaos sweep "
           f"(summary; owners {ms_chaos_owners:.3f} ms; {ticked_cells} of "
           f"{B * T * N} cell-ticks ran the tick math), bound {bound_d:.3f} ms "
-          f"({by_d}: ops {ops_d:.3f}, bytes {bytes_d:.3f}), plain {plain_chaos:.1f} ms; "
+          f"({by_d}: ops {ops_d:.3f}, bytes {bytes_d:.3f}), plain {plain_chaos:.1f} ms on "
+          f"its first {CHAOS_PLAIN_B} scenarios; "
           f"at the bench sweep (summary; device: the kernel's own time under the "
           f"profiler; graph: a call in a CUDA graph of 20; host-paced: 20 calls from "
           f"Python): sync batched " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in t_s.items())
@@ -3121,8 +3199,10 @@ def train_slice(dev) -> tuple:
               f"{e} {counts[e]}" for e in (bf16_fwd, *FK.BWD_KERNELS[torch.bfloat16])),
           flush=True)
     batch = tr.loader.next_batch()
-    text, busy = profiled(lambda: tr._train_step(tr.params, tr.opt_state, batch))
-    print(f"phase 44 profile of one train step (bf16): {text}", flush=True)
+    text, busy = profiled(lambda: tr._train_step(tr.params, tr.opt_state, batch),
+                          warm=False, host_ops=False)
+    print(f"phase 44 profile of one train step (bf16; device and runtime events, no "
+          f"warm-up call): {text}", flush=True)
     launches = {bf16_fwd: counts[bf16_fwd]}
     bwd_launches = {"bfloat16": sum(counts[e] for e in FK.BWD_KERNELS[torch.bfloat16])}
     del tr, before, batch
@@ -3214,6 +3294,492 @@ def train_slice(dev) -> tuple:
     return rows, launches
 
 
+#: phases 46-49: rwkv6-3b training (configs/archs.py:149: 32 layers, d_model
+#: 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16 compute over fp32
+#: master weights, remat "dots") at train_4k's sequence of 4096
+#: (configs/base.py:198), the global batch cut from 256 to 8 to fit the card
+#: as for internlm2, in RWKV_TRAIN_MICRO microbatches of 1: beside the fp32
+#: weights, AdamW's moments and the gradients (49.2 GB) a microbatch of 2
+#: ran out of the card's 80 GB in the train step
+RWKV_TRAIN_MICRO = 8
+#: phase 49: fp32 at the same widths, 4 of the 32 layers, 2 x 4096 in 2
+#: microbatches
+RWKV_FP32_LAYERS, RWKV_FP32_BATCH = 4, 2
+#: phase 46, the WKV6 backward against wkv6_bwd_ref (tests/test_torch_rwkv6_bwd_cuda.py),
+#: (bh, s, n, decay, initial state, final-state gradient): the reference's
+#: five cases as B·H rows, lengths ragged about the kernel's rounds of 8 or
+#: 16 tokens (1 to 95, and 2049) at every head size from a state, with and
+#: without dS_T, rwkv6's decay_base spread, decays down to -33 a token
+#: ("extreme": omega up to 3.5), and the training microbatch (1 x 40 heads
+#: of 64, S 4096) and twice it
+WKV_BWD_CASES = [
+    (8, 64, 64, 0.5, False, False),
+    (2, 128, 64, 1.0, False, False),
+    (2, 96, 64, 0.5, False, False),
+    (6, 96, 32, 0.5, False, False),
+    (1, 64, 128, 0.0, False, False),
+    (3, 1, 16, 0.5, True, True),
+    (3, 31, 32, "spread", True, False),
+    (3, 33, 64, "extreme", True, True),
+    (3, 95, 128, "spread", False, True),
+    (2, 2049, 64, "spread", True, True),
+    (2, 300, 128, "extreme", True, True),
+    (40, 4096, 64, "spread", False, False),
+    (80, 4096, 64, "spread", True, True),
+]
+WKV_BWD_TOL = 1e-4
+
+
+def wkv_bwd_inputs(dev, bh, s, n, decay, with_state, with_dstate, dtype, seed):
+    """(r, k, v, logw, u, state, dout, dstate) on the kernel's (B·H, S, N)
+    layout from numpy: r, k, v in ``dtype``, the rest fp32."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    r, k, v, do = (rng.standard_normal((bh, s, n), np.float32) for _ in range(4))
+    if decay == "spread":
+        omega = decay_base_omega(1, s, bh, n, seed + 1)[0].transpose(1, 0, 2)
+    else:
+        omega = rng.uniform(-6.0, 3.5 if decay == "extreme" else decay, (bh, s, n))
+    logw = (-np.exp(omega)).astype(np.float32)
+    u = (rng.standard_normal((bh, n)) * 0.3).astype(np.float32)
+    st = (rng.standard_normal((bh, n, n)) * 0.1).astype(np.float32) if with_state else None
+    ds = rng.standard_normal((bh, n, n)).astype(np.float32) if with_dstate else None
+
+    def t(a, d=torch.float32):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev, d)
+
+    return (*(t(a, dtype) for a in (r, k, v)), t(logw), t(u), t(st), t(do), t(ds))
+
+
+def shifted_plain_bwd(*args):
+    """The planted fault of phase 46: the plain backward with dlogw's
+    reverse sum one token off (each token given its successor's)."""
+    import torch
+
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref
+
+    out = list(wkv6_bwd_ref(*args))
+    out[3] = torch.cat([out[3][:, 1:], out[3][:, -1:]], 1)
+    return out
+
+
+def wkv_bwd_phase(dev) -> dict:
+    """Phase 46: the WKV6 backward kernel against ``wkv6_bwd_ref`` at
+    ``WKV_BWD_CASES`` in both dtypes, two runs bit-identical, and a planted
+    fault caught. Returns each dtype's max |err| over the gradients."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref
+
+    t_phase = time.perf_counter()
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    names = ("dr", "dk", "dv", "dlogw", "du", "dS0")
+    caught = {}
+    for i, case in enumerate(WKV_BWD_CASES):
+        readings = []
+        for dtn in ("float32", "bfloat16"):
+            x = wkv_bwd_inputs(dev, *case, dts[dtn], seed=460 + i)
+            with torch.no_grad():
+                got = WK.wkv6_bwd(*x)
+                again = WK.wkv6_bwd(*x)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                want = wkv6_bwd_ref(*x)
+            errs = [grad_rel(a, b) for a, b in zip(got, want)]
+            limits = [WKV_BWD_TOL] * 6
+            if dtn == "bfloat16":  # dr, dk, dv rounded to bf16: twice that rounding
+                limits[:3] = [2 * grad_rel(w.bfloat16(), w) for w in want[:3]]
+            worst[dtn] = max(worst[dtn], *(float((a.float() - b).abs().max())
+                                           for a, b in zip(got, want)))
+            for name, e, lim in zip(names, errs, limits):
+                check(e < lim, f"phase 46 {case} {dtn}: {name} rel err {e:.3e} (limit {lim:.3e})")
+            check(same, f"phase 46 {case} {dtn}: two runs of the backward kernel differ")
+            if case[3] == "spread" and case[5] and dtn not in caught:
+                fault = grad_rel(got[3], shifted_plain_bwd(*x)[3])
+                check(fault > WKV_BWD_TOL, f"phase 46: the planted fault (dlogw's sum a token "
+                      f"off) reads {fault:.3e}, inside the limit {WKV_BWD_TOL}")
+                caught[dtn] = fault
+            readings.append(f"{dtn} " + "/".join(f"{e:.2e}" for e in errs) + " (limits "
+                            + "/".join(f"{x:.1e}" for x in limits) + ")")
+            del x, got, again, want
+        print(f"phase 46 WKV6 backward at BH {case[0]}, S {case[1]}, N {case[2]}, decay "
+              f"{case[3]}, state {case[4]}, dS_T {case[5]}: dr/dk/dv/dlogw/du/dS0 rel err "
+              + "; ".join(readings) + "; two runs bit-identical", flush=True)
+        torch.cuda.empty_cache()
+    check(set(caught) == {"float32", "bfloat16"}, "phase 46: the planted fault was not run")
+    print("phase 46 planted fault, a copy of the plain backward with dlogw's sum shifted by "
+          "one token, against the kernel: " + ", ".join(f"{k} {v:.3e}" for k, v in caught.items())
+          + f" (limit {WKV_BWD_TOL}: caught); max |err| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return worst
+
+
+def wkv_bwd_timing_phase(dev) -> dict:
+    """Phase 47: the WKV6 backward's time at the training microbatch (one
+    sequence's 40 heads of 64, S 4096, decay_base spread), each pass and in
+    total, beside
+    its bound and the plain version's time (the backward of autograd through
+    ``wkv_chunked_bhsn`` on the card). Returns {dtype: (ms, plain ms, bound
+    ms, bound by)}."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import _build as wkv_build
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref, wkv_chunked_bhsn
+
+    t_phase = time.perf_counter()
+    cfg = get_config(RWKV_ARCH)
+    n = cfg.rwkv.head_size
+    bh, s = TRAIN_BATCH // RWKV_TRAIN_MICRO * cfg.d_model // n, TRAIN_SEQ
+    lib = wkv_build.load()
+    out = {}
+    for dtn, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        x = wkv_bwd_inputs(dev, bh, s, n, "spread", False, False, dtype, seed=47)
+        r, k, v, logw, u, _, do, _ = x
+        scratch = torch.empty(lib.wkv6_bwd_scratch_bytes(bh, s, n) // 4, device=dev)
+        outs = [torch.empty_like(r) for _ in range(3)] + [
+            torch.empty(bh, s, n, device=dev), torch.empty(bh, n, device=dev),
+            torch.empty(bh, n, n, device=dev)]
+        ptrs = [a.data_ptr() for a in (r, k, v, logw, u)] + [None, do.data_ptr(), None] + [
+            o.data_ptr() for o in outs] + [scratch.data_ptr()]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch(entry):
+            check(getattr(lib, entry)(*ptrs, bh, s, n, stream) == 0, f"{entry} failed")
+
+        passes = {}
+        for entry in WK.BWD_KERNELS[dtype]:  # in order: each pass's inputs are in
+            passes[entry] = time_ms(lambda e=entry: launch(e), 10)
+        with torch.no_grad():
+            t1 = time_ms(lambda: WK.wkv6_bwd(*x), 10)
+            t2 = time_ms(lambda: WK.wkv6_bwd(*x), 10)
+            ms_ref = time_ms(lambda: wkv6_bwd_ref(*x), 1)
+        leaves = [a.detach().clone().requires_grad_(True) for a in (r, k, v, logw, u)]
+        o_plain, _ = wkv_chunked_bhsn(*leaves)
+        ms_plain = time_ms(lambda: torch.autograd.grad(o_plain, leaves, do, retain_graph=True), 2)
+        del o_plain, leaves
+        ms = (t1 + t2) / 2
+        elt = r.element_size()
+        # r, k, v in their dtype, logw and do fp32 read once; dr, dk, dv in
+        # r's dtype and dlogw fp32 written once (u, du and the zero states
+        # are B·H x N or N x N a row: under 0.1 % of it)
+        n_bytes = bh * s * n * (6 * elt + 12)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        # the chunked form's backward: its forward's products again and two
+        # products for each of them (phase 17's 4·N·(C + N) FLOP a token and
+        # head, three times); for fp32 the least of that on the CUDA cores,
+        # as three TF32 products, or the recurrence's 7 instructions per
+        # token, key and column at the fp32 lanes' rate
+        flop = 3 * bh * s * 4 * n * (WKV_CHUNK + n)
+        rec_ins = 7 * bh * s * n * n
+        if dtn == "bfloat16":
+            ops_ms = flop / BF16_FLOP_PER_S * 1e3
+        else:
+            ops_ms = min(flop / FP32_FLOP_PER_S, 3 * flop / TF32_FLOP_PER_S,
+                         rec_ins / (FP32_FLOP_PER_S / 2)) * 1e3
+        bound = max(ops_ms, bytes_ms)
+        out[dtn] = (ms, ms_plain, bound, "operations" if ops_ms >= bytes_ms else "bytes")
+        print(f"phase 47 WKV6 backward timing ({dtn} r/k/v, BH {bh}, S {s}, N {n}, decay_base "
+              f"spread): kernel {ms:.4f} ms ({t1:.4f} / {t2:.4f}; passes " + ", ".join(
+                  f"{e} {t:.4f}" for e, t in passes.items())
+              + f"; the bound is {bound / ms:.0%} of it), plain: autograd of wkv_chunked_bhsn's "
+              f"backward {ms_plain:.3f} ms, wkv6_bwd_ref {ms_ref:.1f} ms; no PyTorch call "
+              f"computes WKV6's gradient (library_ms null); bound {bound:.4f} ms (bytes "
+              f"{bytes_ms:.4f} ms: {n_bytes / 1e6:.1f} MB at 3.35 TB/s; operations "
+              f"{ops_ms:.4f} ms: {flop:.3e} FLOP of the chunked form's backward, "
+              f"{rec_ins:.3e} instructions of the recurrence); registers, spills and shared "
+              f"memory: phase 1", flush=True)
+        del x, r, k, v, logw, u, do, scratch, outs
+        torch.cuda.empty_cache()
+    print(f"phase 47 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def float64_wkv(r, k, v, logw, u, state=None):
+    """Phases 48-49's witness: the chunked form in float64 under autograd
+    (the exact recurrence to ~1e-15, independent of the kernels and of the
+    fp32 form's rounding), its outputs in fp32 as the kernel wrapper's."""
+    import torch
+
+    from repro_torch.kernels.rwkv6.ref import wkv_chunked_bhsn
+
+    out, st = wkv_chunked_bhsn(r, k, v, logw, u, state, dtype=torch.float64)
+    return out.float(), st.float()
+
+
+def wkv_forward_witness(dev) -> str:
+    """Phase 48's first check: at the training microbatch (decay_base
+    spread, a nonzero initial state) each forward kernel and the plain fp32
+    chunked form against the float64 witness, the kernels below their
+    phase-13 tolerance. Returns the readings as text."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.kernels.rwkv6.ref import wkv_chunked_bhsn
+
+    cfg = get_config(RWKV_ARCH)
+    n = cfg.rwkv.head_size
+    bh = TRAIN_BATCH // RWKV_TRAIN_MICRO * cfg.d_model // n
+    parts = []
+    for dtn, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        r, k, v, logw, u, st, _, _ = wkv_bwd_inputs(dev, bh, TRAIN_SEQ, n, "spread", True, False,
+                                                    dtype, seed=48)
+        with torch.no_grad():
+            want, want_st = wkv_chunked_bhsn(r, k, v, logw, u, st, dtype=torch.float64)
+            errs = [(grad_rel(o, want), grad_rel(s, want_st)) for o, s in (
+                WK.wkv6_fwd(r, k, v, logw, u, st), wkv_chunked_bhsn(r, k, v, logw, u, st))]
+        (ek, ek_st), (ep, ep_st) = errs
+        check(ek < WKV_TOL[dtn] and ek_st < WKV_TOL[dtn], f"phase 48: the {dtn} forward kernel "
+              f"vs the float64 witness {ek:.3e}, state {ek_st:.3e} (limit {WKV_TOL[dtn]:g})")
+        parts.append(f"{dtn} kernel {ek:.3e} (state {ek_st:.3e}; limit {WKV_TOL[dtn]:g}), plain "
+                     f"fp32 form {ep:.3e} (state {ep_st:.3e})")
+        del r, k, v, logw, u, st, want, want_st
+    text = "; ".join(parts)
+    print(f"phase 48 WKV6 forward against the float64 witness (BH {bh}, S {TRAIN_SEQ}, N {n}, "
+          f"decay_base spread, from a state), ||d|| / ||want||: {text}", flush=True)
+    torch.cuda.empty_cache()
+    return text
+
+
+def wkv_gradient_runs(phase: int, cfg, params, batch, loss_tol: float, leaf_tol: float,
+                      **kw) -> str:
+    """Phases 48-49: a step's gradients three ways on the card: the witness
+    (``SwapWKV(float64_wkv)``), through the kernels (twice: bit-identical)
+    and plain (``SwapWKV``: the chunked form in fp32).
+    A leaf's floor is plain's distance from the witness: what the model
+    makes of a WKV that uses no kernel and is right to fp32 rounding.
+    Holds the kernels to the witness: the loss to
+    ``loss_tol`` relative, each leaf's ||d|| / ||g|| below ``leaf_tol`` or
+    twice its floor, whichever is larger; prints the kernels against plain
+    beside them. Returns the readings as text."""
+    import torch
+
+    from repro_torch.launch.steps import accumulate_grads
+
+    seconds, losses, rel = {}, {}, {}
+    keep = {}
+    for name, fn in (("float64 witness", float64_wkv), ("kernels", None), ("kernels again", None),
+                     ("plain", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name.startswith("kernels"):
+            grads, loss, _ = accumulate_grads(cfg, params, batch, **kw)
+        else:
+            with SwapWKV(fn):
+                grads, loss, _ = accumulate_grads(cfg, params, batch, **kw)
+        torch.cuda.synchronize()
+        seconds[name], losses[name] = time.perf_counter() - t0, float(loss)
+        leaves = dict(grad_leaves(grads))
+        if name in ("float64 witness", "kernels"):
+            keep[name] = leaves
+        wit = keep["float64 witness"]
+        if name == "kernels again":
+            same = all(torch.equal(g, keep["kernels"][k]) for k, g in leaves.items())
+            check(same and losses[name] == losses["kernels"],
+                  f"phase {phase}: two runs through the kernels differ")
+        elif name != "float64 witness":
+            for k, g in leaves.items():
+                rel.setdefault(k, {})[name] = grad_rel(g, wit[k])
+        if name == "plain":
+            for k, g in leaves.items():
+                rel[k]["kernels vs plain"] = grad_rel(keep["kernels"][k], g)
+        del grads, leaves
+    del keep, wit
+    loss_k, loss_w = losses["kernels"], losses["float64 witness"]
+    loss_rel = abs(loss_k - loss_w) / abs(loss_w)
+    floor = {k: x["plain"] for k, x in rel.items()}
+    limit = {k: max(leaf_tol, 2 * f) for k, f in floor.items()}
+    text = (", ".join(f"{k} {s:.2f} s" for k, s in seconds.items()) + "; loss "
+            + ", ".join(f"{k} {x:.7f}" for k, x in losses.items())
+            + f" (kernels rel {loss_rel:.3e}, limit {loss_tol:g}); per leaf ||d|| / ||g|| against "
+            f"the witness, kernels (limit: {leaf_tol:g} or twice the floor) / plain (the "
+            f"floor), then kernels against plain: "
+            + ", ".join(f"{k} {x['kernels']:.3e} / {x['plain']:.3e}, "
+                        f"{x['kernels vs plain']:.3e}"
+                        for k, x in rel.items()))
+    print(f"phase {phase} gradients: {text}", flush=True)
+    check(math.isfinite(loss_k), f"phase {phase}: loss not finite")
+    check(loss_rel < loss_tol, f"phase {phase}: loss kernels {loss_k:.7f} vs the float64 "
+          f"witness {loss_w:.7f} (rel {loss_rel:.3e}, limit {loss_tol:g})")
+    for k, x in rel.items():
+        check(x["kernels"] < limit[k], f"phase {phase}: gradient {k} kernels vs the float64 "
+              f"witness {x['kernels']:.3e} (limit {limit[k]:.3e}: {leaf_tol:g} or twice the "
+              f"floor {floor[k]:.3e})")
+    torch.cuda.empty_cache()
+    return text
+
+
+def rwkv_train_slice(dev) -> tuple:
+    """Phases 46-49. 46-47: the WKV6 backward kernel against plain and timed.
+    48: rwkv6-3b whole, bf16 compute over fp32 master weights: step 1's
+    forward kernels against the float64 witness (``wkv_forward_witness``),
+    step 1's gradients through the kernels on its first microbatch against
+    it, plain beside them (``wkv_gradient_runs``), then
+    ``Trainer`` for
+    ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` in
+    ``RWKV_TRAIN_MICRO`` microbatches (the bf16 kernels' main path): every
+    loss finite, every parameter moved, the launches counted; step time,
+    tokens/s, peak memory, a profiled step's idle share. 49: fp32 at full
+    width and ``RWKV_FP32_LAYERS`` layers, the gradients as in 48, then
+    a train step. Returns (the backward's rows for the JSON line, each
+    forward entry's launches on the training paths)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, SyntheticTokens
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import Trainer, TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sync = torch.cuda.synchronize
+    t_slice = time.perf_counter()
+    worst = wkv_bwd_phase(dev)
+    timing = wkv_bwd_timing_phase(dev)
+    torch.cuda.empty_cache()
+
+    # -------------------------- 48. rwkv6-3b whole: gradients, TRAIN_STEPS steps
+    t_phase = time.perf_counter()
+    cfg = get_config(RWKV_ARCH)
+    tc = TrainerConfig(steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       microbatches=RWKV_TRAIN_MICRO, warmup=1, peak_lr=1e-4, log_every=1,
+                       seed=0)
+    # the trainer's first batch, its loader's from the same seed; the
+    # gradients are compared on its first microbatch
+    batch1 = ShardedLoader(SyntheticTokens(cfg.vocab_size, tc.seq_len, seed=tc.seed),
+                           tc.n_shards, tc.batch_size).next_batch()
+    part = {k: x[:TRAIN_BATCH // RWKV_TRAIN_MICRO] for k, x in batch1.items()}
+    params = init_model(cfg, tc.seed, device=dev)
+    n_params = sum(x.numel() for _, x in grad_leaves(params))
+    print(f"phase 48 {RWKV_ARCH} whole ({cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+          f"parameters, bf16 compute, fp32 master weights, remat {cfg.remat_policy!r}): step "
+          f"1's gradients over its first microbatch ({TRAIN_BATCH // RWKV_TRAIN_MICRO} x "
+          f"{TRAIN_SEQ}) follow", flush=True)
+    wkv_forward_witness(dev)
+    wkv_gradient_runs(48, cfg, params, part, 1e-2, TRAIN_BF16_TOL)
+    del params
+    torch.cuda.empty_cache()
+    t_checks = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tc, verbose=False, device=dev)
+    before = {k: x.to("cpu", copy=True) for k, x in grad_leaves(tr.params)}
+    t_setup = time.perf_counter() - t0
+    stamps = []
+    WK.reset_launches()  # the bf16 kernels' training path: these steps
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    hist = tr.run(on_step=lambda step, m: (sync(), stamps.append(time.perf_counter())))
+    counts = dict(WK.wkv6_bhsn.launches_by_kernel)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"phase 48: losses {losses}")
+    t_run = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moved = {k: float((x != before[k].to(dev)).float().mean())
+             for k, x in grad_leaves(tr.params)}
+    t_moved = time.perf_counter() - t0
+    check(all(f > 0 for f in moved.values()), f"phase 48: parameters that did not move: "
+          f"{[k for k, f in moved.items() if f == 0]}")
+    bf16_fwd = WK.KERNELS[torch.bfloat16]
+    runs = cfg.n_layers * RWKV_TRAIN_MICRO * TRAIN_STEPS
+    check(counts[bf16_fwd] == 2 * runs, f"phase 48: {counts[bf16_fwd]} bf16 forward launches, "
+          f"not {2 * runs} (the forward and its recompute a layer and microbatch)")
+    for e in WK.BWD_KERNELS[torch.bfloat16]:  # the backward runs once a layer and microbatch
+        check(counts[e] == runs, f"phase 48: {e} launched {counts[e]} times, not {runs}")
+    check(all(counts[e] == 0 for e in (*WK.BWD_KERNELS[torch.float32],
+                                        WK.KERNELS[torch.float32])),
+          "phase 48: a bf16 step launched an fp32 kernel")
+    mean_s = sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase 48 Trainer: {TRAIN_STEPS} steps, losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + "; grad norms " + ", ".join(f"{h['grad_norm']:.4f}" for h in hist)
+          + "; step times " + ", ".join(f"{x:.3f}" for x in step_s)
+          + f" s (steps 2-{TRAIN_STEPS}: {mean_s:.3f} s, {tokens / mean_s:.0f} tokens/s); "
+          f"peak memory {peak_gb:.2f} GB; every leaf moved (least share of elements changed "
+          f"{min(moved.values()):.4f}); launches " + ", ".join(
+              f"{e} {counts[e]}" for e in (bf16_fwd, *WK.BWD_KERNELS[torch.bfloat16])),
+          flush=True)
+    batch = tr.loader.next_batch()
+    t0 = time.perf_counter()
+    text, _ = profiled(lambda: tr._train_step(tr.params, tr.opt_state, batch),
+                       warm=False, host_ops=False)
+    print(f"phase 48 profile of one train step (bf16; device and runtime events, no "
+          f"warm-up call): {text}", flush=True)
+    print(f"phase 48 wall: the checks against the witness {t_checks:.1f} s, the Trainer's "
+          f"set-up {t_setup:.1f} s, its {TRAIN_STEPS} steps {t_run:.1f} s, the moved check "
+          f"{t_moved:.1f} s, the profiled step {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {bf16_fwd: counts[bf16_fwd]}
+    bwd_launches = {"bfloat16": sum(counts[e] for e in WK.BWD_KERNELS[torch.bfloat16])}
+    del tr, before, batch
+    torch.cuda.empty_cache()
+    print(f"phase 48 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ------------------- 49. fp32 at full width, 4 layers: kernels vs plain; a step
+    t_phase = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=RWKV_FP32_LAYERS)
+    batch = ShardedLoader(SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, seed=1), 8,
+                          RWKV_FP32_BATCH).next_batch()
+    params = init_model(cfg32, 1, device=dev)
+    wkv_gradient_runs(49, cfg32, params, batch, 1e-5, TRAIN_FP32_TOL,
+                      microbatches=RWKV_FP32_BATCH)
+    WK.reset_launches()  # the fp32 kernels' training path: this train step
+    opt = adamw_init(params)
+    step = make_train_step(cfg32, peak_lr=1e-4, warmup=1, total=10,
+                           microbatches=RWKV_FP32_BATCH)
+    sync()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    sync()
+    step_s = time.perf_counter() - t0
+    check(math.isfinite(float(m["loss"])), "phase 49: fp32 step loss not finite")
+    counts = dict(WK.wkv6_bhsn.launches_by_kernel)
+    runs = RWKV_FP32_LAYERS * RWKV_FP32_BATCH
+    check(counts[WK.KERNELS[torch.float32]] == 2 * runs,
+          f"phase 49: {counts[WK.KERNELS[torch.float32]]} fp32 forward launches, not {2 * runs}")
+    for e in WK.BWD_KERNELS[torch.float32]:
+        check(counts[e] == runs, f"phase 49: {e} launched {counts[e]} times, not {runs}")
+    check(all(counts[e] == 0 for e in (*WK.BWD_KERNELS[torch.bfloat16],
+                                        WK.KERNELS[torch.bfloat16])),
+          "phase 49: an fp32 step launched a bf16 kernel")
+    launches[WK.KERNELS[torch.float32]] = counts[WK.KERNELS[torch.float32]]
+    bwd_launches["float32"] = sum(counts[e] for e in WK.BWD_KERNELS[torch.float32])
+    print(f"phase 49 fp32 at full width, {RWKV_FP32_LAYERS} layers, {RWKV_FP32_BATCH} x "
+          f"{TRAIN_SEQ} in {RWKV_FP32_BATCH} microbatches: the gradients as above; a train "
+          f"step in {step_s:.3f} s: loss {float(m['loss']):.6f}, grad norm "
+          f"{float(m['grad_norm']):.4f}; launches " + ", ".join(
+              f"{e} {counts[e]}" for e in (WK.KERNELS[torch.float32],
+                                            *WK.BWD_KERNELS[torch.float32])), flush=True)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    print(f"phase 49 took {time.perf_counter() - t_phase:.1f} s; phases 46-49 "
+          f"{time.perf_counter() - t_slice:.1f} s", flush=True)
+
+    rows = []
+    for dtn, name in (("bfloat16", "wkv6_bwd"), ("float32", "wkv6_bwd_fp32")):
+        ms, plain_ms, bound, by = timing[dtn]
+        rows.append(dict(name=name, route="cuda",
+                         source="src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu",
+                         replaces="src/repro/kernels/rwkv6/kernel.py:94",
+                         launches=bwd_launches[dtn], max_abs_err=worst[dtn], ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None))
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -3234,6 +3800,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import _build as flash_build
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.rwkv6 import _build as wkv_build
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     from repro_torch.lease_array import _build
     from repro_torch.lease_array import kernel as K
     from repro_torch.lease_array.netplane import init_netplane, pack_link
@@ -3275,6 +3842,7 @@ def main() -> int:
     flash_build.load()
     wkv_build.load()
     build_s = time.perf_counter() - t0
+    stamp("the build")
     print(f"phase 1 build: {build_s:.1f} s; " + "; ".join(
         f"{lib.name}: {ptxas_summary(lib.with_suffix('.log').read_text())}"
         for lib in libs), flush=True)
@@ -3355,9 +3923,19 @@ def main() -> int:
         for op in wkv_sass_ops:
             wkv_ops[kind, op] = wkv_ops.get((kind, op), 0) + sum(
                 o.startswith(op) for _, _, o, _ in ins)
+    # the backward's h and g passes take their rounds by cp.async (LDGSTS);
+    # none of its passes issues mma.sync or bulk copies
     for (kind, op), count in wkv_ops.items():
-        check((count > 0) == (kind.startswith("bf16-mma") != (op == "UBLKCP")),
-              f"{wkv_lib.name}: {kind} holds {count} {op} instructions")
+        if kind.startswith("bwd"):
+            want = op == "LDGSTS" and not kind.startswith("bwd-sum")
+        else:
+            want = kind.startswith("bf16-mma") != (op == "UBLKCP")
+        check((count > 0) == want, f"{wkv_lib.name}: {kind} holds {count} {op} instructions")
+    wkv_log = wkv_lib.with_suffix(".log").read_text()
+    wkv_bwd = {k: v for k, v in ptxas_table(wkv_log, wkv_kind).items() if k.startswith("bwd")}
+    check(len(wkv_bwd) == 3 * 2 * len(wkv_kernel.HEAD_SIZES)
+          and all(s == 0 for _, s in wkv_bwd.values()),
+          f"{wkv_lib.name}: backward passes {sorted(wkv_bwd)} spill: {wkv_bwd}")
     # the dynamic shared memory each entry launches a block with, as the
     # built library reports it
     wkv_dll = wkv_build.load()
@@ -3365,11 +3943,14 @@ def main() -> int:
         f"{entry} " + ", ".join(f"{getattr(wkv_dll, entry + '_smem_bytes')(n)} B at N {n}"
                                 for n in (16, 32, 64, 128))
         for entry in wkv_build.ENTRY_POINTS)
+          + "; backward passes h / g, fp32 and bf16: " + ", ".join(
+              f"N {n} " + " / ".join(f"{wkv_dll.wkv6_bwd_smem_bytes(n, c, p)}"
+                                     for c in (0, 1) for p in (0, 1)) + " B"
+              for n in (16, 32, 64, 128))
           + "; SASS " + " / ".join(wkv_sass_ops) + " " + ", ".join(
               f"{kind} " + " / ".join(str(wkv_ops[kind, op]) for op in wkv_sass_ops)
               for kind in sorted({k for k, _ in wkv_ops}))
-          + "): " + ptxas_summary(wkv_lib.with_suffix(".log").read_text(), wkv_kind),
-          flush=True)
+          + "): " + ptxas_summary(wkv_log, wkv_kind), flush=True)
 
     # ------------------------------------- 2. kernel vs plain, small traces
     t_phase = time.perf_counter()
@@ -3671,12 +4252,16 @@ def main() -> int:
     ]
     del att, rel, up, args, packed, st
     torch.cuda.empty_cache()
+    stamp("phases 1-7")
     kernels.extend(lm_slice(dev))
     torch.cuda.empty_cache()  # the internlm weights are gone; rwkv6-3b's take 12.4 GB
+    stamp("phases 8-12")
     kernels.extend(rwkv_slice(dev))
     torch.cuda.empty_cache()
+    stamp("phases 13-17")
     referee_phase(dev)
     kernels.extend(sweep_slice(dev))
+    stamp("phases 18-19")
     t_new = time.perf_counter()
     by_name = {k["name"]: k for k in kernels}
     for name, n in falsify_phase(dev).items():
@@ -3684,8 +4269,10 @@ def main() -> int:
     by_name["lease_window_delayed"]["launches"] += directory_phase(dev)
     print(f"phases 20-21 took {time.perf_counter() - t_new:.1f} s", flush=True)
     services_phase()
+    stamp("phases 20-22")
     leaselint_phase(libs)
     torch.cuda.empty_cache()
+    stamp("phase 23")
     for slice_ in (moe_hybrid_slice, enc_dec_vision_slice):
         worst, launches = slice_(dev)
         for dtn, name in (("bfloat16", "flash_attention_bhsd"),
@@ -3695,11 +4282,20 @@ def main() -> int:
             by_name[name]["launches"] += launches[entry]
             by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], worst[dtn])
         torch.cuda.empty_cache()
+    stamp("phases 24-41")
     train_rows, launches = train_slice(dev)
     for entry, name in ((flash_kernel.KERNELS[torch.bfloat16], "flash_attention_bhsd"),
                         (flash_kernel.KERNELS[torch.float32], "flash_attention_bhsd_fp32")):
         by_name[name]["launches"] += launches[entry]
     kernels.extend(train_rows)
+    torch.cuda.empty_cache()
+    stamp("phases 42-45")
+    rwkv_rows, launches = rwkv_train_slice(dev)
+    for entry, name in ((wkv_kernel.KERNELS[torch.bfloat16], "wkv6_bhsn"),
+                        (wkv_kernel.KERNELS[torch.float32], "wkv6_bhsn_fp32")):
+        by_name[name]["launches"] += launches[entry]
+    kernels.extend(rwkv_rows)
+    stamp("phases 46-49")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

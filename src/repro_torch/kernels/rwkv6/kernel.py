@@ -1,7 +1,7 @@
-"""WKV6 on the (B·H, S, N) layout: the CUDA kernels' wrapper.
+"""WKV6 on the (B·H, S, N) layout: the CUDA kernels' wrappers.
 
-``wkv6_bhsn`` launches, for CUDA tensors, one of two kernels, and the dtype
-of r, k, v alone decides which (``KERNELS``):
+``wkv6_bhsn`` launches, for CUDA tensors, one of two forward kernels, and
+the dtype of r, k, v alone decides which (``KERNELS``):
 
 * bf16 goes to ``csrc/wkv6_mma.cu``, the chunked matrix form on the tensor
   cores (``mma.sync``, the next chunk's loads by ``cp.async`` beside this
@@ -13,26 +13,38 @@ of r, k, v alone decides which (``KERNELS``):
   come by bulk copies (``cp.async.bulk``) on mbarriers; a block owns 32
   value columns of a head at N 64, 16 at the other head sizes.
 
+When a gradient is wanted (grad mode on and an input that requires grad),
+the call goes through ``WKV6``, a ``torch.autograd.Function``: its forward
+is the forward kernel, and its backward launches the three passes of
+``csrc/wkv6_bwd.cu`` (``BWD_KERNELS``, by dtype; every sum in fp32, dr,
+dk, dv rounded to r's dtype at the end): h recomputes the state forward in
+time, g carries the state's gradient back, sum adds the column tiles'
+partials. No atomics, so equal inputs give equal bits. The launchers
+themselves (``wkv6_fwd``, ``wkv6_bwd``) record no autograd graph, so they
+refuse a call that wants one rather than drop its gradient.
+
 This is a rule, not a fallback: nothing is chosen at run time, and on what
 its kernel does not take the wrapper raises. For CPU tensors it runs the
-plain chunked form, ``ref.wkv_chunked_bhsn``. ``wkv6_bhsn.launches`` counts
+plain versions (``ref.wkv_chunked_bhsn``, which autograd differentiates;
+``ref.wkv6_bwd_ref`` for ``wkv6_bwd``). ``wkv6_bhsn.launches`` counts
 kernel launches only, and ``.launches_by_kernel`` splits that count by
-entry point; ``reset_launches()`` zeros both. The kernels have no backward
-yet: for CUDA inputs that want a gradient the wrapper raises rather than
-drop it (the CPU path is plain torch, which autograd differentiates).
+entry point, forward and backward; ``reset_launches()`` zeros both.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .ref import wkv_chunked_bhsn
+from .ref import wkv6_bwd_ref, wkv_chunked_bhsn
 
 #: the C entry point (``_build.ENTRY_POINTS``) that each dtype of r, k, v launches
 KERNELS = {torch.float32: "wkv6_fwd_f32", torch.bfloat16: "wkv6_fwd_bf16"}
-#: the dtype code both entry points take (each refuses the other's)
+#: the backward's entry points each dtype launches, in order: h, g, sum
+BWD_KERNELS = {dt: tuple(f"{stage}_{'f32' if dt == torch.float32 else 'bf16'}"
+                         for stage in _build.BWD_STAGES) for dt in KERNELS}
+#: the dtype code both forward entry points take (each refuses the other's)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head sizes both kernels are instantiated for
+#: head sizes every kernel is instantiated for
 HEAD_SIZES = (16, 32, 64, 128)
 MAX_GRID_Y = 65535
 
@@ -71,28 +83,43 @@ def needs_grad(*tensors) -> bool:
         x is not None and x.requires_grad for x in tensors)
 
 
-def wkv6_bhsn(r, k, v, logw, u, state=None):
-    """r, k, v: (BH, S, N) fp32 or bf16; logw: (BH, S, N), <= 0; u: (BH, N);
-    state: (BH, N, N) or None (zeros). -> (out (BH, S, N) fp32, final state
-    (BH, N, N) fp32). The caller's state is not modified."""
-    _check(r, k, v, logw, u, state)
-    if r.device.type == "cpu":
-        return wkv_chunked_bhsn(r, k, v, logw, u, state)
+def _check_kernel(r) -> None:
+    """What every kernel takes, for CUDA tensors."""
     if r.device.type != "cuda":
         raise ValueError(f"WKV6 runs on CUDA (kernel) or CPU (plain) tensors, "
                          f"not {r.device}")
-    if needs_grad(r, k, v, logw, u, state):
-        raise RuntimeError(
-            "the WKV6 kernel has no backward yet (ROADMAP.md, queue 1): its "
-            "launch records no autograd graph and would drop the gradient of "
-            "its inputs; run under torch.no_grad(), or on the CPU")
-    bh, s, n = r.shape
+    bh, _, n = r.shape
     if r.dtype not in KERNELS:
         raise ValueError(f"WKV6 takes r, k, v in {list(KERNELS)}, not {r.dtype}")
     if n not in HEAD_SIZES:
         raise ValueError(f"the kernel takes head size N in {HEAD_SIZES}, not {n}")
     if bh > MAX_GRID_Y:
         raise ValueError(f"at most {MAX_GRID_Y} heads per call, got {bh}")
+
+
+def _refuse_grad(*tensors) -> None:
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            "the WKV6 kernels' launchers record no autograd graph, so this call "
+            "would drop the gradient of its inputs; call wkv6_bhsn (it "
+            "differentiates through WKV6) or run under torch.no_grad()")
+
+
+def _count(entry: str) -> None:
+    _COUNTS.launches += 1
+    _COUNTS.launches_by_kernel[entry] += 1
+
+
+def wkv6_fwd(r, k, v, logw, u, state=None):
+    """The forward kernel alone: (out (BH, S, N) fp32, final state (BH, N, N)
+    fp32). Records no autograd graph: raises for CUDA inputs that want a
+    gradient. CPU tensors run the plain chunked form."""
+    _check(r, k, v, logw, u, state)
+    if r.device.type == "cpu":
+        return wkv_chunked_bhsn(r, k, v, logw, u, state)
+    _check_kernel(r)
+    _refuse_grad(r, k, v, logw, u, state)
+    bh, s, n = r.shape
     r, k, v = (_kernel_operand(x) for x in (r, k, v))
     logw, u = _kernel_operand(logw, torch.float32), _kernel_operand(u, torch.float32)
     st = (torch.zeros((bh, n, n), dtype=torch.float32, device=r.device) if state is None
@@ -107,14 +134,95 @@ def wkv6_bhsn(r, k, v, logw, u, state=None):
         )
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    wkv6_bhsn.launches += 1
-    wkv6_bhsn.launches_by_kernel[entry] += 1
+    _count(entry)
     return out, st
 
 
+def wkv6_bwd(r, k, v, logw, u, state, dout, dstate=None):
+    """The backward kernels: (dr, dk, dv, dlogw, du, dstate0) of WKV6 at
+    output gradient ``dout`` (BH, S, N) and final-state gradient ``dstate``
+    (BH, N, N; None: zero), from the forward's inputs; dr, dk, dv in r's
+    dtype, the rest fp32. Three launches (h, g, sum), no atomics, so equal
+    inputs give equal bits. CPU tensors run ``ref.wkv6_bwd_ref``."""
+    _check(r, k, v, logw, u, state)
+    bh, s, n = r.shape
+    if tuple(dout.shape) != (bh, s, n):
+        raise ValueError(f"dout must be {(bh, s, n)}, not {tuple(dout.shape)}")
+    if dstate is not None and tuple(dstate.shape) != (bh, n, n):
+        raise ValueError(f"dstate must be {(bh, n, n)}, not {tuple(dstate.shape)}")
+    if r.device.type == "cpu":
+        return wkv6_bwd_ref(r, k, v, logw, u, state, dout, dstate)
+    _check_kernel(r)
+    _refuse_grad(r, k, v, logw, u, state, dout, dstate)
+    r, k, v = (_kernel_operand(x) for x in (r, k, v))
+    logw, u, dout = (_kernel_operand(x, torch.float32) for x in (logw, u, dout))
+    state, dstate = (None if x is None else _kernel_operand(x, torch.float32)
+                     for x in (state, dstate))
+    dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
+    dlogw = torch.empty((bh, s, n), dtype=torch.float32, device=r.device)
+    du = torch.empty((bh, n), dtype=torch.float32, device=r.device)
+    dstate0 = torch.empty((bh, n, n), dtype=torch.float32, device=r.device)
+    lib = _build.load()
+    scratch = torch.empty(lib.wkv6_bwd_scratch_bytes(bh, s, n) // 4, dtype=torch.float32,
+                          device=r.device)
+    ptrs = [None if x is None else x.data_ptr()
+            for x in (r, k, v, logw, u, state, dout, dstate, dr, dk, dv, dlogw, du, dstate0,
+                      scratch)]
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    with torch.cuda.device(r.device):
+        for entry in BWD_KERNELS[r.dtype]:
+            err = getattr(lib, entry)(*ptrs, bh, s, n, stream)
+            if err != 0:
+                raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+            _count(entry)
+    return dr, dk, dv, dlogw, du, dstate0
+
+
+class WKV6(torch.autograd.Function):
+    """WKV6 through the kernels with its gradient: the forward kernel, the
+    saved inputs (the backward's pass h recomputes the state from them,
+    so no state a token is kept), and the backward kernels. A final state
+    that no loss reads gets no gradient (``dstate`` None, zero to the
+    kernel)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, logw, u, state)
+        return wkv6_fwd(r, k, v, logw, u, state)
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, logw, u, state = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        dr, dk, dv, dlogw, du, dstate0 = wkv6_bwd(r, k, v, logw, u, state, dout, dstate)
+        return (dr, dk, dv, dlogw.to(logw.dtype), du.to(u.dtype),
+                None if state is None else dstate0.to(state.dtype))
+
+
+def wkv6_bhsn(r, k, v, logw, u, state=None):
+    """r, k, v: (BH, S, N) fp32 or bf16; logw: (BH, S, N), <= 0; u: (BH, N);
+    state: (BH, N, N) or None (zeros). -> (out (BH, S, N) fp32, final state
+    (BH, N, N) fp32). The caller's state is not modified. Differentiable: on
+    the CPU through the plain chunked form, on CUDA through ``WKV6``."""
+    _check(r, k, v, logw, u, state)
+    if r.device.type == "cpu":
+        return wkv_chunked_bhsn(r, k, v, logw, u, state)
+    if not needs_grad(r, k, v, logw, u, state):
+        return wkv6_fwd(r, k, v, logw, u, state)
+    return WKV6.apply(r, k, v, logw, u, state)
+
+
+#: the object that holds the counts (the function itself, whatever later
+#: rebinds the module's name)
+_COUNTS = wkv6_bhsn
+
+
 def reset_launches() -> None:
-    wkv6_bhsn.launches = 0
-    wkv6_bhsn.launches_by_kernel = dict.fromkeys(KERNELS.values(), 0)
+    _COUNTS.launches = 0
+    _COUNTS.launches_by_kernel = dict.fromkeys(
+        [*KERNELS.values(), *(e for entries in BWD_KERNELS.values() for e in entries)], 0)
 
 
 reset_launches()

@@ -1,7 +1,8 @@
 """Public wrapper: the (B, S, H, N) layout of ``repro``'s RWKV6 code, folded
 to the kernel's (B·H, S, N) and back, with ``u`` expanded per head and the
 state carried as (B, H, N, N). The kernel runs the recurrence token by
-token, so there is no ``chunk`` argument."""
+token, so there is no ``chunk`` argument. Differentiable as ``wkv6_bhsn``
+is: the expand of ``u`` sums its gradient over the batch."""
 from __future__ import annotations
 
 from .kernel import wkv6_bhsn

@@ -5,7 +5,9 @@ Per head, with an N x N state mapping keys to values:
     o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
     S_t = diag(e^{logw_t}) S_{t-1} + k_t^T v_t
 
-``wkv6_ref`` is the exact sequential scan. ``wkv_chunked_bhsn`` is the
+``wkv6_ref`` is the exact sequential scan and ``wkv6_bwd_ref`` its
+gradient, token by token (the plain version of the backward kernel
+``csrc/wkv6_bwd.cu``). ``wkv_chunked_bhsn`` is the
 chunked form of ``repro.models.rwkv6.wkv_chunked``: within a chunk the
 recurrence is closed-form with the per-channel pairwise decay factors
 ``exp(min(cum_ex[t] - cum[s], 0))``, which are <= 1 for any decay, so no
@@ -15,7 +17,8 @@ clamp is needed. (The Pallas kernel instead clamps ``cum >= -30`` and forms
 ``kernel.wkv6_bhsn`` and the yardstick the CUDA kernel is held against.
 
 Both work on the kernel's (BH, S, N) layout with ``u`` (BH, N), take an
-optional initial state (BH, N, N) and return ``(out, state)`` in fp32.
+optional initial state (BH, N, N) and return ``(out, state)`` in fp32
+(``wkv_chunked_bhsn`` in the ``dtype`` it is asked for).
 ``wkv_chunked`` is the model's (B, S, H, N) layout with ``u`` (H, N).
 """
 from __future__ import annotations
@@ -28,10 +31,11 @@ def _f32(*xs):
     return tuple(x.float() for x in xs)
 
 
-def _state0(state, bh: int, n: int, like: torch.Tensor) -> torch.Tensor:
+def _state0(state, bh: int, n: int, like: torch.Tensor,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     if state is None:
-        return torch.zeros((bh, n, n), dtype=torch.float32, device=like.device)
-    return state.float()
+        return torch.zeros((bh, n, n), dtype=dtype, device=like.device)
+    return state.to(dtype)
 
 
 def wkv6_ref(r, k, v, logw, u, state=None):
@@ -48,17 +52,67 @@ def wkv6_ref(r, k, v, logw, u, state=None):
     return torch.stack(outs, 1), st
 
 
-def wkv_chunked_bhsn(r, k, v, logw, u, state=None, chunk: int = 32):
-    """The chunked form on (BH, S, N) -> (out (BH, S, N), state (BH, N, N)).
+def wkv6_bwd_ref(r, k, v, logw, u, state, dout, dstate):
+    """The gradient of ``wkv6_ref`` at output gradient ``dout`` (BH, S, N)
+    and final-state gradient ``dstate`` (BH, N, N; None: zero), in fp32,
+    token by token. With G_t = dL/dS_t, G_T = dstate,
+    G_{t-1} = diag(w_t) G_t + r_t^T do_t, h_t = S_{t-1} do_t, f_t = G_t v_t,
+    e_t = do_t . v_t:
+
+        dr_t = h_t + (u * k_t) e_t          dk_t = f_t + (u * r_t) e_t
+        dv_t = k_t G_t + (r_t . (u * k_t)) do_t      du = sum_t (r_t * k_t) e_t
+        dlogw_t = w_t * rowsum(S_{t-1} * G_t) = D_t - k_t * f_t
+
+    where D_t = rowsum(S_t * G_t) runs back from rowsum(S_T * dS_T) as
+    D_{t-1} = D_t - k_t * f_t + r_t * h_t: the reverse cumulative sum the
+    kernel takes (which restarts it every 64 tokens from the exact rowsum,
+    against its rounding walk). -> (dr, dk, dv, dlogw, du, dstate0), the first four
+    (BH, S, N), du (BH, N), dstate0 (BH, N, N)."""
+    bh, s, n = r.shape
+    rf, kf, vf, wf, uf, do = _f32(r, k, v, logw, u, dout)
+    w = torch.exp(wf)
+    st = _state0(state, bh, n, r)
+    hs = []
+    for t in range(s):  # forward: h_t = S_{t-1} do_t
+        hs.append(torch.einsum("bjm,bm->bj", st, do[:, t]))
+        st = w[:, t, :, None] * st + kf[:, t, :, None] * vf[:, t, None, :]
+    h = torch.stack(hs, 1) if s else torch.zeros_like(rf)
+    g = torch.zeros_like(st) if dstate is None else dstate.float()
+    dsum = (st * g).sum(-1)  # D_T
+    f, dv, dl = [], [], []
+    for t in reversed(range(s)):  # backward: G_t, then G_{t-1}
+        ft = torch.einsum("bjm,bm->bj", g, vf[:, t])
+        dv.append(torch.einsum("bj,bjm->bm", kf[:, t], g))
+        dl.append(dsum - kf[:, t] * ft)
+        dsum = dl[-1] + rf[:, t] * h[:, t]
+        f.append(ft)
+        g = w[:, t, :, None] * g + rf[:, t, :, None] * do[:, t, None, :]
+
+    def stacked(xs):
+        return torch.stack(xs[::-1], 1) if s else torch.zeros_like(rf)
+
+    f, dv, dlogw = stacked(f), stacked(dv), stacked(dl)
+    e = (do * vf).sum(-1, keepdim=True)  # (BH, S, 1)
+    b = (rf * uf[:, None, :] * kf).sum(-1, keepdim=True)
+    dr = h + uf[:, None, :] * kf * e
+    dk = f + uf[:, None, :] * rf * e
+    return dr, dk, dv + b * do, dlogw, (rf * kf * e).sum(1), g
+
+
+def wkv_chunked_bhsn(r, k, v, logw, u, state=None, chunk: int = 32,
+                     dtype: torch.dtype = torch.float32):
+    """The chunked form on (BH, S, N) -> (out (BH, S, N), state (BH, N, N)),
+    computed and returned in ``dtype`` (float64 makes it the exact
+    recurrence to ~1e-15, a witness for both the kernels and the fp32 form).
     A ragged tail is padded with r, k, v = 0 and logw = 0 (decay 1), which
     leaves the state as the unpadded sequence leaves it."""
     bh, s, n = r.shape
     pad = (-s) % chunk
-    rf, kf, vf, wf = (F.pad(x, (0, 0, 0, pad)) for x in _f32(r, k, v, logw))
-    uf = u.float()[:, None, :]  # (BH, 1, N)
-    st = _state0(state, bh, n, r)
-    tri = torch.ones((chunk, chunk), device=r.device).tril(-1)  # strict lower
-    eye = torch.eye(chunk, device=r.device)
+    rf, kf, vf, wf = (F.pad(x.to(dtype), (0, 0, 0, pad)) for x in (r, k, v, logw))
+    uf = u.to(dtype)[:, None, :]  # (BH, 1, N)
+    st = _state0(state, bh, n, r, dtype)
+    tri = torch.ones((chunk, chunk), dtype=dtype, device=r.device).tril(-1)  # strict lower
+    eye = torch.eye(chunk, dtype=dtype, device=r.device)
     outs = []
     for c0 in range(0, s + pad, chunk):
         rj, kj, vj, wj = (x[:, c0:c0 + chunk] for x in (rf, kf, vf, wf))

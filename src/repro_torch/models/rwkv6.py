@@ -1,8 +1,13 @@
 """RWKV6 (Finch) block: data-dependent-decay time mixing + channel mixing.
 
 The port of ``repro.models.rwkv6``. Sequence mode (``apply_time_mix``,
-prefill) runs the WKV6 recurrence through ``kernels.rwkv6.ops.wkv6``: the
-CUDA kernel for CUDA tensors, the plain chunked form for CPU tensors. Decode
+prefill and training) runs the WKV6 recurrence through
+``kernels.rwkv6.ops.wkv6``: the CUDA kernels for CUDA tensors (under
+autograd the forward kernel and the backward kernel's three passes, through
+``kernels.rwkv6.kernel.WKV6``), the plain chunked form for CPU tensors,
+which autograd differentiates. Under remat "dots" only the products with a
+weight are kept, so the forward kernel runs twice a layer and microbatch,
+once more in the backward's recompute. Decode
 (``apply_time_mix_step``) runs the one-token recurrence ``wkv_step`` in plain
 PyTorch, as the reference does. ``wkv_chunked`` is the plain chunked form
 with the reference's signature.

@@ -19,8 +19,8 @@ Sequence-mode attention (``forward`` and ``loss_fn``: self-attention, the
 encoder's and the cross-attention) goes through the flash kernel, forward
 and, under autograd, backward (``kernels.flash_attention.kernel.
 FlashAttention``); rwkv6's sequence-mode recurrence goes through the WKV6
-kernel, which has no backward yet, so rwkv6 does not train on a card
-(``loss_fn`` raises there). Decode, against the cache, is plain PyTorch.
+kernel, forward and, under autograd, backward (``kernels.rwkv6.kernel.
+WKV6``). Decode, against the cache, is plain PyTorch.
 
 ``loss_fn`` is the reference's: next-token cross entropy in fp32 (labels
 below 0 masked; for the vision frontend the text's logits start after the
@@ -346,12 +346,6 @@ def _forward(cfg: ModelConfig, params, batch: dict, *, emit_cache: bool = False,
     (logits, cache or None, aux). ``remat`` recomputes each decoder layer
     in the backward by ``_remat``."""
     dtype = torch_dtype(cfg.dtype)
-    if (cfg.attention_free and params["embed"].is_cuda and torch.is_grad_enabled()
-            and params["embed"].requires_grad):
-        raise NotImplementedError(
-            "rwkv6 does not train on a CUDA device yet: the WKV6 kernel has no "
-            "backward (ROADMAP.md, queue 1: rwkv6 training with a WKV6 backward "
-            "kernel); on the CPU, pass device='cpu'")
     enc_out = None
     h = _embed_tokens(cfg, params, batch["tokens"])
     if cfg.enc_dec:

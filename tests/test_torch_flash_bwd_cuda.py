@@ -32,7 +32,7 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 from repro_torch.kernels.rwkv6 import kernel as WK
 from repro_torch.launch import steps
-from repro_torch.models import init_model
+from repro_torch.models import init_model, schema
 from test_torch_flash_kernel import tf32x3_bwd_model
 
 FP32_TOL = 1e-4
@@ -188,26 +188,34 @@ def test_autograd_goes_through_the_kernels(cuda_device, dt):
 @pytest.mark.cuda
 def test_no_gradient_is_dropped_silently(cuda_device):
     """Outside ``FlashAttention`` the launchers refuse a call that wants a
-    gradient; so does WKV6, which has no backward; the Function refuses
-    rows with no key in reach; rwkv6 refuses to train on the card."""
+    gradient; the Function refuses rows with no key in reach. WKV6, whose
+    launchers refuse likewise, differentiates through its ``WKV6``
+    Function: the gradient arrives at every input, and rwkv6 trains on the
+    card (every gradient leaf of the reduced model finite, and not all
+    zero)."""
     q = torch.randn(2, 64, 64, device=cuda_device, requires_grad=True)
     with pytest.raises(RuntimeError, match="drop the gradient"):
         K.flash_attention_fwd(q, q, q)
     with pytest.raises(ValueError, match="no key in reach"):
         K.flash_attention_bhsd(q, q[:, :32], q[:, :32], causal=True)
     r = torch.randn(2, 32, 64, device=cuda_device, requires_grad=True)
-    logw = -torch.rand(2, 32, 64, device=cuda_device)
-    u = torch.zeros(2, 64, device=cuda_device)
-    with pytest.raises(RuntimeError, match="no backward"):
-        WK.wkv6_bhsn(r, r, r, logw, u)
-    with torch.no_grad():
-        WK.wkv6_bhsn(r, r, r, logw, u)  # inference still runs
+    logw = (-torch.rand(2, 32, 64, device=cuda_device)).requires_grad_(True)
+    u = torch.zeros(2, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="drop the gradient"):
+        WK.wkv6_fwd(r, r, r, logw, u)
+    out, _ = WK.wkv6_bhsn(r, r, r, logw, u)
+    out.square().sum().backward()
+    for leaf in (r, logw, u):
+        assert leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
+        assert bool(leaf.grad.abs().sum() > 0)
     cfg = reduced(get_config("rwkv6-3b"), dtype="float32")
     params = init_model(cfg, 0, device=cuda_device)
     batch = {"tokens": torch.zeros(1, 8, dtype=torch.int32, device=cuda_device),
              "labels": torch.zeros(1, 8, dtype=torch.int32, device=cuda_device)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        steps.accumulate_grads(cfg, params, batch)
+    grads, loss, _ = steps.accumulate_grads(cfg, params, batch)
+    leaves = [g for _, g in schema.leaf_paths(grads)]
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in leaves)
+    assert any(bool(g.abs().sum() > 0) for g in leaves)
 
 
 @pytest.mark.cuda

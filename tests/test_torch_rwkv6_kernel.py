@@ -214,9 +214,9 @@ def test_entry_point_folds_heads_and_carries_the_state():
     assert rel_err(st.reshape(b * h, n, n), want_st) < 5e-4
 
 
-@pytest.mark.parametrize("attr", ["SOURCE", "MMA_SOURCE"])
+@pytest.mark.parametrize("attr", ["SOURCE", "MMA_SOURCE", "BWD_SOURCE"])
 def test_library_name_follows_the_source(tmp_path, monkeypatch, attr):
-    """The library's name hashes both sources: an edit of either renames it."""
+    """The library's name hashes every source: an edit of any renames it."""
     first = _build.library_path()
     assert first.parent == _build.BUILD_DIR and first.name.startswith("libwkv6_")
     src = tmp_path / getattr(_build, attr).name
@@ -229,7 +229,8 @@ def test_each_dtype_names_its_kernel():
     """bf16 launches the tensor-core kernel, fp32 the CUDA-core one: each
     entry point is defined in its own source, and only the bf16 source
     issues mma.sync, ldmatrix and 16-byte cp.async (the fp32 one copies its
-    stages in bulk)."""
+    stages in bulk). The library also holds the backward's source, and the
+    launch counts have a key for each of its entry points."""
     assert set(K.KERNELS) == {torch.float32, torch.bfloat16}
     assert sorted(K.KERNELS.values()) == sorted(_build.ENTRY_POINTS)
     cores, tensor_cores = _build.SOURCE.read_text(), _build.MMA_SOURCE.read_text()
@@ -238,10 +239,11 @@ def test_each_dtype_names_its_kernel():
     for op in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32", "ldmatrix.sync",
                "cp.async.cg.shared.global", "cp.async.wait_group"):
         assert op in tensor_cores and op not in cores
-    assert _build.sources() == [_build.SOURCE, _build.MMA_SOURCE]
+    assert _build.sources() == [_build.SOURCE, _build.MMA_SOURCE, _build.BWD_SOURCE]
     K.reset_launches()
     assert K.wkv6_bhsn.launches == 0
-    assert K.wkv6_bhsn.launches_by_kernel == dict.fromkeys(K.KERNELS.values(), 0)
+    assert K.wkv6_bhsn.launches_by_kernel == dict.fromkeys(
+        [*K.KERNELS.values(), *_build.BWD_ENTRY_POINTS], 0)
 
 
 # (b, s, h, n, decay, initial state, chunk) for the model of the tensor-core

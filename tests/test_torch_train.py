@@ -1,5 +1,6 @@
 """The port's training path against ``repro``'s, on the CPU: ``loss_fn``
-and every gradient leaf for each architecture but rwkv6, remat, the train
+and every gradient leaf for each architecture (rwkv6's through the plain
+chunked WKV6, which autograd differentiates here), remat, the train
 step with microbatches, ``Trainer`` (steps, resume, the lease guard) and
 the lease-coordinated failover story of ``tests/test_system.py``.
 
@@ -11,7 +12,7 @@ leaf to ‖Δ‖₂/‖g‖₂ < 1e-4 in fp32 (two frameworks' fp32 sums in anot
 order through a few layers read ~1e-6). In bf16 compute (fp32 master
 weights) each leaf to 5e-2: bf16 keeps 8 bits (3.9e-3 a rounding), and the
 two packages round the activations at other places (internlm2 reads
-~1e-2). ``Trainer`` losses to 2e-4 relative over 3 steps.
+~1e-2, rwkv6 ~2e-2). ``Trainer`` losses to 2e-4 relative over 3 steps.
 
 The reference's ``moe_dispatch`` warns (``DeprecationWarning``; ``ROADMAP.md``,
 reference fault 4), which ``pytest.ini`` turns into an error; every call of
@@ -36,7 +37,7 @@ from repro_torch.models import carry, init_model, loss_fn, schema, transformer
 from repro_torch.train import Trainer, TrainerConfig
 from test_torch_moe import ref_warnings_off
 
-ARCHS = [a for a in configs.arch_ids() if a != "rwkv6-3b"]
+ARCHS = configs.arch_ids()
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 BF16_GRAD_TOL = 5e-2
@@ -122,8 +123,9 @@ def test_loss_and_every_gradient_leaf_match(arch):
     assert not bad, bad
 
 
-def test_bf16_compute_gradients_match():
-    cfg, ref_cfg = cfg_pair("internlm2-1.8b", dtype="bfloat16")
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "rwkv6-3b"])
+def test_bf16_compute_gradients_match(arch):
+    cfg, ref_cfg = cfg_pair(arch, dtype="bfloat16")
     tree, batch = weights(cfg, seed=3), make_batch(cfg, seed=3)
     want_loss, _, want_g = ref_value_and_grad(ref_cfg, tree, batch)
     loss, _, grads = port_value_and_grad(cfg, tree, batch)
@@ -173,8 +175,10 @@ def test_each_remat_policy_equals_none(arch, policy):
 
 
 def test_rwkv6_loss_runs_on_the_cpu():
-    """rwkv6 does not train on the card (no WKV6 backward yet); on the CPU
-    autograd differentiates the plain chunked form. No parity is claimed."""
+    """On the CPU autograd differentiates the plain chunked WKV6 (on the
+    card the WKV6 kernels take its place, forward and backward): the loss
+    and every gradient leaf are finite. Parity with the reference is
+    ``test_loss_and_every_gradient_leaf_match``'s."""
     cfg, _ = cfg_pair("rwkv6-3b")
     params = carry.params_from_reference(cfg, weights(cfg), device="cpu")
     grads, loss, _ = steps.accumulate_grads(cfg, params, make_batch(cfg))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The flash kernels (forward and backward) on host threads, without a card.
+"""The flash kernels (forward and backward) and the WKV6 backward on host
+threads, without a card.
 
-    python3 tools/sm90_emu.py [--csrc DIR] [--fp32] [CASE ...]
+    python3 tools/sm90_emu.py [--csrc DIR] [--fp32 | --wkv6] [CASE ...]
 
 Builds ``csrc/flash_attention_wgmma.cu`` and ``csrc/flash_attention_bwd_wgmma.cu``
 with g++ into ``build/sm90_emu/libemu.so``: ``sm90.cuh``'s block between its
@@ -41,6 +42,15 @@ emulator) and ``attention_ref``, and the backward's passes (D from plain
 torch) to ``tf32x3_bwd_model`` and, per gradient, to ``attention_bwd_ref``
 within 1e-4 in ||err||_2 / ||g||_2 (phase 42's fp32 limit); both models
 are ``tests/test_torch_flash_kernel.py``'s.
+
+``--wkv6`` builds ``kernels/rwkv6/csrc/wkv6_bwd.cu`` (or the one in
+``--csrc``) into ``build/sm90_emu/libemu_wkv6_bwd.so``, its ``PTX helpers``
+block swapped for ``emu_tf32.h`` (cp.async as copies made at the thread's
+wait), and runs its three passes at each of ``WKV6_CASES`` (every head
+size, ragged lengths about its 8- and 16-token rounds, both dtypes, the
+states given or not, the decay_base spread and decays down to -33) against
+``ref.wkv6_bwd_ref``: below 1e-4 per gradient, bf16's dr, dk, dv within
+twice their bf16 rounding (phase 46's limits).
 """
 from __future__ import annotations
 
@@ -230,6 +240,95 @@ def run_case_fp32(lib, bhq, bhkv, sq, sk, dh, causal, window, seed=0) -> bool:
     return ok
 
 
+def build_wkv6(csrc: Path) -> Path:
+    """The host build of the WKV6 backward (``kernels/rwkv6/csrc/wkv6_bwd.cu``
+    in ``csrc``): its block between the ``PTX helpers`` marks swapped for the
+    cp.async of ``emu_tf32.h``."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    t = (csrc / "wkv6_bwd.cu").read_text()
+    t = re.sub(r"// -+ PTX helpers\n.*?// -+ end PTX helpers\n", '#include "emu_tf32.h"\n', t,
+               flags=re.S)
+    t = re.sub(r"#include <cuda(_bf16|_runtime)\.h>\n", "", t)
+    t = t.replace("#include <math.h>", '#include "emu_cuda.h"\n#include <math.h>')
+    t = t.replace("extern __shared__ float4 smem4[];", "float4* smem4 = (float4*)emu_smem();")
+    t = re.sub(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", t, flags=re.S)
+    src = OUT / "wkv6_bwd_emu.cpp"
+    src.write_text(t)
+    lib = OUT / "libemu_wkv6_bwd.so"
+    subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-I", str(EMU),
+                    "-o", str(lib), str(src)], check=True)
+    return lib
+
+
+#: (bh, s, n, dtype, initial state, final-state gradient, decay): every head
+#: size, lengths ragged about the rounds (8 or 16 tokens), both dtypes, with
+#: and without the states, the decay_base spread and decays down to -33
+WKV6_CASES = [
+    (2, 37, 64, "float32", True, True, "spread"),
+    (3, 8, 64, "float32", False, False, "uniform"),
+    (2, 1, 64, "bfloat16", True, True, "uniform"),
+    (2, 95, 16, "float32", True, True, "uniform"),
+    (1, 33, 32, "bfloat16", False, True, "spread"),
+    (2, 50, 128, "float32", True, False, "extreme"),
+    (1, 130, 64, "bfloat16", True, True, "extreme"),
+    (3, 17, 32, "float32", True, True, "uniform"),
+    (2, 40, 16, "bfloat16", True, False, "spread"),
+]
+
+
+def wkv6_bwd_inputs(bh, s, n, dtype, with_state, with_dstate, decay, seed=0):
+    """CPU inputs of the WKV6 backward from numpy: r, k, v in ``dtype``, the
+    rest fp32; the decay drawn uniformly (omega in [-6, 1.5]), from rwkv6's
+    decay_base spread, or down to -33 a token (omega up to 3.5)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    r, k, v, do = (rng.standard_normal((bh, s, n), np.float32) for _ in range(4))
+    if decay == "spread":
+        omega = -6.0 + 7.0 * np.linspace(0.0, 1.0, n) ** 1.5 + 0.1 * rng.standard_normal((bh, s, n))
+    else:
+        omega = rng.uniform(-6.0, 3.5 if decay == "extreme" else 1.5, (bh, s, n))
+    logw = (-np.exp(omega)).astype(np.float32)
+    u = (rng.standard_normal((bh, n)) * 0.3).astype(np.float32)
+    st = (rng.standard_normal((bh, n, n)) * 0.1).astype(np.float32) if with_state else None
+    ds = rng.standard_normal((bh, n, n)).astype(np.float32) if with_dstate else None
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+
+    def t(a, d=torch.float32):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(d)
+
+    return (t(r, dt), t(k, dt), t(v, dt), t(logw), t(u), t(st), t(do), t(ds))
+
+
+def run_case_wkv6(lib, bh, s, n, dtype, with_state, with_dstate, decay, seed=0) -> bool:
+    import torch
+
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref
+
+    x = wkv6_bwd_inputs(bh, s, n, dtype, with_state, with_dstate, decay, seed)
+    r = x[0]
+    dt = "f32" if dtype == "float32" else "bf16"
+    outs = [torch.empty_like(r) for _ in range(3)] + [
+        torch.empty(bh, s, n), torch.empty(bh, n), torch.empty(bh, n, n)]
+    scratch = torch.empty(lib.wkv6_bwd_scratch_bytes(bh, s, n) // 4)
+    ptrs = [None if a is None else a.data_ptr() for a in x] + [o.data_ptr() for o in outs]
+    for stage in ("h", "g", "sum"):
+        assert getattr(lib, f"wkv6_bwd_{stage}_{dt}")(*ptrs, scratch.data_ptr(), bh, s, n,
+                                                      None) == 0
+    want = wkv6_bwd_ref(*x)
+    errs = [rel(a, b) for a, b in zip(outs, want)]
+    limits = [1e-4] * 6
+    if dt == "bf16":  # dr, dk, dv are rounded to bf16 at the end: twice that rounding
+        limits[:3] = [2 * rel(b.bfloat16(), b) for b in want[:3]]
+    ok = all(e < lim for e, lim in zip(errs, limits))
+    print(f"{'ok ' if ok else 'BAD'} WKV6 backward BH {bh} S {s} N {n} {dtype}, state "
+          f"{with_state}, dS_T {with_dstate}, {decay} decay: dr/dk/dv/dlogw/du/dS0 "
+          + "/".join(f"{e:.2e}" for e in errs) + " (limits "
+          + "/".join(f"{x:.1e}" for x in limits) + ")", flush=True)
+    return ok
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.flash_attention import _build
@@ -238,8 +337,25 @@ def main(argv) -> int:
     ap.add_argument("--csrc", type=Path, default=_build.CSRC)
     ap.add_argument("--fp32", action="store_true",
                     help="the fp32 kernels (sm80_tf32.cuh) instead of the bf16 ones")
+    ap.add_argument("--wkv6", action="store_true",
+                    help="the WKV6 backward (kernels/rwkv6/csrc/wkv6_bwd.cu) instead")
     ap.add_argument("cases", type=int, nargs="*")
     args = ap.parse_args(argv)
+    if args.wkv6:
+        from repro_torch.kernels.rwkv6 import _build as wkv_build
+
+        csrc = wkv_build.CSRC if args.csrc == _build.CSRC else args.csrc
+        lib = ctypes.CDLL(str(build_wkv6(csrc)))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for stage in ("h", "g", "sum"):
+            for dt in ("f32", "bf16"):
+                getattr(lib, f"wkv6_bwd_{stage}_{dt}").argtypes = [ptr] * 15 + [i32] * 3 + [ptr]
+        lib.wkv6_bwd_scratch_bytes.argtypes = [i32] * 3
+        lib.wkv6_bwd_scratch_bytes.restype = ctypes.c_longlong
+        ok = all([run_case_wkv6(lib, *WKV6_CASES[i])
+                  for i in (args.cases or range(len(WKV6_CASES)))])
+        print("every case passed" if ok else "FAILED")
+        return 0 if ok else 1
     dt = "f32" if args.fp32 else "bf16"
     lib = ctypes.CDLL(str((build_fp32 if args.fp32 else build)(args.csrc)))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
