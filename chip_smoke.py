@@ -31,10 +31,11 @@ Phases (one line each):
      that the bf16 backward's passes hold HGMMA (wgmma) and UTMALDG (TMA)
      and no HMMA, that D's holds none of them, that only the bf16 WKV6
      kernel holds HMMA and LDGSTS and only the fp32 one bulk copies
-     (UBLKCP), that the WKV6 backward's h and g passes hold LDGSTS and
-     none of its passes HMMA or UBLKCP, and print each entry's registers,
-     spills and dynamic shared memory (the fp32 flash backward passes and
-     every WKV6 backward pass must spill nothing);
+     (UBLKCP), that the WKV6 backward's state and chunk passes hold HMMA
+     (of the TF32 form only) and LDGSTS, its sum pass neither, and none of
+     its passes UBLKCP, and print each entry's registers, spills and
+     dynamic shared memory (the fp32 flash backward passes and every WKV6
+     backward pass must spill nothing);
   2. hold both kernels bit-exact against their plain PyTorch versions on
      small traces (delay 0/2/4, asymmetric links, drift, restarts, extends,
      stale/equiv corruption, windows 1/3/16, a ragged cell count, a trace
@@ -112,7 +113,7 @@ Phases (one line each):
      reference bench's sweep (1024 scenarios x 32 cells x 16 ticks, A 3,
      P 4), zero-delay (sync kernel) and with delay <= 2 and drops (delayed
      kernel), both collect modes, bit-exact against the plain batched
-     version on the first 128 scenarios (the plain version loops over
+     version on the first 64 scenarios (the plain version loops over
      scenarios one at a time); (b) 64 chaos scenarios (phase 4's mix) x
      2^14 cells x 128 ticks at A 5, P 8 in summary mode from a warmed
      engine, equal to 64 separate ``run_trace`` calls from the same state,
@@ -209,9 +210,10 @@ Phases (one line each):
  45. an fp32 step at full width and 4 layers through the kernels against
      plain (per leaf below 1e-4), its state checkpointed, restored and
      compared leaf by leaf.
- 46. the WKV6 backward kernel (``csrc/wkv6_bwd.cu``: passes h, g, sum)
-     against ``wkv6_bwd_ref`` in fp32 and bf16 r/k/v at the reference's
-     five cases, ragged lengths at every head size, states, decays down to
+ 46. the WKV6 backward kernel (``csrc/wkv6_bwd.cu``: passes state, chunk,
+     sum) against ``wkv6_bwd_ref`` in fp32 and bf16 r/k/v at the reference's
+     five cases, ragged lengths at every head size (63, 65 and 129 about
+     the 64-token chunk at N 64 and 128), states, decays down to
      -33 and the training microbatch (per gradient below 1e-4; bf16's dr,
      dk, dv twice their bf16 rounding), two runs bit-identical, and a
      planted fault (the plain backward with dlogw's sum a token off) caught;
@@ -1161,10 +1163,10 @@ WKV_CHUNK = 32  # the Pallas kernel's chunk, for the matrix form's operation cou
 
 def wkv_kind(entry: str) -> str:
     """'fp32/N64' (the CUDA-core forward kernel), 'bf16-mma/N64' (the
-    tensor-core one) or 'bwd-g-bf16/N64' and the like (the backward's
-    passes h, g and sum by dtype) for the instantiation named in a ptxas
-    entry line or a SASS function name."""
-    if m := re.search(r"wkv6_bwd_(h|g|sum)_kernelILi(\d+)E(13__nv_bfloat16|f)", entry):
+    tensor-core one) or 'bwd-chunk-bf16/N64' and the like (the backward's
+    passes state, chunk and sum by dtype) for the instantiation named in a
+    ptxas entry line or a SASS function name."""
+    if m := re.search(r"wkv6_bwd_(state|chunk|sum)_kernelILi(\d+)E(13__nv_bfloat16|f)", entry):
         return f"bwd-{m[1]}-{'fp32' if m[3] == 'f' else 'bf16'}/N{m[2]}"
     m = re.search(r"wkv6_(mma_)?kernelILi(\d+)E", entry)
     return f"{'bf16-mma' if m[1] else 'fp32'}/N{m[2]}"
@@ -1515,9 +1517,9 @@ BENCH_SWEEP = dict(scenarios=1024, n_cells=32, n_ticks=16, n_acceptors=3,
 CHAOS_SWEEP_B, CHAOS_SWEEP_N = 64, 1 << 14
 #: the scenarios of each phase-19 sweep held against the plain batched
 #: version, which loops over scenarios one at a time (the whole bench
-#: sweep's plain run took 135 s, the chaos sweep's 71 s): the first 128
+#: sweep's plain run took 135 s, the chaos sweep's 71 s): the first 64
 #: of the bench sweep's 1024 and the first 8 of the chaos sweep's 64
-BENCH_PLAIN_B, CHAOS_PLAIN_B = 128, 8
+BENCH_PLAIN_B, CHAOS_PLAIN_B = 64, 8
 
 
 def first_scenarios(args, kw, delayed, b):
@@ -3307,8 +3309,8 @@ RWKV_TRAIN_MICRO = 8
 RWKV_FP32_LAYERS, RWKV_FP32_BATCH = 4, 2
 #: phase 46, the WKV6 backward against wkv6_bwd_ref (tests/test_torch_rwkv6_bwd_cuda.py),
 #: (bh, s, n, decay, initial state, final-state gradient): the reference's
-#: five cases as B·H rows, lengths ragged about the kernel's rounds of 8 or
-#: 16 tokens (1 to 95, and 2049) at every head size from a state, with and
+#: five cases as B·H rows, lengths ragged about the kernel's 64-token chunks
+#: (32 at N 128: 1 to 300, and 2049) at every head size from a state, with and
 #: without dS_T, rwkv6's decay_base spread, decays down to -33 a token
 #: ("extreme": omega up to 3.5), and the training microbatch (1 x 40 heads
 #: of 64, S 4096) and twice it
@@ -3324,6 +3326,12 @@ WKV_BWD_CASES = [
     (3, 95, 128, "spread", False, True),
     (2, 2049, 64, "spread", True, True),
     (2, 300, 128, "extreme", True, True),
+    (2, 63, 64, "extreme", True, True),
+    (2, 65, 64, "spread", False, True),
+    (2, 129, 64, 0.5, True, False),
+    (2, 63, 128, "spread", True, True),
+    (2, 65, 128, "extreme", False, True),
+    (2, 129, 128, 0.5, True, True),
     (40, 4096, 64, "spread", False, False),
     (80, 4096, 64, "spread", True, True),
 ]
@@ -3419,13 +3427,40 @@ def wkv_bwd_phase(dev) -> dict:
     return worst
 
 
-def wkv_bwd_timing_phase(dev) -> dict:
+def wkv_bwd_variant(source: Path):
+    """A variant of ``csrc/wkv6_bwd.cu`` (an earlier commit's, from ``git
+    show``, or an edited copy) built into a library of its own beside the
+    port's, its entry points declared as the port's; its includes resolve
+    as from ``csrc/``."""
+    import ctypes
+    import hashlib
+
+    from repro_torch._nvcc import BUILD_DIR, NVCC_FLAGS, compile_library
+    from repro_torch.kernels.flash_attention._build import TF32_HEADER
+    from repro_torch.kernels.rwkv6 import _build as wkv_build
+
+    flags = [*NVCC_FLAGS, "-I", str(wkv_build.CSRC)]
+    h = hashlib.sha256(source.read_bytes() + TF32_HEADER.read_bytes() + " ".join(flags).encode())
+    lib = ctypes.CDLL(str(compile_library(
+        BUILD_DIR / f"libwkv6_bwd_variant_{h.hexdigest()[:16]}.so", [source], flags)))
+    for name in wkv_build.BWD_ENTRY_POINTS:
+        getattr(lib, name).argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.wkv6_bwd_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.wkv6_bwd_scratch_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def wkv_bwd_timing_phase(dev, sources=()) -> dict:
     """Phase 47: the WKV6 backward's time at the training microbatch (one
     sequence's 40 heads of 64, S 4096, decay_base spread), each pass and in
-    total, beside
-    its bound and the plain version's time (the backward of autograd through
-    ``wkv_chunked_bhsn`` on the card). Returns {dtype: (ms, plain ms, bound
-    ms, bound by)}."""
+    total, beside its bound and the plain version's time (the backward of
+    autograd through ``wkv_chunked_bhsn`` on the card). ``sources``: other
+    versions of ``csrc/wkv6_bwd.cu`` (``wkv_bwd_variant``), each timed with
+    the port's kernel in turns (port, variants, variants, port), its
+    gradients held to the port's at 1e-4. Returns {dtype: (ms, plain ms,
+    bound ms, bound by)}."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3438,24 +3473,52 @@ def wkv_bwd_timing_phase(dev) -> dict:
     n = cfg.rwkv.head_size
     bh, s = TRAIN_BATCH // RWKV_TRAIN_MICRO * cfg.d_model // n, TRAIN_SEQ
     lib = wkv_build.load()
+    variants = [(Path(src).name, wkv_bwd_variant(Path(src))) for src in sources]
     out = {}
     for dtn, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         x = wkv_bwd_inputs(dev, bh, s, n, "spread", False, False, dtype, seed=47)
         r, k, v, logw, u, _, do, _ = x
-        scratch = torch.empty(lib.wkv6_bwd_scratch_bytes(bh, s, n) // 4, device=dev)
-        outs = [torch.empty_like(r) for _ in range(3)] + [
-            torch.empty(bh, s, n, device=dev), torch.empty(bh, n, device=dev),
-            torch.empty(bh, n, n, device=dev)]
-        ptrs = [a.data_ptr() for a in (r, k, v, logw, u)] + [None, do.data_ptr(), None] + [
-            o.data_ptr() for o in outs] + [scratch.data_ptr()]
         stream = torch.cuda.current_stream().cuda_stream
 
-        def launch(entry):
-            check(getattr(lib, entry)(*ptrs, bh, s, n, stream) == 0, f"{entry} failed")
+        def launcher(library):
+            """The three passes of ``library`` on this call's inputs into
+            outputs of their own; (launch all, launch one pass, outputs)."""
+            scratch = torch.empty(library.wkv6_bwd_scratch_bytes(bh, s, n) // 4, device=dev)
+            outs = [torch.empty_like(r) for _ in range(3)] + [
+                torch.empty(bh, s, n, device=dev), torch.empty(bh, n, device=dev),
+                torch.empty(bh, n, n, device=dev)]
+            ptrs = [a.data_ptr() for a in (r, k, v, logw, u)] + [None, do.data_ptr(), None] + [
+                o.data_ptr() for o in outs] + [scratch.data_ptr()]
 
+            def one(entry, keep=(scratch, outs)):  # the buffers live while it does
+                check(getattr(library, entry)(*ptrs, bh, s, n, stream) == 0, f"{entry} failed")
+
+            def every():
+                for entry in WK.BWD_KERNELS[dtype]:
+                    one(entry)
+
+            return every, one, outs
+
+        every, launch, port_outs = launcher(lib)
         passes = {}
         for entry in WK.BWD_KERNELS[dtype]:  # in order: each pass's inputs are in
             passes[entry] = time_ms(lambda e=entry: launch(e), 10)
+        if variants:
+            others = [(name, launcher(vl)) for name, vl in variants]
+            every()
+            for name, (run, _, outs) in others:
+                run()
+                torch.cuda.synchronize()
+                errs = [grad_rel(a, b) for a, b in zip(outs, port_outs)]
+                check(max(errs) < WKV_BWD_TOL, f"phase 47 variant {name} ({dtn}) differs from "
+                      f"the port's kernel: {errs}")
+            runs = [("port", every)] + [(name, run) for name, (run, _, _) in others]
+            turns = {name: [] for name, _ in runs}
+            for name, run in runs + runs[::-1]:
+                turns[name].append(time_ms(run, 10))
+            print(f"phase 47 variants in turns ({dtn}; ms, three passes): " + "; ".join(
+                f"{name} " + " / ".join(f"{t_:.4f}" for t_ in ts) for name, ts in turns.items()),
+                flush=True)
         with torch.no_grad():
             t1 = time_ms(lambda: WK.wkv6_bwd(*x), 10)
             t2 = time_ms(lambda: WK.wkv6_bwd(*x), 10)
@@ -3495,7 +3558,7 @@ def wkv_bwd_timing_phase(dev) -> dict:
               f"{ops_ms:.4f} ms: {flop:.3e} FLOP of the chunked form's backward, "
               f"{rec_ins:.3e} instructions of the recurrence); registers, spills and shared "
               f"memory: phase 1", flush=True)
-        del x, r, k, v, logw, u, do, scratch, outs
+        del x, r, k, v, logw, u, do, port_outs, every, launch
         torch.cuda.empty_cache()
     print(f"phase 47 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
@@ -3503,13 +3566,14 @@ def wkv_bwd_timing_phase(dev) -> dict:
 
 def float64_wkv(r, k, v, logw, u, state=None):
     """Phases 48-49's witness: the chunked form in float64 under autograd
-    (the exact recurrence to ~1e-15, independent of the kernels and of the
-    fp32 form's rounding), its outputs in fp32 as the kernel wrapper's."""
+    (the exact recurrence to ~1e-15 at any chunk, independent of the
+    kernels and of the fp32 form's rounding), its outputs in fp32 as the
+    kernel wrapper's. Chunks of 64 tokens: its time is the chunk loop's."""
     import torch
 
     from repro_torch.kernels.rwkv6.ref import wkv_chunked_bhsn
 
-    out, st = wkv_chunked_bhsn(r, k, v, logw, u, state, dtype=torch.float64)
+    out, st = wkv_chunked_bhsn(r, k, v, logw, u, state, chunk=64, dtype=torch.float64)
     return out.float(), st.float()
 
 
@@ -3918,19 +3982,28 @@ def main() -> int:
     # the CUDA-core one takes its stages by bulk copies (UBLKCP) and issues
     # neither
     wkv_ops, wkv_sass_ops = {}, ("HMMA", "LDGSTS", "UBLKCP")
-    for name, ins in sass_functions(library_sass(wkv_lib)).items():
+    wkv_sass = sass_functions(library_sass(wkv_lib))
+    for name, ins in wkv_sass.items():
         kind = wkv_kind(name)
         for op in wkv_sass_ops:
             wkv_ops[kind, op] = wkv_ops.get((kind, op), 0) + sum(
                 o.startswith(op) for _, _, o, _ in ins)
-    # the backward's h and g passes take their rounds by cp.async (LDGSTS);
-    # none of its passes issues mma.sync or bulk copies
+    # the backward's state and chunk passes take their products on the
+    # tensor cores (HMMA, of the TF32 form only) and their tiles by cp.async
+    # (LDGSTS); its sum pass issues neither, and none of its passes bulk
+    # copies
+    wkv_bwd_forms = set()
+    for name, ins in wkv_sass.items():
+        if wkv_kind(name).startswith("bwd"):
+            wkv_bwd_forms |= {o for _, _, o, _ in ins if o.startswith("HMMA")}
     for (kind, op), count in wkv_ops.items():
         if kind.startswith("bwd"):
-            want = op == "LDGSTS" and not kind.startswith("bwd-sum")
+            want = op != "UBLKCP" and not kind.startswith("bwd-sum")
         else:
             want = kind.startswith("bf16-mma") != (op == "UBLKCP")
         check((count > 0) == want, f"{wkv_lib.name}: {kind} holds {count} {op} instructions")
+    check(wkv_bwd_forms and all("TF32" in form for form in wkv_bwd_forms),
+          f"{wkv_lib.name}: backward passes issue {sorted(wkv_bwd_forms)}, not only TF32 HMMA")
     wkv_log = wkv_lib.with_suffix(".log").read_text()
     wkv_bwd = {k: v for k, v in ptxas_table(wkv_log, wkv_kind).items() if k.startswith("bwd")}
     check(len(wkv_bwd) == 3 * 2 * len(wkv_kernel.HEAD_SIZES)
@@ -3943,7 +4016,7 @@ def main() -> int:
         f"{entry} " + ", ".join(f"{getattr(wkv_dll, entry + '_smem_bytes')(n)} B at N {n}"
                                 for n in (16, 32, 64, 128))
         for entry in wkv_build.ENTRY_POINTS)
-          + "; backward passes h / g, fp32 and bf16: " + ", ".join(
+          + "; backward passes state / chunk, fp32 and bf16: " + ", ".join(
               f"N {n} " + " / ".join(f"{wkv_dll.wkv6_bwd_smem_bytes(n, c, p)}"
                                      for c in (0, 1) for p in (0, 1)) + " B"
               for n in (16, 32, 64, 128))

@@ -1,13 +1,14 @@
 // mma.sync building blocks shared by the fp32 flash kernels
 // (flash_attention.cu, the forward; flash_attention_bwd_tf32.cu, the
-// backward's dK/dV and dQ passes): cp.async copies into shared memory,
+// backward's dK/dV and dQ passes) and the WKV6 backward
+// (kernels/rwkv6/csrc/wkv6_bwd.cu): cp.async copies into shared memory,
 // ldmatrix, the tf32 mma.sync.m16n8k8, 2^x, the split of an fp32 value
 // into the two tf32 values of a 3xTF32 product, and the vector loads of B
 // fragments.
 //
-// Every inline PTX statement of those two kernels is here, between the
+// Every inline PTX statement of those kernels is here, between the
 // `PTX helpers` and `end PTX helpers` marks, so that a host build
-// (tools/sm90_emu.py --fp32) can swap the block for its own versions.
+// (tools/sm90_emu.py --fp32, --wkv6) can swap the block for its own versions.
 
 #pragma once
 
@@ -39,6 +40,11 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the 128-byte line at p into the L2 cache, ahead of its loads
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
 }
 
 // Four 8 x 4 fp32 matrices (8 x 8 as b16); lane l gives the address of row

@@ -3,9 +3,10 @@
 One library holds the three sources: ``wkv6.cu`` (the forward for fp32
 r/k/v, CUDA cores), ``wkv6_mma.cu`` (the forward for bf16 r/k/v, tensor
 cores: ``mma.sync`` and ``cp.async``) and ``wkv6_bwd.cu`` (the gradient,
-both dtypes, in three passes), each for head sizes 16, 32, 64 and 128. It
-is named by a hash of every source and the flags; the sources compile side
-by side, one nvcc each.
+both dtypes, in three passes, its products as three TF32 ``mma.sync``
+products through the fp32 flash kernels' ``sm80_tf32.cuh``), each for head
+sizes 16, 32, 64 and 128. It is named by a hash of every source, that
+header and the flags; the sources compile side by side, one nvcc each.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import hashlib
 from pathlib import Path
 
 from ..._nvcc import BUILD_DIR, NVCC_FLAGS, compile_library
+from ..flash_attention._build import TF32_HEADER
 
 CSRC = Path(__file__).with_name("csrc")
 #: the fp32 kernel on the CUDA cores
@@ -25,9 +27,10 @@ MMA_SOURCE = CSRC / "wkv6_mma.cu"
 BWD_SOURCE = CSRC / "wkv6_bwd.cu"
 #: the C entry point of each forward kernel, both with one signature
 ENTRY_POINTS = ("wkv6_fwd_f32", "wkv6_fwd_bf16")
-#: the backward's passes, launched in this order: h (forward in time), g
-#: (backward in time), sum (elementwise)
-BWD_STAGES = ("wkv6_bwd_h", "wkv6_bwd_g", "wkv6_bwd_sum")
+#: the backward's passes, launched in this order: state (the chunks' boundary
+#: states, S forward and G backward in time), chunk (every chunk in parallel),
+#: sum (du over the chunks)
+BWD_STAGES = ("wkv6_bwd_state", "wkv6_bwd_chunk", "wkv6_bwd_sum")
 BWD_ENTRY_POINTS = tuple(f"{stage}_{dt}" for dt in ("f32", "bf16") for stage in BWD_STAGES)
 
 
@@ -37,7 +40,7 @@ def sources() -> list:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in [*sources(), TF32_HEADER]:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libwkv6_{h.hexdigest()[:16]}.so"

@@ -16,10 +16,13 @@ the dtype of r, k, v alone decides which (``KERNELS``):
 When a gradient is wanted (grad mode on and an input that requires grad),
 the call goes through ``WKV6``, a ``torch.autograd.Function``: its forward
 is the forward kernel, and its backward launches the three passes of
-``csrc/wkv6_bwd.cu`` (``BWD_KERNELS``, by dtype; every sum in fp32, dr,
-dk, dv rounded to r's dtype at the end): h recomputes the state forward in
-time, g carries the state's gradient back, sum adds the column tiles'
-partials. No atomics, so equal inputs give equal bits. The launchers
+``csrc/wkv6_bwd.cu`` (``BWD_KERNELS``, by dtype; every product as three
+TF32 ``mma.sync`` products, every other sum in fp32, dr, dk, dv rounded to
+r's dtype at the end): state carries S forward and its gradient G back
+over the 64-token chunks (32 at N 128) and keeps each chunk's boundary
+states, chunk computes every chunk's gradients in parallel from its tiles
+and those states, sum adds the chunks' shares of du. No atomics, so equal
+inputs give equal bits. The launchers
 themselves (``wkv6_fwd``, ``wkv6_bwd``) record no autograd graph, so they
 refuse a call that wants one rather than drop its gradient.
 
@@ -39,7 +42,7 @@ from .ref import wkv6_bwd_ref, wkv_chunked_bhsn
 
 #: the C entry point (``_build.ENTRY_POINTS``) that each dtype of r, k, v launches
 KERNELS = {torch.float32: "wkv6_fwd_f32", torch.bfloat16: "wkv6_fwd_bf16"}
-#: the backward's entry points each dtype launches, in order: h, g, sum
+#: the backward's entry points each dtype launches, in order: state, chunk, sum
 BWD_KERNELS = {dt: tuple(f"{stage}_{'f32' if dt == torch.float32 else 'bf16'}"
                          for stage in _build.BWD_STAGES) for dt in KERNELS}
 #: the dtype code both forward entry points take (each refuses the other's)
@@ -142,8 +145,8 @@ def wkv6_bwd(r, k, v, logw, u, state, dout, dstate=None):
     """The backward kernels: (dr, dk, dv, dlogw, du, dstate0) of WKV6 at
     output gradient ``dout`` (BH, S, N) and final-state gradient ``dstate``
     (BH, N, N; None: zero), from the forward's inputs; dr, dk, dv in r's
-    dtype, the rest fp32. Three launches (h, g, sum), no atomics, so equal
-    inputs give equal bits. CPU tensors run ``ref.wkv6_bwd_ref``."""
+    dtype, the rest fp32. Three launches (state, chunk, sum), no atomics, so
+    equal inputs give equal bits. CPU tensors run ``ref.wkv6_bwd_ref``."""
     _check(r, k, v, logw, u, state)
     bh, s, n = r.shape
     if tuple(dout.shape) != (bh, s, n):
@@ -180,10 +183,10 @@ def wkv6_bwd(r, k, v, logw, u, state, dout, dstate=None):
 
 class WKV6(torch.autograd.Function):
     """WKV6 through the kernels with its gradient: the forward kernel, the
-    saved inputs (the backward's pass h recomputes the state from them,
-    so no state a token is kept), and the backward kernels. A final state
-    that no loss reads gets no gradient (``dstate`` None, zero to the
-    kernel)."""
+    saved inputs (the backward's pass state recomputes the chunks' states
+    from them, so no state a token is kept), and the backward kernels. A
+    final state that no loss reads gets no gradient (``dstate`` None, zero
+    to the kernel)."""
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, state):

@@ -1,29 +1,34 @@
 """The WKV6 gradient on the CPU: the port's plain backward ``wkv6_bwd_ref``
 against ``jax.vjp`` of ``repro.models.rwkv6.wkv_chunked`` and against torch
-autograd of ``wkv_chunked_bhsn``, and ``passes_model``, the backward
-kernel's split into passes in plain torch, against ``wkv6_bwd_ref``.
+autograd of ``wkv_chunked_bhsn``, and ``chunks_model``, the backward
+kernel's arithmetic in plain torch, against ``wkv6_bwd_ref``.
 
 Inputs come from numpy with a seed: ``tests/test_kernels_rwkv6.py``'s five
 cases (the bf16 one with its r, k, v rounded to bf16 and then held in
-fp32), ragged lengths, a nonzero initial state, a final-state gradient
-given and not, rwkv6's decay_base spread and decays down to -33 a token.
-The reference runs in fp32 at chunk 32 on the (B, S, H, N) layout, folded
-by ``ref.fold_heads``; its ``u`` gradient is the batch's sum of the port's
-per-row one. Limit: ‖Δ‖₂/‖g‖₂ < 1e-4 per gradient (fp32 sums in another
-order over a few hundred tokens read ~1e-6).
+fp32), ragged lengths (63, 65 and 129 about the kernel's 64-token chunk),
+a nonzero initial state, a final-state gradient given and not, rwkv6's
+decay_base spread and decays down to -33 a token. The reference runs in
+fp32 at chunk 32 on the (B, S, H, N) layout, folded by ``ref.fold_heads``;
+its ``u`` gradient is the batch's sum of the port's per-row one. Limit:
+‖Δ‖₂/‖g‖₂ < 1e-4 per gradient (fp32 sums in another order over a few
+hundred tokens read ~1e-6).
 
-``passes_model`` repeats the kernel's arithmetic in plain torch, pass by
-pass and column tile by column tile (``csrc/wkv6_bwd.cu``): its limit
-against ``wkv6_bwd_ref`` is 1e-5, and copies of it with a fault planted
-(the reverse sum a token off, another tile's h partial, the sum started
-without rowsum(S_T * dS_T), dv read after G's step) miss 1e-4, so the
-limit can fail.
+``chunks_model`` repeats the kernel's arithmetic (``csrc/wkv6_bwd.cu``)
+pass by pass and chunk by chunk, every product's operands split into TF32
+hi and lo as the kernel's three ``mma.sync`` products take them: its limit
+against ``wkv6_bwd_ref`` is 1e-5. Copies of it with a fault planted
+(dlogw's sum a token off, the restart from the chunk's start state, the
+diagonal blocks' pairs taking s <= t, the inter terms from the previous
+chunk's state, G's inter decay a token off) miss 1e-4 a hundredfold, and
+the model with one TF32 product (lo terms dropped) misses 1e-4, so the
+limits can fail and three products are needed.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.models.rwkv6 import wkv_chunked as ref_wkv_chunked
 from repro_torch.kernels.rwkv6 import kernel as K
@@ -54,6 +59,9 @@ CASES = [
     (1, 100, 2, 64, "spread", False, False, True),
     (2, 50, 1, 64, "extreme", True, True, True),
     (1, 1, 2, 16, 0.5, False, True, True),
+    (1, 63, 2, 64, 0.5, False, True, True),
+    (1, 65, 2, 128, "spread", True, True, False),
+    (1, 129, 2, 32, "extreme", False, False, True),
 ]
 
 
@@ -147,93 +155,186 @@ def test_plain_backward_matches_autograd_of_the_chunked_form(case):
         assert rel(g, w) < GRAD_TOL, (name, rel(g, w))
 
 
-#: the kernel's column tile (MT) by head size (csrc/wkv6_bwd.cu, Tile<N>),
-#: and the tokens between restarts of its dlogw sum (KD)
-KERNEL_MT = {16: 16, 32: 32, 64: 32, 128: 32}
-KERNEL_KD = 64
-FAULTS = ("shifted_sum", "other_tiles_h", "no_final_state_term", "stale_g")
+#: tokens a chunk of the kernel by head size (csrc/wkv6_bwd.cu, Chunk<N>),
+#: cut into blocks of KERNEL_BLOCK tokens
+KERNEL_C = {16: 64, 32: 64, 64: 64, 128: 32}
+KERNEL_BLOCK = 16
+LOG2E = 1.4426950408889634
+FAULTS = ("shifted_sum", "restart_from_start_state", "diagonal_mask_le",
+          "previous_chunk_state", "shifted_inter_decay")
 
 
-def passes_model(r, k, v, logw, u, state, dout, dstate, fault=None):
-    """The backward kernel's arithmetic in plain torch, its passes in turn
-    over the column tiles of ``KERNEL_MT``: A recomputes each tile's
-    columns of S forward in time and keeps the tile's partial h, its
-    columns of S every ``KERNEL_KD`` tokens and its part of D_T =
-    rowsum(S_T * dS_T); B carries each tile's columns of G back, giving dv
-    (whole over the keys), the tile's partial f and its share of dlogw
-    from a running D that starts at the tile's part of D_T (and restarts
-    from rowsum(S_t * G_t) where S_t was kept), takes k * f's partial and
-    adds r * h's partial (pass A's, same tile); C adds the tiles' partials
-    and the bonus terms. ``fault`` plants one of ``FAULTS``."""
+def tf32(x):
+    """fp32 -> tf32 as the kernel's ``split`` rounds: to nearest, ties away
+    from zero, the 13 low bits cleared (int32 bit operations)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    """x = hi + lo, hi = tf32(x), lo = x - hi (exact); the tensor core reads
+    lo with its 13 low bits cleared."""
+    hi = tf32(x)
+    return hi, ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_product(a, b, products=3):
+    """a @ b from TF32 operands in fp32: a_lo b_hi + a_hi b_lo, then + a_hi
+    b_hi; ``products=1`` keeps a_hi b_hi alone."""
+    ah, al = tf32_split(a.contiguous())
+    bh, bl = tf32_split(b.contiguous())
+    if products == 1:
+        return ah @ bh
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def chunks_model(r, k, v, logw, u, state, dout, dstate, fault=None, products=3):
+    """The backward kernel's arithmetic in plain torch (``csrc/wkv6_bwd.cu``),
+    pass by pass and chunk by chunk, every product's operands rounded to
+    TF32 hi/lo (``tf32_product``). Chunks of ``KERNEL_C`` tokens (zero-padded
+    at the end, logw 0 there), cum in base 2. Pass state: the S chain
+    forward (S_in of every chunk, and S_T), the G chain backward (G_end of
+    every chunk, and dS_0). Pass chunk, for each chunk from its tiles and
+    those states: dA = dO V^T; A off the 16-token diagonal blocks
+    factorised at the earlier block's last token, inside them pairwise in
+    fp32 within each 8-token half and the second half against the first
+    factorised at the first's last token; dv = (k 2^{cum_end - cum}) G_end +
+    A^T dO + b dO; h = 2^{cum_ex} (dO S_in^T) + the earlier blocks
+    factorised at the token before the block + the diagonal block (split in
+    halves as A's); f likewise from V G_end^T and the later blocks; dlogw
+    = D_end - k f + sum_{s > t} (r h - k f) with D_end = rowsum(S_end
+    G_end); dr, dk with their bonus terms. Pass sum: du over the chunks.
+    ``fault`` plants one of ``FAULTS``; ``products=1`` keeps a_hi b_hi
+    alone."""
     bh, s, n = r.shape
-    rf, kf, vf, wf, uf, do = (x.float() for x in (r, k, v, logw, u, dout))
-    w = torch.exp(wf)
-    mt = KERNEL_MT[n]
-    s0 = torch.zeros(bh, n, n) if state is None else state.float()
-    gt = torch.zeros(bh, n, n) if dstate is None else dstate.float()
-    tiles = [slice(c, c + mt) for c in range(0, n, mt)]
-    hpart, dpart, kept = [], [], []
-    for cols in tiles:  # pass A
-        st, hs, kept_c = s0[:, :, cols].clone(), [], {}
-        for t in range(s):
-            hs.append(torch.einsum("bjm,bm->bj", st, do[:, t, cols]))
-            st = w[:, t, :, None] * st + kf[:, t, :, None] * vf[:, t, None, cols]
-            if (t + 1) % KERNEL_KD == 0 and t + 1 < s:
-                kept_c[t] = st
-        hpart.append(torch.stack(hs, 1))
-        kept.append(kept_c)
-        dpart.append((st * gt[:, :, cols]).sum(-1))
-    e = (do * vf).sum(-1)
-    b = (rf * uf[:, None, :] * kf).sum(-1)
-    dv, ds0 = torch.zeros(bh, s, n), torch.zeros(bh, n, n)
-    fpart, dlpart = [], []
-    for c, cols in enumerate(tiles):  # pass B
-        g = gt[:, :, cols].clone()
-        dsum = torch.zeros(bh, n) if fault == "no_final_state_term" else dpart[c]
-        h_c = hpart[0] if fault == "other_tiles_h" else hpart[c]
-        fs, dls = [None] * s, [None] * s
-        for t in reversed(range(s)):
-            if t in kept[c]:
-                dsum = (kept[c][t] * g).sum(-1)
-            g_next = w[:, t, :, None] * g + rf[:, t, :, None] * do[:, t, None, cols]
-            g_read = g_next if fault == "stale_g" else g
-            dv[:, t, cols] = (torch.einsum("bj,bjm->bm", kf[:, t], g_read)
-                              + b[:, t, None] * do[:, t, cols])
-            fs[t] = torch.einsum("bjm,bm->bj", g, vf[:, t, cols])
-            y = kf[:, t] * fs[t]
-            if fault == "shifted_sum":
-                dsum = dsum + rf[:, t] * h_c[:, t]
-            dls[t] = dsum - y
-            dsum = dsum - y + (0 if fault == "shifted_sum" else rf[:, t] * h_c[:, t])
-            g = g_next
-        ds0[:, :, cols] = g
-        fpart.append(torch.stack(fs, 1))
-        dlpart.append(torch.stack(dls, 1))
-    dr = sum(hpart) + uf[:, None, :] * kf * e[..., None]  # pass C
-    dk = sum(fpart) + uf[:, None, :] * rf * e[..., None]
-    return dr, dk, dv, sum(dlpart), (rf * kf * e[..., None]).sum(1), ds0
+    C, blk = KERNEL_C[n], KERNEL_BLOCK
+    nc = -(-s // C)
+    pad = nc * C - s
+    rf, kf, vf, do, wf = (F.pad(x.float(), (0, 0, 0, pad)).view(bh, nc, C, n)
+                          for x in (r, k, v, dout, logw))
+    uf = u.float()
+    cum = (wf * torch.tensor(LOG2E, dtype=torch.float32)).cumsum(2)
+    cum_ex = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], 2)
+    cum_end = cum[:, :, -1]  # (bh, nc, n)
+    ex2 = torch.exp2
+
+    def prod(a, b):
+        return tf32_product(a, b, products)
+
+    # pass state: the S chain forward, the G chain backward
+    st = torch.zeros(bh, n, n) if state is None else state.float().clone()
+    s_in = [st]
+    for c in range(nc):
+        kd = kf[:, c] * ex2(cum_end[:, c, None] - cum[:, c])
+        st = ex2(cum_end[:, c])[:, :, None] * st + prod(kd.transpose(1, 2), vf[:, c])
+        s_in.append(st)
+    g = torch.zeros(bh, n, n) if dstate is None else dstate.float().clone()
+    g_end = [None] * nc
+    for c in reversed(range(nc)):
+        g_end[c] = g
+        rd = rf[:, c] * ex2(cum_ex[:, c])
+        g = ex2(cum_end[:, c])[:, :, None] * g + prod(rd.transpose(1, 2), do[:, c])
+
+    # pass chunk
+    nb = C // blk
+    blocks = [slice(blk * i, blk * (i + 1)) for i in range(nb)]
+    pairs = torch.ones(blk, blk).tril(0 if fault == "diagonal_mask_le" else -1).bool()
+    outs = torch.zeros(4, bh, nc, C, n)  # dr, dk, dv, dlogw
+    du = torch.zeros(bh, n)
+    for c in range(nc):
+        rc, kc, vc, dc, cu, ce, cend = (x[:, c] for x in (rf, kf, vf, do, cum, cum_ex, cum_end))
+        sa = s_in[c - 1 if fault == "previous_chunk_state" and c > 0 else c]
+        ge = g_end[c]
+        e = (dc * vc).sum(-1)  # (bh, C)
+        b = (rc * uf[:, None] * kc).sum(-1)
+        dA = prod(dc, vc.transpose(1, 2))
+        A = torch.zeros(bh, C, C)
+        hd, fd = torch.zeros(bh, C, n), torch.zeros(bh, C, n)
+        half = blk // 2
+        for i in range(nb):
+            ti = blocks[i]
+            fac = ex2(torch.where(pairs[None, :, :, None], ce[:, ti, None, :] - cu[:, None, ti, :],
+                                  -torch.inf))  # the diagonal block's pairs s < t
+            # A, h and f: pairwise inside each 8-token half, the second half
+            # against the first factorised at the first half's last token
+            for hb in range(2):
+                th, hh = slice(blk * i + half * hb, blk * i + half * (hb + 1)), slice(
+                    half * hb, half * (hb + 1))
+                fh = fac[:, hh, hh]
+                A[:, th, th] = (rc[:, th, None, :] * kc[:, None, th, :] * fh).sum(-1)
+                dAh = dA[:, th, th] * pairs[:half, :half]
+                hd[:, th] = (dAh[..., None] * kc[:, None, th, :] * fh).sum(2)
+                fd[:, th] = (dAh[..., None] * rc[:, th, None, :] * fh).sum(1)
+            lo, hi = slice(blk * i, blk * i + half), slice(blk * i + half, blk * (i + 1))
+            ref = cu[:, blk * i + half - 1, None, :]
+            r_hi, k_lo = rc[:, hi] * ex2(ce[:, hi] - ref), kc[:, lo] * ex2(ref - cu[:, lo])
+            A[:, hi, lo] = prod(r_hi, k_lo.transpose(1, 2))
+            hd[:, hi] += prod(dA[:, hi, lo], k_lo) * ex2(ce[:, hi] - ref)
+            fd[:, lo] += prod(dA[:, hi, lo].transpose(1, 2), r_hi) * ex2(ref - cu[:, lo])
+            for j in range(i):  # factorised at block j's last token
+                ref = cu[:, blk * j + blk - 1, None, :]
+                A[:, ti, blocks[j]] = prod(
+                    rc[:, ti] * ex2(ce[:, ti] - ref),
+                    (kc[:, blocks[j]] * ex2(ref - cu[:, blocks[j]])).transpose(1, 2))
+        decay_to_end = ex2(cend[:, None] - (ce if fault == "shifted_inter_decay" else cu))
+        dv = (prod(kc * decay_to_end, ge) + prod(A.transpose(1, 2), dc)) + b[..., None] * dc
+        h = prod(dc, sa.transpose(1, 2)) * ex2(ce)
+        f = prod(vc, ge.transpose(1, 2)) * decay_to_end
+        for i in range(1, nb):  # factorised at the token before block i
+            ti, before = blocks[i], slice(0, blk * i)
+            ref = cu[:, blk * i - 1, None, :]
+            q = kc[:, before] * ex2(ref - cu[:, before])
+            h[:, ti] = h[:, ti] + prod(dA[:, ti, before], q) * ex2(ce[:, ti] - ref)
+        for i in range(nb - 1):  # factorised at block i's last token
+            ti, after = blocks[i], slice(blk * (i + 1), C)
+            ref = cu[:, blk * i + blk - 1, None, :]
+            p = rc[:, after] * ex2(ce[:, after] - ref)
+            f[:, ti] = f[:, ti] + prod(dA[:, after, ti].transpose(1, 2), p) * ex2(ref - cu[:, ti])
+        h, f = h + hd, f + fd
+        d_end = ((sa if fault == "restart_from_start_state" else s_in[c + 1]) * ge).sum(-1)
+        y = -kc * f
+        x = y + rc * h
+        later = torch.cat([x.flip(1).cumsum(1).flip(1)[:, 1:], torch.zeros_like(x[:, :1])], 1)
+        if fault == "shifted_sum":
+            later = later + x
+        ue = uf[:, None] * e[..., None]
+        outs[:, :, c] = torch.stack([h + ue * kc, f + ue * rc, dv, d_end[:, None] + y + later])
+        du = du + (rc * kc * e[..., None]).sum(1)
+    dr, dk, dv, dlogw = outs.reshape(4, bh, nc * C, n)[:, :, :s]
+    return dr, dk, dv, dlogw, du, g
 
 
-#: the model's cases: every head size (one to four column tiles), ragged
-#: lengths, both states, the decay_base spread and the extreme decay
+#: the model's cases: every head size, lengths ragged about the 64-token
+#: chunk (and N 128's 32), both states, the decay_base spread and the
+#: extreme decay
 MODEL_CASES = [c for c in CASES if c[2] * c[0] * c[1] <= 400]
 
 
 @pytest.mark.parametrize("case", MODEL_CASES, ids=case_id)
-def test_passes_model_matches_the_plain_backward(case):
+def test_chunks_model_matches_the_plain_backward(case):
     x = bhsn(inputs(*case, seed=3))
-    got, want = passes_model(*x), wkv6_bwd_ref(*x)
+    got, want = chunks_model(*x), wkv6_bwd_ref(*x)
     for name, g, w in zip(NAMES, got, want):
         assert rel(g, w) < MODEL_TOL, (name, rel(g, w))
 
 
 @pytest.mark.parametrize("fault", FAULTS)
-def test_passes_model_with_a_planted_fault_misses_the_limit(fault):
-    """At 128 keys (four column tiles), from a state, with dS_T given: each
-    fault puts some gradient far past the kernel's limit."""
-    x = bhsn(inputs(1, 40, 2, 128, 0.5, False, True, True, seed=4))
-    got, want = passes_model(*x, fault=fault), wkv6_bwd_ref(*x)
+def test_chunks_model_with_a_planted_fault_misses_the_limit(fault):
+    """At 128 keys over 200 tokens (seven 32-token chunks, the last ragged),
+    from a state, with dS_T given: each fault puts some gradient far past
+    the kernel's limit."""
+    x = bhsn(inputs(1, 200, 1, 128, 0.5, False, True, True, seed=4))
+    got, want = chunks_model(*x, fault=fault), wkv6_bwd_ref(*x)
     assert max(rel(g, w) for g, w in zip(got, want)) > 100 * GRAD_TOL, fault
+
+
+def test_one_tf32_product_misses_the_limit():
+    """The same arithmetic with each product's lo terms dropped (one TF32
+    product, a_hi b_hi) puts some gradient past the 1e-4 limit: the three
+    products are what fp32 accuracy needs."""
+    x = bhsn(inputs(1, 130, 2, 64, 0.5, False, True, True, seed=5))
+    want = wkv6_bwd_ref(*x)
+    assert max(rel(g, w) for g, w in zip(chunks_model(*x), want)) < MODEL_TOL
+    assert max(rel(g, w) for g, w in zip(chunks_model(*x, products=1), want)) > GRAD_TOL
 
 
 def test_cpu_backward_runs_the_plain_version_and_counts_no_launch():

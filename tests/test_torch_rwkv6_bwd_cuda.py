@@ -1,12 +1,13 @@
-"""The WKV6 backward kernel (``csrc/wkv6_bwd.cu``: passes h, g and sum)
-against its plain version ``ref.wkv6_bwd_ref``, on the card. Tests marked
+"""The WKV6 backward kernel (``csrc/wkv6_bwd.cu``: passes state, chunk and
+sum) against its plain version ``ref.wkv6_bwd_ref``, on the card. Tests marked
 ``cuda`` skip without a CUDA device; the file imports no JAX, so it runs on
 a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_rwkv6_bwd_cuda.py
 
 Cases: ``tests/test_kernels_rwkv6.py``'s five, lengths ragged about the
-kernel's rounds (8 or 16 tokens: 1 to 95, and 2049), every head size, a
+kernel's chunks (64 tokens, 32 at N 128: 1 to 129, and 2049), every head
+size, a
 nonzero initial state, a final-state gradient given and not, rwkv6's
 decay_base spread and decays down to -33 a token, in fp32 and bf16 r/k/v.
 Limits, per gradient, in ‖Δ‖₂/‖g‖₂: below 1e-4 (every sum is fp32 in both
@@ -17,8 +18,9 @@ card against the CPU's (plain chunked form under autograd) below 1e-4 in
 fp32.
 
 The tests without the mark run anywhere: the source defines each entry
-point and takes no atomics, each dtype names its three passes, and the
-launch counts have a key for each.
+point, takes no atomics and its products from the tf32 ``mma.sync`` of the
+header it includes, each dtype names its three passes, and the launch
+counts have a key for each.
 """
 import numpy as np
 import pytest
@@ -36,7 +38,7 @@ GRAD_TOL = 1e-4
 NAMES = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (bh, s, n, decay, initial state, final-state gradient): the reference's
-# five cases (as B·H rows), then ragged lengths about the rounds at every
+# five cases (as B·H rows), then ragged lengths about the chunks at every
 # head size, the decay_base spread and decays down to -33
 CASES = [
     (8, 64, 64, 0.5, False, False),
@@ -51,6 +53,9 @@ CASES = [
     (2, 2049, 64, "spread", True, True),
     (4, 77, 64, "spread", False, False),
     (2, 300, 128, "extreme", True, True),
+    (3, 63, 32, "extreme", False, True),
+    (2, 65, 64, "spread", True, True),
+    (2, 129, 128, 0.5, True, False),
 ]
 
 
@@ -95,7 +100,9 @@ def limits(want, dtype):
 # ------------------------------------------------------------------ CPU
 def test_each_dtype_names_its_three_passes():
     assert _build.BWD_SOURCE in _build.sources()
+    assert _build.BWD_STAGES == ("wkv6_bwd_state", "wkv6_bwd_chunk", "wkv6_bwd_sum")
     src = _build.BWD_SOURCE.read_text()
+    header = _build.TF32_HEADER.read_text()  # its PTX helpers
     for dt, entries in K.BWD_KERNELS.items():
         assert len(entries) == 3 and all(e in _build.BWD_ENTRY_POINTS for e in entries)
         suffix = "f32" if dt == torch.float32 else "bf16"
@@ -103,9 +110,13 @@ def test_each_dtype_names_its_three_passes():
         for e in entries:
             assert f"WKV6_BWD_ENTRY({e}," in src
     for op in ("atomicAdd(", "atom.", "red.global.add"):  # every sum in a fixed order
-        assert op not in src
-    for op in ("cp.async.cg.shared.global", "cp.async.wait_group"):
-        assert op in src
+        assert op not in src and op not in header
+    assert f'#include "../../flash_attention/csrc/{_build.TF32_HEADER.name}"' in src
+    for call in ("mma_tf32(", "split(", "cp_async16(", "cp_async_wait_all("):
+        assert call in src
+    for op in ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+               "cp.async.cg.shared.global", "cp.async.wait_group"):
+        assert op in header
     K.reset_launches()
     assert set(K.wkv6_bhsn.launches_by_kernel) == {*K.KERNELS.values(),
                                                     *_build.BWD_ENTRY_POINTS}

@@ -44,11 +44,12 @@ within 1e-4 in ||err||_2 / ||g||_2 (phase 42's fp32 limit); both models
 are ``tests/test_torch_flash_kernel.py``'s.
 
 ``--wkv6`` builds ``kernels/rwkv6/csrc/wkv6_bwd.cu`` (or the one in
-``--csrc``) into ``build/sm90_emu/libemu_wkv6_bwd.so``, its ``PTX helpers``
-block swapped for ``emu_tf32.h`` (cp.async as copies made at the thread's
-wait), and runs its three passes at each of ``WKV6_CASES`` (every head
-size, ragged lengths about its 8- and 16-token rounds, both dtypes, the
-states given or not, the decay_base spread and decays down to -33) against
+``--csrc``) into ``build/sm90_emu/libemu_wkv6_bwd.so``, the
+``sm80_tf32.cuh`` it includes with its ``PTX helpers`` block swapped for
+``emu_tf32.h`` (as ``--fp32`` builds it), and runs its three passes
+(state, chunk, sum) at each of ``WKV6_CASES`` (every head size, lengths
+ragged about its 64-token chunks (32 at N 128), both dtypes, the states
+given or not, the decay_base spread and decays down to -33) against
 ``ref.wkv6_bwd_ref``: below 1e-4 per gradient, bf16's dr, dk, dv within
 twice their bf16 rounding (phase 46's limits).
 """
@@ -242,12 +243,22 @@ def run_case_fp32(lib, bhq, bhkv, sq, sk, dh, causal, window, seed=0) -> bool:
 
 def build_wkv6(csrc: Path) -> Path:
     """The host build of the WKV6 backward (``kernels/rwkv6/csrc/wkv6_bwd.cu``
-    in ``csrc``): its block between the ``PTX helpers`` marks swapped for the
-    cp.async of ``emu_tf32.h``."""
+    in ``csrc``): the fp32 flash kernels' ``sm80_tf32.cuh``, which it
+    includes, with its PTX block swapped for ``emu_tf32.h`` (cp.async as
+    copies made at the thread's wait, ldmatrix and the tf32 mma.sync as
+    exchanges among a warp's lanes)."""
+    from repro_torch.kernels.flash_attention import _build as flash_build
+
     OUT.mkdir(parents=True, exist_ok=True)
+    hdr = flash_build.TF32_HEADER.read_text()
+    hdr = hdr.replace("#include <cuda_runtime.h>\n#include <stdint.h>\n",
+                      '#include "emu_cuda.h"\n')
+    hdr = re.sub(r"// -+ PTX helpers\n.*?// -+ end PTX helpers\n", '#include "emu_tf32.h"\n',
+                 hdr, flags=re.S)
+    (OUT / "sm80_tf32_emu.h").write_text(hdr)
     t = (csrc / "wkv6_bwd.cu").read_text()
-    t = re.sub(r"// -+ PTX helpers\n.*?// -+ end PTX helpers\n", '#include "emu_tf32.h"\n', t,
-               flags=re.S)
+    t = re.sub(r'#include "[./]*flash_attention/csrc/sm80_tf32\.cuh"',
+               '#include "sm80_tf32_emu.h"', t)
     t = re.sub(r"#include <cuda(_bf16|_runtime)\.h>\n", "", t)
     t = t.replace("#include <math.h>", '#include "emu_cuda.h"\n#include <math.h>')
     t = t.replace("extern __shared__ float4 smem4[];", "float4* smem4 = (float4*)emu_smem();")
@@ -256,13 +267,14 @@ def build_wkv6(csrc: Path) -> Path:
     src.write_text(t)
     lib = OUT / "libemu_wkv6_bwd.so"
     subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-I", str(EMU),
-                    "-o", str(lib), str(src)], check=True)
+                    "-I", str(OUT), "-o", str(lib), str(src)], check=True)
     return lib
 
 
 #: (bh, s, n, dtype, initial state, final-state gradient, decay): every head
-#: size, lengths ragged about the rounds (8 or 16 tokens), both dtypes, with
-#: and without the states, the decay_base spread and decays down to -33
+#: size, lengths ragged about the chunks (64 tokens, 32 at N 128) and their
+#: 16-token blocks, both dtypes, with and without the states, the
+#: decay_base spread and decays down to -33
 WKV6_CASES = [
     (2, 37, 64, "float32", True, True, "spread"),
     (3, 8, 64, "float32", False, False, "uniform"),
@@ -273,6 +285,9 @@ WKV6_CASES = [
     (1, 130, 64, "bfloat16", True, True, "extreme"),
     (3, 17, 32, "float32", True, True, "uniform"),
     (2, 40, 16, "bfloat16", True, False, "spread"),
+    (2, 63, 64, "float32", False, True, "extreme"),
+    (1, 129, 128, "bfloat16", True, True, "spread"),
+    (2, 65, 32, "float32", True, False, "uniform"),
 ]
 
 
@@ -304,6 +319,7 @@ def wkv6_bwd_inputs(bh, s, n, dtype, with_state, with_dstate, decay, seed=0):
 def run_case_wkv6(lib, bh, s, n, dtype, with_state, with_dstate, decay, seed=0) -> bool:
     import torch
 
+    from repro_torch.kernels.rwkv6._build import BWD_STAGES
     from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref
 
     x = wkv6_bwd_inputs(bh, s, n, dtype, with_state, with_dstate, decay, seed)
@@ -313,9 +329,8 @@ def run_case_wkv6(lib, bh, s, n, dtype, with_state, with_dstate, decay, seed=0) 
         torch.empty(bh, s, n), torch.empty(bh, n), torch.empty(bh, n, n)]
     scratch = torch.empty(lib.wkv6_bwd_scratch_bytes(bh, s, n) // 4)
     ptrs = [None if a is None else a.data_ptr() for a in x] + [o.data_ptr() for o in outs]
-    for stage in ("h", "g", "sum"):
-        assert getattr(lib, f"wkv6_bwd_{stage}_{dt}")(*ptrs, scratch.data_ptr(), bh, s, n,
-                                                      None) == 0
+    for stage in BWD_STAGES:
+        assert getattr(lib, f"{stage}_{dt}")(*ptrs, scratch.data_ptr(), bh, s, n, None) == 0
     want = wkv6_bwd_ref(*x)
     errs = [rel(a, b) for a, b in zip(outs, want)]
     limits = [1e-4] * 6
@@ -347,9 +362,8 @@ def main(argv) -> int:
         csrc = wkv_build.CSRC if args.csrc == _build.CSRC else args.csrc
         lib = ctypes.CDLL(str(build_wkv6(csrc)))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for stage in ("h", "g", "sum"):
-            for dt in ("f32", "bf16"):
-                getattr(lib, f"wkv6_bwd_{stage}_{dt}").argtypes = [ptr] * 15 + [i32] * 3 + [ptr]
+        for name in wkv_build.BWD_ENTRY_POINTS:
+            getattr(lib, name).argtypes = [ptr] * 15 + [i32] * 3 + [ptr]
         lib.wkv6_bwd_scratch_bytes.argtypes = [i32] * 3
         lib.wkv6_bwd_scratch_bytes.restype = ctypes.c_longlong
         ok = all([run_case_wkv6(lib, *WKV6_CASES[i])

@@ -57,6 +57,7 @@ inline float __bfloat162float(__nv_bfloat16 b) {
   uint32_t u = (uint32_t)b.x << 16; float f; std::memcpy(&f, &u, 4); return f;
 }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {emu_f2bf(a), emu_f2bf(b)}; }
+inline __nv_bfloat16 __float2bfloat16_rn(float a) { return emu_f2bf(a); }
 
 // runtime
 typedef int cudaError_t;

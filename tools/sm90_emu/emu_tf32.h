@@ -50,6 +50,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   }
   emu_copies.clear();
 }
+__device__ __forceinline__ void prefetch_l2(const void*) {}
 
 // this lane's 8 words of the current exchange's set, and the set
 inline uint32_t* emu_slots(int lane_of_set = -1) {
