@@ -12,9 +12,10 @@ depth cut to 4 of 56 layers, and hymba-1.5b whole), and the
 encoder-decoder and vision-frontend families through them (phases 33-41:
 whisper-large-v3 and internvl2-2b whole), training (phases 42-45: the
 flash backward kernel, internlm2-1.8b trained whole through the flash
-kernels forward and backward, an fp32 step, a checkpoint) and rwkv6
+kernels forward and backward, an fp32 step, a checkpoint), rwkv6
 training (phases 46-49: the WKV6 backward kernel, rwkv6-3b trained whole
-through the WKV6 kernels forward and backward, an fp32 step).
+through the WKV6 kernels forward and backward, an fp32 step) and the
+static pack-budget gate in front of the lease kernels (phase 50).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``); it exits nonzero
@@ -44,6 +45,9 @@ Phases (one line each):
      96-tick leases extended every 64 ticks over links of delay 4) through
      ``LeaseArrayEngine.run_trace``: kernel and plain bit-exact, at most
      one owner per cell, >= 95% of cell-ticks owned after the first round;
+     and the cost of the static gate ``run_trace`` passes first (the
+     interval analysis of the traced tick core): cold (trace and first
+     walk), a cache hit, a fresh walk for a new end tick;
   4. a full-width chaos trace (drops, asymmetric delay, drift, restarts,
      renewals) through the delayed kernel, bit-exact against plain;
   5. a full-width zero-delay trace through the sync kernel, bit-exact;
@@ -235,10 +239,20 @@ Phases (one line each):
      idle share;
  49. fp32 at full width and 4 layers: the gradients as in 48 (the loss
      within 1e-5, per leaf below 1e-4 or twice the floor), then a train
-     step.
+     step;
+ 50. the static pack-budget gate: the interval analysis's derived bounds
+     beside ``state.max_pack_tick`` (P 8, rates 4 and 9, 0/1/3 restarts)
+     and each traced core's trace and walk times; then on the card a
+     restart-mode replay ending at the bound (P 8, 3-tick leases, proposer
+     7 restarted three times and attempting at the last tick, 2^16 cells,
+     1022 ticks) through the delayed kernel, bit-exact against plain, its
+     top ballot ((1022 << 2) | 3) * 8 + 7; a replay one tick longer and a
+     100-tick replay at a round horizon that overflows int32 (which the
+     hand check cannot see) refused before any allocation on the card or
+     launch; that horizon at 3 ticks bit-exact against plain.
 The line before the last holds every kernel's launches on its main path
-(phases 3-6 and the phase-21 directory ticks for the unbatched delayed
-kernel; the phase-12, 28, 32, 37 and 41 bf16 prefills for the wgmma
+(phases 3-6, the phase-21 directory ticks and the phase-50 replays for the
+unbatched delayed kernel; the phase-12, 28, 32, 37 and 41 bf16 prefills for the wgmma
 flash kernel, the phase-9, 25, 29, 34 and 38 prefills and phase-11
 serving for the fp32 3xTF32 one; the phase-17 bf16
 prefill for the tensor-core WKV6 kernel, the phase-14 prefill and
@@ -2414,8 +2428,8 @@ def leaselint_phase(libs: list) -> None:
         sass.append(f"{lib.name}: {len({k for k, _, _ in ops})} kernels with "
                     f"{len(ops)} floating-unit instructions, all in the "
                     f"integer-division idiom")
-    print(f"phase 23 leaselint: run_all clean (purity, launch, conventions, "
-          f"mutation); {len(plans)} distinct launched plans pass the launch audit "
+    print(f"phase 23 leaselint: run_all clean ({', '.join(n for n, _ in lint.cli._CHECKERS)}); "
+          f"{len(plans)} distinct launched plans pass the launch audit "
           f"({', '.join(f'{k} {v}' for k, v in by_entry.items())}); profiled in a "
           f"process of its own: " + "; ".join(matched) + f" ({empty} profiler "
           f"sessions recorded no kernel and were run again); SASS: " + "; ".join(sass)
@@ -3844,6 +3858,225 @@ def rwkv_train_slice(dev) -> tuple:
     return rows, launches
 
 
+#: phase 50: the restart-mode replay at the pack bound's edge (P 8, 3-tick
+#: leases, proposer 7 restarted three times): 1022 ticks, the derived and
+#: hand bound at 3 restarts, on 2^16 cells (a [1022, N] int32 plane is
+#: 4.3 GB at 2^20; phase 3's 2^20 x 256 run_trace is the gate at full width)
+EDGE_N, EDGE_TICKS, EDGE_LEASE, EDGE_RESTARTS = 1 << 16, 1022, 3, (100, 400, 700)
+#: a round horizon whose deadlines (the round owner's clock + 4 x this)
+#: pass 2^31 - 1 within 100 ticks (tests/test_staticcheck.py:45-49)
+HUGE_ROUND_TICKS = 536_870_900
+
+
+def gate_costs(eng, sc) -> dict:
+    """Host time (ms) of the static gate ``eng.run_trace(sc)`` passes
+    first: cold (both caches cleared: the trace and a first walk), a cache
+    hit, and a fresh walk for a new end tick, with the trace alone."""
+    import numpy as np
+
+    from repro_torch.analysis.staticcheck import intervals as IA
+    from repro_torch.lease_array import engine as lease_engine
+
+    rmax = max(int(np.asarray(sc.planes[k]).max()) for k in ("prop_rate", "acc_rate"))
+    args = (eng.t + sc.n_ticks, int(np.asarray(sc.planes["delay"]).max()), rmax,
+            eng._max_restarts(sc.planes["prop_restart"]), eng._clk_slack(rmax))
+
+    def ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    IA.trace_tick_core.cache_clear()
+    lease_engine._static_pack_findings.cache_clear()
+    out = dict(cold=ms(lambda: eng._static_bound_check(*args)),
+               hit=ms(lambda: eng._static_bound_check(*args)),
+               walk=ms(lambda: eng._static_bound_check(args[0] + 1, *args[1:])))
+    out["trace"] = ms(lambda: IA.trace_tick_core.__wrapped__(
+        eng.n_proposers, eng.n_acceptors, eng.lease_q4, eng.round_q4, eng.guard_q4,
+        eng.majority, restart=args[3] > 0))
+    check(lease_engine._static_pack_findings.cache_info().hits == 1,
+          "phase 3: the gate's second call was no cache hit")
+    return out
+
+
+def edge_scenario(n_cells: int, n_ticks: int = EDGE_TICKS):
+    """Restart-mode traffic to the pack bound's edge: each cell attempted
+    every 32 ticks by a rotating proposer; proposer P-1 restarted at
+    EDGE_RESTARTS and attempting on every cell at the last tick."""
+    import numpy as np
+
+    from repro_torch.lease_array import Scenario
+
+    t = np.arange(n_ticks, dtype=np.int64)[:, None]
+    n = np.arange(n_cells, dtype=np.int64)[None, :]
+    att = np.where((t + n) % 32 == 0, (n + t // 32) % P, -1).astype(np.int32)
+    att[-1] = P - 1
+    prst = np.zeros((n_ticks, P), np.int32)
+    prst[list(EDGE_RESTARTS), P - 1] = 1
+    return Scenario.build(n_cells=n_cells, n_acceptors=A, n_proposers=P,
+                          attempts=att, prop_restart=prst)
+
+
+def interval_gate_phase(dev) -> int:
+    """Phase 50; returns the unbatched delayed kernel's launches in it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis.staticcheck import intervals as IA
+    from repro_torch.analysis.staticcheck.purity import DELAYED_VARIANTS
+    from repro_torch.lease_array import LeaseArrayEngine, Scenario
+    from repro_torch.lease_array import engine as lease_engine
+    from repro_torch.lease_array import kernel as K
+    from repro_torch.lease_array.state import (
+        MAX_RESTARTS,
+        PACK_MASK,
+        RESTART_SHIFT,
+        lease_quarters,
+        max_pack_tick,
+    )
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize
+    lease_q4 = lease_quarters(EDGE_LEASE)
+    # the bounds first: derived against the hand formula on the CLI's grid
+    bounds = []
+    for rate in (4, 9):
+        for mr in (0, 1, MAX_RESTARTS):
+            hand = max_pack_tick(P, lease_q4, 0, max_rate=rate, max_restarts=mr)
+            t0 = time.perf_counter()
+            derived = IA.derived_max_pack_tick(P, lease_q4, 0, max_rate=rate,
+                                               max_restarts=mr)
+            s = time.perf_counter() - t0
+            check(derived == hand, f"phase 50: derived bound {derived} != "
+                  f"max_pack_tick {hand} at rate {rate}, {mr} restarts")
+            bounds.append(f"rate {rate} restarts {mr}: {derived} = {hand} ({s:.2f} s)")
+    print(f"phase 50 bounds at P {P}, lease_q4 {lease_q4} (derived = state.max_pack_tick, "
+          f"search time): " + "; ".join(bounds), flush=True)
+    # each traced core: trace time (uncached) and one walk at the edge's end tick
+    cores = [("sync", dict(sync=True), "gather")] + [
+        (f"delayed[legs_{legs}" + "".join(f",{n}" for n, on in (
+            ("corrupt", c), ("restart", r), ("extend", e)) if on) + "]",
+         dict(legs=legs, corrupt=c, restart=r, extend=e), legs)
+        for legs, c, r, e in DELAYED_VARIANTS]
+    times = []
+    for label, kw, legs in cores:
+        t0 = time.perf_counter()
+        gm = IA.trace_tick_core.__wrapped__(P, A, lease_q4, 4, lease_q4, A // 2 + 1, **kw)
+        trace_ms = (time.perf_counter() - t0) * 1e3
+        cfg = IA.TickConfig(t_end=EDGE_TICKS, n_proposers=P, n_acceptors=A,
+                            lease_q4=lease_q4, sync=kw.get("sync", False),
+                            corrupt=kw.get("corrupt", False),
+                            max_restarts=MAX_RESTARTS if kw.get("restart") else 0,
+                            extend=kw.get("extend", False))
+        t0 = time.perf_counter()
+        findings = IA.analyze_tick_config(cfg, legs=legs, core=gm,
+                                          layout=IA.core_layout(cfg))
+        walk_ms = (time.perf_counter() - t0) * 1e3
+        check(findings == [], f"phase 50: {label} at t_end {EDGE_TICKS}: {findings}")
+        times.append(f"{label} {len(gm.graph.nodes)} nodes, trace {trace_ms:.0f} ms, "
+                     f"walk {walk_ms:.1f} ms")
+    print("phase 50 traced cores (nodes, make_fx trace, one fixpoint walk at t_end "
+          f"{EDGE_TICKS}, no finding): " + "; ".join(times), flush=True)
+
+    def engine(backend, **kw):
+        return LeaseArrayEngine(EDGE_N, n_acceptors=A, n_proposers=P,
+                                lease_ticks=EDGE_LEASE, backend=backend,
+                                device=dev, **kw)
+
+    def replay(sc, **kw):
+        """(owners, counts, state..., net...) of the kernel and of plain."""
+        outs = []
+        for backend in ("cuda", "torch"):
+            eng = engine(backend, **kw)
+            ow, cn = eng.run_trace(sc)
+            sync()
+            outs.append((ow, cn, *eng.state, *eng.net))
+        for i, (x, y) in enumerate(zip(*outs)):
+            check(x.shape == y.shape and torch.equal(x, y),
+                  f"phase 50: field {i} of the kernel's replay differs from plain")
+        return outs[0], eng
+
+    def refused(sc, match: str, **kw) -> str:
+        """The replay raises ``match`` with no allocation on the card and
+        no lease launch; returns the message."""
+        eng = engine("cuda", **kw)
+        sync()
+        allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+        launches = (K.lease_window_delayed.launches, K.lease_window_sync.launches)
+        try:
+            eng.run_trace(sc)
+        except ValueError as e:
+            msg = str(e)
+        else:
+            raise AssertionError(f"phase 50: a replay that must be refused ran ({match})")
+        check(match in msg, f"phase 50: refused with {msg!r}, not {match!r}")
+        check(torch.cuda.memory_stats().get("allocation.all.allocated", 0) == allocs,
+              f"phase 50: the refused replay ({match}) allocated on the card")
+        check((K.lease_window_delayed.launches, K.lease_window_sync.launches) == launches,
+              f"phase 50: the refused replay ({match}) launched a lease kernel")
+        check(eng.t == 0, "phase 50: a refused replay advanced the engine")
+        return msg
+
+    K.reset_launches()
+    # (a) the edge: a restart-mode replay ending at the derived bound
+    sc = edge_scenario(EDGE_N)
+    hand = max_pack_tick(P, lease_q4, 0, max_restarts=MAX_RESTARTS)
+    check(hand == EDGE_TICKS, f"phase 50: max_pack_tick {hand} != {EDGE_TICKS}")
+    t0 = time.perf_counter()
+    got, eng = replay(sc)
+    edge_s = time.perf_counter() - t0
+    check(K.lease_window_delayed.launches == 1,
+          f"phase 50: the edge replay made {K.lease_window_delayed.launches} delayed launches")
+    top = int(got[2].max())  # highest promised ballot
+    want = (((EDGE_TICKS) << RESTART_SHIFT) | MAX_RESTARTS) * P + P - 1
+    check(top == want, f"phase 50: top ballot {top} != ((1022 << 2) | 3) * 8 + 7 = {want}")
+    at_bound = (((EDGE_TICKS + 1) << RESTART_SHIFT) | MAX_RESTARTS) * P + P - 1
+    check(int(got[1].max()) <= 1, "phase 50: §4 violated in the edge replay")
+    longer = edge_scenario(EDGE_N, EDGE_TICKS + 1)
+    msg = refused(longer, "exceeds the packed int32 layout's budget")
+    gate = lease_engine._static_pack_findings(
+        EDGE_TICKS + 1, P, A, lease_q4, 4, lease_q4, 0, 4, 0, MAX_RESTARTS)
+    check(any("pack-budget" in f for f in gate),
+          f"phase 50: the gate passes a {EDGE_TICKS + 1}-tick replay: {gate}")
+    check(lease_engine._static_pack_findings(
+        EDGE_TICKS, P, A, lease_q4, 4, lease_q4, 0, 4, 0, MAX_RESTARTS) == (),
+          f"phase 50: the gate refuses the {EDGE_TICKS}-tick edge")
+    print(f"phase 50 edge replay (N {EDGE_N}, T {EDGE_TICKS} from t 0, restart mode, "
+          f"proposer {P - 1} restarted at ticks {list(EDGE_RESTARTS)}): kernel and plain "
+          f"bit-exact in owners, counts, state and net ({edge_s:.1f} s for both); top "
+          f"ballot {top} = ((1022 << {RESTART_SHIFT}) | {MAX_RESTARTS}) * {P} + {P - 1}, "
+          f"{PACK_MASK - top} below PACK_MASK {PACK_MASK} (the bound counts t_end "
+          f"{EDGE_TICKS} inclusively, whose ballot would be {at_bound}: one tick "
+          f"conservative here); {EDGE_TICKS + 1} ticks refused by the hand check "
+          f"({msg.split(';')[0]}) and by the gate ({len(gate)} finding(s), the first: "
+          f"{gate[0]}), nothing allocated on the card, no launch", flush=True)
+    del got, eng, sc, longer
+
+    # (b) the round horizon the hand check cannot see
+    t = np.arange(100)[:, None]
+    n = np.arange(EDGE_N)[None, :]
+    hot = Scenario.build(
+        n_cells=EDGE_N, n_acceptors=A, n_proposers=P,
+        attempts=np.where(t == n % 3, n % P, -1).astype(np.int32),
+        delay=np.ones((100, A), np.int32))
+    msg = refused(hot, "static analysis refused", round_ticks=HUGE_ROUND_TICKS)
+    before = K.lease_window_delayed.launches
+    got, eng = replay(hot[:3], round_ticks=HUGE_ROUND_TICKS)
+    check(K.lease_window_delayed.launches == before + 1,
+          "phase 50: the 3-tick round-horizon replay did not launch the delayed kernel")
+    check(int(got[1].max()) <= 1, "phase 50: §4 violated at the huge round horizon")
+    print(f"phase 50 round horizon {HUGE_ROUND_TICKS} ticks (N {EDGE_N}, delay 1): 100 "
+          f"ticks refused before any allocation or launch ({msg.splitlines()[0]} / "
+          f"{msg.splitlines()[1].strip()[:120]}); 3 ticks through the delayed kernel "
+          f"bit-exact against plain", flush=True)
+    check(lease_engine._STATIC_CHECK_FAILED is False,
+          "phase 50: the static analyzer failed (and warned) on some configuration")
+    launches = K.lease_window_delayed.launches
+    print(f"phase 50 took {time.perf_counter() - t_phase:.1f} s; delayed kernel launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4124,6 +4357,7 @@ def main() -> int:
     sc3 = renew.scenario()
     build3 = time.perf_counter() - t_phase
     eng3 = engine(renew)
+    gate = gate_costs(eng3, sc3)
     sync()
     t0 = time.perf_counter()
     ow_k, cn_k = eng3.run_trace(sc3)
@@ -4147,6 +4381,12 @@ def main() -> int:
           f"plain {ms_p:.1f} ms ({cell_ticks / ms_p * 1e3:.3e} cell-ticks/s), "
           f"bit-exact, max owner count {max_count}, owned after tick "
           f"{WARM} {owned:.4f}; scenario build {build3:.1f} s", flush=True)
+    print(f"phase 3 static gate (interval analysis of the traced delayed tick core, "
+          f"before the run_trace above): cold {gate['cold']:.1f} ms (the trace "
+          f"{gate['trace']:.1f} ms and the first walk; caches cleared, torch's tracer "
+          f"already warm from phase 2), a cache hit {gate['hit']:.4f} ms, a fresh walk "
+          f"for a new end tick {gate['walk']:.1f} ms ({gate['walk'] / ms_run3 * 100:.2f} % "
+          f"of the run_trace's {ms_run3:.1f} ms)", flush=True)
     del plain3, ow_p, cn_p
 
     # ----------------------------------------- 4. full-width chaos (delayed)
@@ -4369,6 +4609,8 @@ def main() -> int:
         by_name[name]["launches"] += launches[entry]
     kernels.extend(rwkv_rows)
     stamp("phases 46-49")
+    by_name["lease_window_delayed"]["launches"] += interval_gate_phase(dev)
+    stamp("phase 50")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,9 +33,15 @@ flight).
 
 The packed int32 layout bounds the clock: ``run_trace``/``step`` raise
 once a trace would cross ``state.max_pack_tick`` (≈ 4k ticks at P = 8).
+Before a bulk dispatch (``run_trace``, ``sweep``) the interval analysis of
+the traced tick core (``analysis.staticcheck.intervals``) also proves that
+no int32 intermediate can leave int32 — round horizons and clock sums the
+hand bound does not look at — and refuses the replay otherwise.
 """
 from __future__ import annotations
 
+import functools
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -76,6 +82,36 @@ from .state import (
     rate1_clock,
     resolve_device,
 )
+
+
+@functools.lru_cache(maxsize=512)
+def _static_pack_findings(
+    t_end: int, n_proposers: int, n_acceptors: int, lease_q4: int,
+    round_q4: int, guard_q4: Optional[int], max_delay: int, max_rate: int,
+    clk_slack: int, max_restarts: int = 0,
+) -> tuple[str, ...]:
+    """Interval-analysis twin of ``state.check_pack_budget``: walk the
+    traced delayed tick core (the conservative superset of the sync one)
+    and bound EVERY int32 intermediate for replays up to ``t_end``. The
+    hand check budgets only ballots and lease deadlines — this one also
+    sees round horizons, clock sums and any future field the core grows.
+    Cached because the same protocol config is re-proved per dispatch."""
+    from ..analysis.staticcheck.intervals import (
+        TickConfig,
+        analyze_tick_config,
+    )
+
+    cfg = TickConfig(
+        t_end=t_end, n_proposers=n_proposers, n_acceptors=n_acceptors,
+        lease_q4=lease_q4, round_q4=round_q4, guard_q4=guard_q4,
+        max_delay=max_delay, max_rate=max_rate, clk_slack=clk_slack,
+        max_restarts=max_restarts,
+    )
+    return tuple(str(f) for f in analyze_tick_config(cfg))
+
+
+#: set once the analyzer itself failed (the gate then warned, once)
+_STATIC_CHECK_FAILED = False
 
 
 def _scenario_scanner(
@@ -249,18 +285,58 @@ class LeaseArrayEngine:
             return 0
         return max(1, int(rc_end.max(initial=0)))
 
+    def _clk_slack(self, max_rate: int) -> int:
+        """How far ahead of ``max_rate * t`` the engine's clocks run (the
+        pack budgets' ``clk_slack``), from one read of the clock maximum."""
+        clk_max = int(max(self.prop_clk.max(), self.acc_clk.max(), 0))
+        return max(0, clk_max - max(int(max_rate), QUARTERS) * self.t)
+
     def _check_pack_budget(
         self, t_end: int, max_delay: int = 0, max_rate: int = QUARTERS,
-        max_restarts: int = 0,
+        max_restarts: int = 0, clk_slack: Optional[int] = None,
     ) -> None:
         max_rate = max(int(max_rate), QUARTERS)
-        clk_max = int(max(self.prop_clk.max(), self.acc_clk.max(), 0))
         check_pack_budget(
             t_end, self.n_proposers, self.lease_q4, max_delay,
             max_rate=max_rate,
-            clk_slack=max(0, clk_max - max_rate * self.t),
+            clk_slack=(self._clk_slack(max_rate) if clk_slack is None
+                       else clk_slack),
             max_restarts=max_restarts,
         )
+
+    def _static_bound_check(
+        self, t_end: int, max_delay: int, max_rate: int, max_restarts: int,
+        clk_slack: int,
+    ) -> None:
+        """Run the leaselint interval analysis host-side before a bulk
+        dispatch. Complements ``_check_pack_budget``: the hand bound is
+        blind to everything but ballots and lease deadlines, while this
+        proves every traced-core intermediate stays in int32. Best-effort
+        by design — an analyzer failure warns once and never blocks a
+        dispatch; a *finding* (an actual overflow proof) raises."""
+        global _STATIC_CHECK_FAILED
+        try:
+            findings = _static_pack_findings(
+                int(t_end), self.n_proposers, self.n_acceptors,
+                self.lease_q4, self.round_q4, self.guard_q4,
+                int(max_delay), max(int(max_rate), QUARTERS), int(clk_slack),
+                int(max_restarts),
+            )
+        except Exception as e:
+            if not _STATIC_CHECK_FAILED:
+                _STATIC_CHECK_FAILED = True
+                warnings.warn(
+                    f"static pack-budget analysis unavailable "
+                    f"(falling back to the hand check only): {e!r}",
+                    RuntimeWarning, stacklevel=3,
+                )
+            return
+        if findings:
+            raise ValueError(
+                f"static analysis refused a {t_end}-tick replay — the "
+                f"traced tick core can overflow where the runtime check "
+                f"does not look:\n  " + "\n  ".join(findings)
+            )
 
     def _clk0(self):
         """The engine's local-clock offsets for a dispatch — or None while
@@ -435,7 +511,9 @@ class LeaseArrayEngine:
             int(np.asarray(scenario.acc_rate).max(initial=0)),
         )
         mr = self._max_restarts(scenario.prop_restart)
-        self._check_pack_budget(self.t + T, dmax, rmax, mr)
+        slack = self._clk_slack(rmax)
+        self._check_pack_budget(self.t + T, dmax, rmax, mr, slack)
+        self._static_bound_check(self.t + T, dmax, rmax, mr, slack)
         if restarted:
             self._restart_active = True  # pins the restart ballot encoding
         # all-default corruption/restart/extends planes stay host-side: the
@@ -532,7 +610,9 @@ class LeaseArrayEngine:
             mutate=False,
         )
         mr = self._max_restarts(planes.get("prop_restart"))
-        self._check_pack_budget(self.t + T, dmax, rmax, mr)
+        slack = self._clk_slack(rmax)
+        self._check_pack_budget(self.t + T, dmax, rmax, mr, slack)
+        self._static_bound_check(self.t + T, dmax, rmax, mr, slack)
         backend = backend or self.backend
         if backend not in BACKENDS:
             raise ValueError(

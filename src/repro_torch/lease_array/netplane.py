@@ -48,6 +48,7 @@ from .state import (
     packed_ballot,
     packed_q4,
     resolve_device,
+    tick_value,
 )
 
 # round phases
@@ -212,7 +213,7 @@ def _votes(bits: torch.Tensor, n_acceptors: int) -> torch.Tensor:
 def delayed_tick_math(
     lease: tuple,      # PackedLeaseState fields, [A, bn] / [1, bn] blocks
     net: tuple,        # NetPlaneState fields, [A, bn] / [1, bn] blocks
-    t: int,            # tick
+    t,                 # tick: a Python int or a 0-d int32 tensor
     attempt,           # [1, bn] int32 proposer id attempting (-1 = none)
     release,           # [1, bn] int32 proposer id releasing (-1 = none)
     up,                # [A, 1|bn] int32 acceptor reachability this tick
@@ -265,7 +266,8 @@ def delayed_tick_math(
     P = n_proposers
     if guard_q4 is None:
         guard_q4 = lease_q4
-    t4 = QUARTERS * int(t)
+    t = tick_value(t)
+    t4 = QUARTERS * t
     live_min = (t4 + 1) << PACK_SHIFT  # GLOBAL time base: slot due iff <
     a_bit = (1 << torch.arange(A, dtype=I32, device=promised.device))[:, None]
     up = up > 0
@@ -345,12 +347,12 @@ def delayed_tick_math(
     has_att = att >= 0
     att_clk = clock_select(pclk, att)                               # [1, bn]
     if prop_rc is None:
-        new_ballot = torch.where(has_att, (int(t) + 1) * P + att, 0)
+        new_ballot = torch.where(has_att, (t + 1) * P + att, 0)
     else:
         # restart mode: the attempting proposer's restart counter is carved
         # into the ballot's upper word (state.RESTART_SHIFT)
         rc_att = clock_select(prop_rc, att)                         # [1, bn]
-        upper = ((int(t) + 1) << RESTART_SHIFT) | rc_att
+        upper = ((t + 1) << RESTART_SHIFT) | rc_att
         new_ballot = torch.where(has_att, upper * P + att, 0)
     keep = (rnd_ballot > 0) & ~timed_out & ~rel_kills & ~has_att
     rnd_ballot = torch.where(

@@ -42,13 +42,14 @@ from .state import (
     pack_pair,
     pack_state,
     rate1_clock,
+    tick_value,
     unpack_state,
 )
 
 
 def sync_tick_math(
     lease: tuple,     # PackedLeaseState fields, [A, bn] / [1, bn] blocks
-    t: int,           # tick
+    t,                # tick: a Python int or a 0-d int32 tensor
     attempt,          # [1, bn] int32 proposer id attempting (-1 = none)
     release,          # [1, bn] int32 proposer id releasing (-1 = none)
     up,               # [A, 1|bn] int32 acceptor reachability this tick
@@ -67,6 +68,7 @@ def sync_tick_math(
     P = n_proposers
     if guard_q4 is None:
         guard_q4 = lease_q4
+    t = tick_value(t)
     up = up > 0
 
     # -- 1. expiry (each node's own local clock) ---------------------------
@@ -90,7 +92,7 @@ def sync_tick_math(
     # -- 3. prepare (§3.2) -------------------------------------------------
     att = attempt
     has_att = att >= 0
-    ballot = torch.where(has_att, (int(t) + 1) * P + att, 0)       # [1, bn]
+    ballot = torch.where(has_att, (t + 1) * P + att, 0)       # [1, bn]
     att_owns = has_att & (own_id == att)
     grant = up & has_att & (ballot >= promised)
     is_open = grant & (

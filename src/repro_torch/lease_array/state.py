@@ -130,6 +130,14 @@ def rate1_clock(t: int, rows: int, *, device="cuda") -> torch.Tensor:
     return torch.full((rows,), QUARTERS * int(t), dtype=I32, device=device)
 
 
+def tick_value(t):
+    """The tick number the tick math computes with: a tensor as it is (a
+    0-d int32 tensor keeps ``t`` a graph input when the tick core is traced,
+    ``analysis.staticcheck.intervals``), anything else as a Python int. The
+    arithmetic on it is int32 either way, so both give the same bits."""
+    return t if isinstance(t, torch.Tensor) else int(t)
+
+
 def clock_select(clk: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Per-cell local-clock gather: ``clk`` is a per-proposer column
     ``[P, 1|bn]``, ``ids`` a proposer-id row ``[1, bn]``; returns each

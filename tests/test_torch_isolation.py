@@ -48,6 +48,7 @@ def test_package_has_the_slice_modules():
                  "cluster.autoscale", "analysis", "analysis.staticcheck",
                  "analysis.staticcheck.findings", "analysis.staticcheck.launch",
                  "analysis.staticcheck.purity",
+                 "analysis.staticcheck.intervals",
                  "analysis.staticcheck.conventions",
                  "analysis.staticcheck.fixtures", "analysis.staticcheck.cli",
                  "analysis.staticcheck.__main__", "optim", "optim.adamw",

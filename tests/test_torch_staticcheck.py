@@ -1,7 +1,9 @@
 """The port's leaselint (``repro_torch.analysis.staticcheck``) on the CPU.
 
-The tree is clean; every seeded mutant is caught and its clean twin
-passes; the launch plans are clean at every lease geometry ``chip_smoke.py``
+The tree is clean (the interval checker first); every seeded mutant is
+caught and its clean twin passes; the traced-core purity rule flags a
+``.sum()`` that widens to int64 and exempts only gather indices, in the
+``legs_gather`` cores; the launch plans are clean at every lease geometry ``chip_smoke.py``
 launches and at the reference's audit default (N 4096, A 5, P 8, T 64);
 each plan's geometry is the one the C launchers used to work out for
 themselves (block threads, grid, staging bytes: the product the old
@@ -198,7 +200,8 @@ def test_cli_writes_its_json_artifact(tmp_path):
     assert run.returncode == 0, run.stdout + run.stderr
     doc = json.loads(out.read_text())
     assert doc["ok"] and doc["n_findings"] == 0
-    assert doc["checkers"] == ["purity", "launch", "conventions", "mutation"]
+    assert doc["checkers"] == ["intervals", "purity", "launch", "conventions",
+                               "mutation"]
 
 
 def test_cli_exits_1_on_findings(monkeypatch, capsys):
@@ -208,3 +211,55 @@ def test_cli_exits_1_on_findings(monkeypatch, capsys):
     monkeypatch.setattr(cli, "_CHECKERS", (("launch", lambda: [bad]),))
     assert cli.main([]) == 1
     assert "[launch:write-race] here" in capsys.readouterr().out
+
+
+def test_cli_skip_mutation_leaves_the_mutation_checker_out(monkeypatch, capsys):
+    from repro_torch.analysis.staticcheck import cli
+
+    ran = []
+    monkeypatch.setattr(cli, "_CHECKERS", tuple(
+        (name, (lambda name=name: ran.append(name) or []))
+        for name, _ in cli._CHECKERS))
+    assert cli.main(["--skip-mutation"]) == 0
+    assert ran == ["intervals", "purity", "launch", "conventions"]
+    assert "clean (intervals, purity, launch, conventions)" in \
+        capsys.readouterr().out
+
+
+def test_traced_tick_cores_are_pure():
+    assert sc.check_tick_cores() == []
+    assert sc.check_tick_cores(n_proposers=3, n_acceptors=3) == []
+
+
+def _trace(fn, *args):
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    return make_fx(fn, tracing_mode="real")(*args)
+
+
+def test_purity_flags_a_sum_without_dtype_and_passes_gather_indices():
+    import torch
+
+    from repro_torch.lease_array.netplane import legs_gather
+
+    i32 = torch.int32
+    votes = torch.zeros((5, 8), dtype=i32)
+    widened = _trace(lambda v: v.sum(dim=0, keepdim=True) + 1, votes)
+    kept = _trace(lambda v: v.sum(dim=0, keepdim=True, dtype=i32) + 1, votes)
+    for index_exempt in (False, True):
+        rules = {f.rule for f in sc.check_graph_purity(
+            widened, gather_index=index_exempt)}
+        assert rules == {"int64-promotion"}
+        assert sc.check_graph_purity(kept, gather_index=index_exempt) == []
+    link, prop = torch.zeros((4, 5), dtype=i32), torch.zeros((1, 8), dtype=i32)
+    gathered = _trace(lambda lk, p: legs_gather(lk, p)[0], link, prop)
+    assert any(n.meta["val"].dtype == torch.int64 for n in gathered.graph.nodes
+               if "val" in n.meta)
+    assert sc.check_graph_purity(gathered, gather_index=True) == []
+    assert {f.rule for f in sc.check_graph_purity(gathered)} == {
+        "int64-promotion"}
+    # an int64 index that also feeds arithmetic is no longer index-only
+    leaky = _trace(lambda lk, p: (lk.T.gather(1, p.long().expand(5, 8)),
+                                  p.long() + 1), link, prop)
+    assert {f.rule for f in sc.check_graph_purity(
+        leaky, gather_index=True)} == {"int64-promotion"}
