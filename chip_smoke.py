@@ -14,8 +14,10 @@ whisper-large-v3 and internvl2-2b whole), training (phases 42-45: the
 flash backward kernel, internlm2-1.8b trained whole through the flash
 kernels forward and backward, an fp32 step, a checkpoint), rwkv6
 training (phases 46-49: the WKV6 backward kernel, rwkv6-3b trained whole
-through the WKV6 kernels forward and backward, an fp32 step) and the
-static pack-budget gate in front of the lease kernels (phase 50).
+through the WKV6 kernels forward and backward, an fp32 step), the
+static pack-budget gate in front of the lease kernels (phase 50), and more
+than one device (phases 51-53: the lease plane split over devices,
+data-parallel training over NCCL, the dry run and the first MFU).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``); it exits nonzero
@@ -117,11 +119,11 @@ Phases (one line each):
      reference bench's sweep (1024 scenarios x 32 cells x 16 ticks, A 3,
      P 4), zero-delay (sync kernel) and with delay <= 2 and drops (delayed
      kernel), both collect modes, bit-exact against the plain batched
-     version on the first 64 scenarios (the plain version loops over
+     version on the first 32 scenarios (the plain version loops over
      scenarios one at a time); (b) 64 chaos scenarios (phase 4's mix) x
      2^14 cells x 128 ticks at A 5, P 8 in summary mode from a warmed
      engine, equal to 64 separate ``run_trace`` calls from the same state,
-     bit-exact against the plain batched version on the first 8, max owner
+     bit-exact against the plain batched version on the first 4, max owner
      count <= 1, the engine unchanged; then each batched kernel's time, launches
      and bound (at the bench sweep three ways: the kernel's own device time
      under the profiler, a call in a CUDA graph, and host-paced calls from
@@ -208,7 +210,7 @@ Phases (one line each):
      "dots"), train_4k's 4096 tokens, the global batch cut to 8 in 4
      microbatches of 2: step 1's gradients through the kernels against a
      plain-attention run on the same batch (per leaf below 5e-2, the loss
-     within 1e-2), then ``Trainer`` for 4 steps (every loss finite, every
+     within 1e-2), then ``Trainer`` for 3 steps (every loss finite, every
      parameter moved), step time, tokens/s, peak memory and a profiled
      step's idle share;
  45. an fp32 step at full width and 4 layers through the kernels against
@@ -232,7 +234,7 @@ Phases (one line each):
      the kernels against the same witness under autograd (the loss within
      1e-2; per leaf below 5e-2 or twice the floor, whichever is larger: the
      floor is a plain-WKV run's distance from the witness), then
-     ``Trainer`` for 4
+     ``Trainer`` for 3
      steps (every loss finite, every parameter moved, the forward kernel
      launched twice a layer and microbatch, each backward pass once, no
      fp32 entry), step time, tokens/s, peak memory and a profiled step's
@@ -249,17 +251,38 @@ Phases (one line each):
      top ballot ((1022 << 2) | 3) * 8 + 7; a replay one tick longer and a
      100-tick replay at a round horizon that overflows int32 (which the
      hand check cannot see) refused before any allocation on the card or
-     launch; that horizon at 3 ticks bit-exact against plain.
+     launch; that horizon at 3 ticks bit-exact against plain;
+ 51. the lease plane split over devices: phase 3's renewal ``run_trace``
+     (2^20 cells, 256 ticks) and phase 19's chaos sweep (64 x 2^14 x 128)
+     on one device, then split (``engine._split_devices`` substituted) over
+     ``[cuda:0] x 2``, ``x 4`` and every visible GPU, each bit-exact
+     against one device (owners, counts, the final state and tick; every
+     sweep field), with its host ms and its kernels' ms;
+ 52. data-parallel training: internlm2-1.8b at full width, 4 of its 24
+     layers, one rank a visible GPU on NCCL (``chip_smoke.py --dp-rank``
+     processes with torchrun's variables), 2 x 4096 a rank: two train
+     steps through the flash kernels, the second timed under
+     ``torch.profiler``; its collectives reader's all-reduce bytes equal
+     the gradients' bytes, and rank 0's parameters equal the same two
+     steps without a process group (one microbatch a rank's slice of the
+     global batch) within 1e-6 a
+     leaf (||d|| / ||p||; on one card a world of one, so the equality
+     across ranks is checked on the CPU only, ``tests/test_torch_dp_train.py``);
+ 53. the dry run of internlm2-1.8b ``train_4k`` and ``decode_32k`` on the
+     16 x 16 mesh (per-rank bytes, the roofline at H100 rates), and the
+     port's first MFU: ``model_flops`` of phase 44's step (8 x 4096 tokens)
+     over its measured time x 989e12.
 The line before the last holds every kernel's launches on its main path
-(phases 3-6, the phase-21 directory ticks and the phase-50 replays for the
-unbatched delayed kernel; the phase-12, 28, 32, 37 and 41 bf16 prefills for the wgmma
+(phases 3-6, the phase-21 directory ticks, the phase-50 replays and the
+phase-51 split runs for the unbatched delayed kernel; the phase-12, 28, 32, 37 and 41 bf16 prefills for the wgmma
 flash kernel, the phase-9, 25, 29, 34 and 38 prefills and phase-11
 serving for the fp32 3xTF32 one; the phase-17 bf16
 prefill for the tensor-core WKV6 kernel, the phase-14 prefill and
-phase-16 serving for the CUDA-core one; the phase-19 sweeps and the
-phase-20 shrinker probes for the batched lease kernels; the phase-44 and
-45 training steps for the backward kernel's bf16 and fp32 entries, whose
-forward launches join the forward rows; the phase-48 and 49 training
+phase-16 serving for the CUDA-core one; the phase-19 sweeps, the
+phase-20 shrinker probes and the phase-51 split sweeps for the batched
+lease kernels; the phase-44, 45 and 52 training steps for the backward
+kernel's bf16 and fp32 entries, whose forward launches join the forward
+rows; the phase-48 and 49 training
 steps for the WKV6 backward's bf16 and fp32 passes, whose forward launches
 join the WKV6 forward rows), time, plain time, bound and library time as
 JSON;
@@ -267,6 +290,8 @@ the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import heapq
 import json
 import math
@@ -548,6 +573,8 @@ def run_trace_breakdown(run, kernel="lease_window_delayed"):
 
 
 T_START = time.perf_counter()
+#: numbers one phase measures for a later one (phase 44's step time)
+MEASURED: dict = {}
 
 
 def stamp(after: str) -> None:
@@ -1531,9 +1558,10 @@ BENCH_SWEEP = dict(scenarios=1024, n_cells=32, n_ticks=16, n_acceptors=3,
 CHAOS_SWEEP_B, CHAOS_SWEEP_N = 64, 1 << 14
 #: the scenarios of each phase-19 sweep held against the plain batched
 #: version, which loops over scenarios one at a time (the whole bench
-#: sweep's plain run took 135 s, the chaos sweep's 71 s): the first 64
-#: of the bench sweep's 1024 and the first 8 of the chaos sweep's 64
-BENCH_PLAIN_B, CHAOS_PLAIN_B = 64, 8
+#: sweep's plain run took 135 s, the chaos sweep's 71 s): the first 32
+#: of the bench sweep's 1024 and the first 4 of the chaos sweep's 64 (64
+#: and 8 before phases 51-53 joined: the time limit)
+BENCH_PLAIN_B, CHAOS_PLAIN_B = 32, 4
 
 
 def first_scenarios(args, kw, delayed, b):
@@ -1873,11 +1901,13 @@ def sweep_slice(dev) -> list:
     ]
 
 
+@functools.lru_cache(maxsize=1)
 def chaos_sweep_setup(dev):
     """Phase 19b's inputs: an engine at DEFAULT_CELL warmed by 16 chaos
     ticks (acceptor restarts only, so each scenario's own proposer
     restarts fit the restart-counter carve), its carried state as arrays,
-    and 64 chaos scenarios of phase 4's mix."""
+    and 64 chaos scenarios of phase 4's mix. Made once: phase 51 sweeps
+    them again (a sweep leaves the engine as it is)."""
     from repro_torch.lease_array import LeaseArrayEngine, engine_to_arrays, random_trace
 
     mix = dict(n_cells=CHAOS_SWEEP_N, n_acceptors=A, n_proposers=P,
@@ -2914,8 +2944,8 @@ def moe_hybrid_slice(dev) -> tuple:
 #: 24 layers, d_model 2048, 16/8 heads of 128, d_ff 8192, vocab 92544, bf16
 #: compute over fp32 master weights, remat "dots") at train_4k's sequence of
 #: 4096 (configs/base.py:198); the global batch cut from 256 to 8, in 4
-#: microbatches of 2, to fit the card; 4 steps
-TRAIN_ARCH, TRAIN_BATCH, TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS = "internlm2-1.8b", 8, 4, 4096, 4
+#: microbatches of 2, to fit the card; 3 steps (4 before phases 51-53 joined: the time limit)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS = "internlm2-1.8b", 8, 4, 4096, 3
 #: the fp32 step of phase 45: the same widths, 4 of the 24 layers, 2 x 4096
 #: in 2 microbatches
 TRAIN_FP32_LAYERS, TRAIN_FP32_BATCH = 4, 2
@@ -3137,7 +3167,7 @@ def train_slice(dev) -> tuple:
     timing = bwd_timing_phase(dev)
     torch.cuda.empty_cache()
 
-    # ------------------------ 44. internlm2-1.8b whole: gradients, 4 steps
+    # ------------------------ 44. internlm2-1.8b whole: gradients, TRAIN_STEPS steps
     t_phase = time.perf_counter()
     cfg = get_config(TRAIN_ARCH)
     tc = TrainerConfig(steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
@@ -3180,7 +3210,7 @@ def train_slice(dev) -> tuple:
     tr = Trainer(cfg, tc, verbose=False, device=dev)
     before = {k: x.to("cpu", copy=True) for k, x in grad_leaves(tr.params)}
     stamps = []
-    FK.reset_launches()  # the bf16 kernels' training path: these 4 steps
+    FK.reset_launches()  # the bf16 kernels' training path: these steps
     torch.cuda.reset_peak_memory_stats()
     sync()
     t0 = time.perf_counter()
@@ -3205,6 +3235,7 @@ def train_slice(dev) -> tuple:
                                         FK.KERNELS[torch.float32])),
           "phase 44: a bf16 step launched an fp32 kernel")
     mean_s = sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    MEASURED["train_step_s"] = mean_s  # phase 53's MFU
     tokens = TRAIN_BATCH * TRAIN_SEQ
     print(f"phase 44 Trainer: {TRAIN_STEPS} steps, losses " + ", ".join(f"{x:.4f}" for x in losses)
           + f"; grad norms " + ", ".join(f"{h['grad_norm']:.4f}" for h in hist)
@@ -4077,6 +4108,298 @@ def interval_gate_phase(dev) -> int:
     return launches
 
 
+
+# ------------------------------------------------------------ phases 51-53
+@contextlib.contextmanager
+def kernel_events_ms():
+    """Within it every lease kernel launch (``kernel._launch``, the call of
+    the C entry) is bracketed by CUDA events on its device's stream, with
+    no synchronisation, so split shards still overlap; yields a function
+    returning the launches' summed ms once the work is synchronised."""
+    import torch
+
+    from repro_torch.lease_array import kernel as K
+
+    pairs, launch = [], K._launch
+
+    def timed(plan, ptrs, ints, device):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(device))
+        launch(plan, ptrs, ints, device)
+        stop.record(torch.cuda.current_stream(device))
+        pairs.append((start, stop))
+
+    K._launch = timed
+    try:
+        yield lambda: sum(a.elapsed_time(b) for a, b in pairs)
+    finally:
+        K._launch = launch
+
+
+def lease_split_phase(dev, make_engine, renew, sc) -> dict:
+    """Phase 51: phase 3's renewal ``run_trace`` and phase 19's chaos sweep
+    split over substituted device lists and over every visible GPU, each
+    bit-exact against one device; a run's host ms and its kernels' ms (CUDA
+    events around each launch, summed over the shards) per split. Returns each lease entry's
+    launches on these runs."""
+    import torch
+
+    from repro_torch.lease_array import Scenario
+    from repro_torch.lease_array import engine as E
+    from repro_torch.lease_array import kernel as K
+
+    t_phase = time.perf_counter()
+    n_gpu = torch.cuda.device_count()
+    helper = E._split_devices
+    print(f"phase 51 torch.cuda.device_count() {n_gpu}; visible devices of an engine on "
+          f"{dev}: {[str(d) for d in helper(dev)]}"
+          + ("; one card: the substituted lists repeat cuda:0, and 'every visible GPU' is "
+             "the one-device path" if n_gpu == 1 else ""), flush=True)
+    eng_s, scs, _ = chaos_sweep_setup(dev)
+    stacked = Scenario.stack(scs)
+    K.reset_launches()  # the main path: the split runs below
+    rows, want_trace, want_sweep = [], None, None
+    try:
+        # (label, device list; None: the engine's own helper)
+        for label, devices in (("one device", [dev]), ("[cuda:0] x 2", [dev] * 2),
+                               ("[cuda:0] x 4", [dev] * 4),
+                               (f"every visible GPU ({n_gpu})", None)):
+            E._split_devices = helper if devices is None else (lambda d, x=devices: x)
+            eng = make_engine(renew)
+            torch.cuda.synchronize()
+            with kernel_events_ms() as kernel_ms:
+                t0 = time.perf_counter()
+                out = eng.run_trace(sc)
+                torch.cuda.synchronize()
+                host = (time.perf_counter() - t0) * 1e3
+                k_trace = kernel_ms()
+            got = (*out, *eng.state, *eng.net)
+            if want_trace is None:
+                want_trace = (got, eng.t)
+            check(eng.t == want_trace[1] and all(
+                x.shape == y.shape and bool((x == y).all()) for x, y in zip(got, want_trace[0])),
+                f"phase 51: the renewal run_trace split over {label} differs from one device")
+            del eng, out, got
+            with kernel_events_ms() as kernel_ms:
+                t0 = time.perf_counter()
+                res = eng_s.sweep(stacked)
+                torch.cuda.synchronize()
+                host_sw = (time.perf_counter() - t0) * 1e3
+                k_sweep = kernel_ms()
+            fields = (res.max_owner_count, res.owned_frac, res.final_owners)
+            if want_sweep is None:
+                want_sweep = fields
+            check(all(bool((x == y).all()) for x, y in zip(fields, want_sweep)),
+                  f"phase 51: the chaos sweep split over {label} differs from one device")
+            rows.append(f"{label}: run_trace host {host:.1f} ms, kernels {k_trace:.3f} ms; "
+                        f"sweep host {host_sw:.1f} ms, kernels {k_sweep:.3f} ms")
+    finally:
+        E._split_devices = helper
+    launches = {"lease_window_delayed": K.lease_window_delayed.launches,
+                "lease_window_delayed_batched": K.lease_window_delayed_batched.launches}
+    for k, v in launches.items():
+        check(v > 0, f"phase 51: {k} was never launched on the split runs")
+    print(f"phase 51 renewal run_trace N {FULL_N} x T {RENEW_TICKS} and chaos sweep "
+          f"{CHAOS_SWEEP_B} x {CHAOS_SWEEP_N} x {CHAOS_TICKS}, each split bit-exact against one "
+          f"device (a run's host ms; its kernels' ms from CUDA events around each launch, "
+          f"summed over the shards): "
+          + "; ".join(rows) + f"; launches {launches}", flush=True)
+    print(f"phase 51 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+#: phase 52: internlm2-1.8b at full width, 4 of its 24 layers (as phase 45
+#: cuts its fp32 step), bf16 compute, 2 x 4096 a rank, two steps
+DP_LAYERS, DP_RANK_BATCH, DP_SEQ, DP_TIMEOUT = 4, 2, 4096, 600
+#: rank 0's parameters after the step against the step without a process
+#: group, per leaf ||d||_2 / ||p||_2 (the embedding's backward sums by
+#: atomics, in no fixed order)
+DP_PARAM_TOL = 1e-6
+
+
+def dp_rank(dev=None) -> int:
+    """One rank of phase 52 (``python3 chip_smoke.py --dp-rank``, torchrun's
+    variables in the environment): two data-parallel train steps on its
+    slice, the second timed under ``torch.profiler``; rank 0 then runs the
+    same two steps without a process group. Prints one JSON line. ``dev`` None is the card
+    (``cuda:LOCAL_RANK``, NCCL); a rehearsal on the CPU passes the CPU
+    (gloo)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis.hlo import parse_collectives
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, SyntheticTokens
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import dp_world, make_local_mesh
+    from repro_torch.launch.steps import make_train_step, shard_batch
+    from repro_torch.models import init_model
+    from repro_torch.models.schema import leaf_paths
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import use_mesh
+
+    rank, world, local = dp_world()
+    if dev is None:
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dist.init_process_group("nccl" if cuda else "gloo", init_method="env://", rank=rank,
+                            world_size=world, device_id=dev if cuda else None)
+    mesh = make_local_mesh()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=DP_LAYERS)
+    batch = ShardedLoader(SyntheticTokens(cfg.vocab_size, DP_SEQ, seed=0), 8,
+                          DP_RANK_BATCH * world).next_batch()
+    kw = dict(peak_lr=1e-4, warmup=1, total=10)
+    params = init_model(cfg, 0, device=dev)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, **kw, dp_group=mesh.get_group("data"))
+    with use_mesh(mesh):  # a warm-up step: the timed one below is the second
+        params, opt, _ = step(params, opt, shard_batch(batch, rank, world))
+    FK.reset_launches()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            params, opt, metrics = step(params, opt, shard_batch(batch, rank, world))
+        sync()
+        step_s = time.perf_counter() - t0
+    leaves = [p for _, p in leaf_paths(params)]
+    try:
+        collectives = parse_collectives(prof).as_dict()
+    except ValueError as err:  # the check below prints it with the events
+        collectives = {"error": str(err)}
+    comm = [e for e in prof.events()
+            if e.name.startswith(("nccl", "gloo", "c10d", "record_param_comms"))]
+    out = {
+        "rank": rank, "world": world,
+        "device": torch.cuda.get_device_name(dev) if cuda else str(dev),
+        "step_s": step_s, "loss": float(metrics["loss"]),
+        "collectives": collectives,
+        "comm_events": sorted({e.name for e in comm}),
+        "first_comm_events": [(e.name, e.input_shapes[:2]) for e in comm[:6]],
+        "grad_bytes": sum(p.numel() * 4 for p in leaves), "n_leaves": len(leaves),
+        "launches": dict(FK.flash_attention_bhsd.launches_by_kernel),
+    }
+    del prof
+    if rank == 0:
+        ref_params = init_model(cfg, 0, device=dev)
+        ref_opt = adamw_init(ref_params)
+        ref_step = make_train_step(cfg, **kw, microbatches=world)
+        for _ in range(2):
+            ref_params, ref_opt, _ = ref_step(ref_params, ref_opt, batch)
+        rel = {"/".join(k): float((params_leaf - p).norm() / p.norm().clamp_min(1e-30))
+               for (k, p), params_leaf in zip(leaf_paths(ref_params), leaves)}
+        out["param_rel"] = rel
+        out["param_max_abs"] = max(float((a - p).abs().max())
+                                   for (_, p), a in zip(leaf_paths(ref_params), leaves))
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def dp_train_phase() -> dict:
+    """Phase 52: ``torch.cuda.device_count()`` ranks of ``dp_rank``, each on
+    its own GPU (torchrun's variables, a free localhost port), with a time
+    limit of their own. Returns the flash entries' launches summed over
+    the ranks."""
+    import socket
+
+    import torch
+
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = {**__import__("os").environ, "RANK": str(rank), "WORLD_SIZE": str(world),
+               "LOCAL_RANK": str(rank), "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank"],
+                                      env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for rank, p in enumerate(procs):
+            stdout, stderr = p.communicate(timeout=DP_TIMEOUT)
+            check(p.returncode == 0, f"phase 52: rank {rank} exited {p.returncode}:\n"
+                  f"{stderr[-4000:]}")
+            outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    r0 = outs[0]
+    for o in outs:
+        coll = o["collectives"]
+        check(coll["by_op_bytes"] == {"all-reduce": o["grad_bytes"]}
+              and coll["by_op_count"] == {"all-reduce": o["n_leaves"]},
+              f"phase 52: rank {o['rank']}: collectives {coll}, gradients {o['grad_bytes']} "
+              f"bytes in {o['n_leaves']} leaves; communication events {o['first_comm_events']}")
+        check(math.isfinite(o["loss"]), f"phase 52: rank {o['rank']} loss {o['loss']}")
+    worst = max(r0["param_rel"].items(), key=lambda kv: kv[1])
+    check(worst[1] < DP_PARAM_TOL, f"phase 52: rank 0's parameters differ from the step "
+          f"without a process group: {worst[0]} {worst[1]:.3e} (limit {DP_PARAM_TOL})")
+    launches = {}
+    for o in outs:
+        for k, v in o["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"phase 52 data-parallel train step, {TRAIN_ARCH} full width, {DP_LAYERS} layers, "
+          f"world {world} on NCCL ({r0['device']}), {DP_RANK_BATCH} x {DP_SEQ} a rank: the "
+          f"second step (profiled, CPU events with shapes) "
+          + ", ".join(f"rank {o['rank']} {o['step_s']:.3f} s" for o in outs)
+          + f"; all-reduce {r0['collectives']['by_op_bytes']['all-reduce']} bytes in "
+          f"{r0['collectives']['by_op_count']['all-reduce']} calls = the gradients' bytes; "
+          f"rank 0 against the two steps without a process group: worst leaf {worst[0]} "
+          f"||d|| / ||p|| {worst[1]:.3e}, max |d| {r0['param_max_abs']:.3e} (limit "
+          f"{DP_PARAM_TOL}); flash launches {launches}; communication events "
+          f"{r0['comm_events']}"
+          + ("; a world of one: the equality across two or more ranks was checked on the "
+             "CPU only (tests/test_torch_dp_train.py, gloo)" if world == 1 else ""), flush=True)
+    print(f"phase 52 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def dryrun_phase(smi: str) -> None:
+    """Phase 53: two dry-run cells of internlm2-1.8b on the 16 x 16 mesh
+    (host only, meta tensors), and the port's first MFU from phase 44's
+    measured step time."""
+    from repro_torch.analysis.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    for shape in ("train_4k", "decode_32k"):
+        art = dryrun.lower_cell(TRAIN_ARCH, shape, multi_pod=False)
+        check(art["status"] == "ok", f"phase 53: dry run {TRAIN_ARCH} {shape}: {art}")
+        mem, rf = art["memory_analysis"], art["roofline"]
+        print(f"phase 53 dry run {TRAIN_ARCH} {shape} on pod16x16 ({art['n_chips']} ranks): "
+              f"a rank's arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB, outputs "
+              f"{mem['output_size_in_bytes'] / 1e9:.3f} GB; counted FLOPs "
+              f"{art['cost_analysis']['flops']:.4e} (analytic {rf['flops_total']:.4e}); "
+              f"collectives {art['collectives']['total_bytes'] / 1e9:.3f} GB a rank (analytic); "
+              f"roofline at H100 rates: compute {rf['compute_s'] * 1e3:.3f} ms, memory "
+              f"{rf['memory_s'] * 1e3:.3f} ms, collective {rf['collective_s'] * 1e3:.3f} ms, "
+              f"{rf['dominant']}-bound, roofline fraction {rf['roofline_frac']:.4f}", flush=True)
+    step_s = MEASURED["train_step_s"]
+    mf = model_flops(get_config(TRAIN_ARCH),
+                     ShapeConfig("phase 44", "train", TRAIN_SEQ, TRAIN_BATCH))
+    mfu = mf / (step_s * PEAK_FLOPS)
+    check(0 < mfu < 1, f"phase 53: MFU {mfu}")
+    print(f"phase 53 the port's first MFU: model_flops {mf:.4e} (6 N D, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens) / (phase 44's step {step_s:.3f} s x {PEAK_FLOPS:.3e}) = "
+          f"{mfu:.4f} on {smi}", flush=True)
+    print(f"phase 53 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4611,6 +4934,21 @@ def main() -> int:
     stamp("phases 46-49")
     by_name["lease_window_delayed"]["launches"] += interval_gate_phase(dev)
     stamp("phase 50")
+    torch.cuda.empty_cache()
+    for name, n in lease_split_phase(dev, engine, renew, sc3).items():
+        by_name[name]["launches"] += n
+    torch.cuda.empty_cache()
+    stamp("phase 51")
+    launches = dp_train_phase()  # the bf16 kernels' path on every rank
+    for e in (flash_kernel.KERNELS[torch.bfloat16], *flash_kernel.BWD_KERNELS[torch.bfloat16]):
+        check(launches.get(e, 0) > 0, f"phase 52: {e} was never launched: {launches}")
+    by_name = {k["name"]: k for k in kernels}  # the training rows joined after phase 19
+    by_name["flash_attention_bhsd"]["launches"] += launches[flash_kernel.KERNELS[torch.bfloat16]]
+    by_name["flash_attention_bwd"]["launches"] += sum(
+        launches[e] for e in flash_kernel.BWD_KERNELS[torch.bfloat16])
+    stamp("phase 52")
+    dryrun_phase(smi)
+    stamp("phase 53")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4620,4 +4958,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(profiled_plans() if sys.argv[1:] == ["--profiled-plans"] else main())
+    sys.exit(profiled_plans() if sys.argv[1:] == ["--profiled-plans"]
+             else dp_rank() if sys.argv[1:] == ["--dp-rank"] else main())

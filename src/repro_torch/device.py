@@ -3,6 +3,11 @@ from __future__ import annotations
 
 import torch
 
+#: the device types on which a kernel's wrapper takes its plain version: the
+#: CPU, and ``meta`` (shapes only: the dry run counts a step's FLOPs there).
+#: A CUDA tensor always goes to the kernel.
+PLAIN_DEVICES = ("cpu", "meta")
+
 
 def resolve_device(device) -> torch.device:
     """The device a caller asked for. CUDA is the default everywhere; without

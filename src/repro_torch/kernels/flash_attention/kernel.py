@@ -42,6 +42,7 @@ import math
 
 import torch
 
+from ...device import PLAIN_DEVICES
 from . import _build
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
@@ -123,7 +124,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None, with_lse: 
     masked scores, (BHq, Sq) fp32. Records no autograd graph: raises for
     CUDA inputs that want a gradient. CPU tensors run the plain versions."""
     _check(q, k, v, window)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         lse = attention_lse_ref(q, k, causal=causal, window=window) if with_lse else None
         return attention_ref(q, k, v, causal=causal, window=window), lse
     _check_kernel(q, k)
@@ -161,7 +162,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window=None
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:2]:
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} and lse "
                          f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
     _check_kernel(q, k)
     if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
@@ -216,10 +217,10 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window=None) -> torch.Tensor:
     """q: (BHq, Sq, Dh); k, v: (BHkv, Sk, Dh) -> (BHq, Sq, Dh) in q's dtype.
     Query head h reads kv head h // (BHq // BHkv); ``window`` keeps keys
-    with k_pos > q_pos - window (None: all). Differentiable: on the CPU
-    through ``attention_ref``, on CUDA through ``FlashAttention``."""
+    with k_pos > q_pos - window (None: all). Differentiable: on the CPU (and
+    ``meta``) through ``attention_ref``, on CUDA through ``FlashAttention``."""
     _check(q, k, v, window)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return attention_ref(q, k, v, causal=causal, window=window)
     if not needs_grad(q, k, v):
         return flash_attention_fwd(q, k, v, causal=causal, window=window)[0]

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from ...device import PLAIN_DEVICES
 from . import _build
 from .ref import wkv6_bwd_ref, wkv_chunked_bhsn
 
@@ -118,7 +119,7 @@ def wkv6_fwd(r, k, v, logw, u, state=None):
     fp32). Records no autograd graph: raises for CUDA inputs that want a
     gradient. CPU tensors run the plain chunked form."""
     _check(r, k, v, logw, u, state)
-    if r.device.type == "cpu":
+    if r.device.type in PLAIN_DEVICES:
         return wkv_chunked_bhsn(r, k, v, logw, u, state)
     _check_kernel(r)
     _refuse_grad(r, k, v, logw, u, state)
@@ -153,7 +154,7 @@ def wkv6_bwd(r, k, v, logw, u, state, dout, dstate=None):
         raise ValueError(f"dout must be {(bh, s, n)}, not {tuple(dout.shape)}")
     if dstate is not None and tuple(dstate.shape) != (bh, n, n):
         raise ValueError(f"dstate must be {(bh, n, n)}, not {tuple(dstate.shape)}")
-    if r.device.type == "cpu":
+    if r.device.type in PLAIN_DEVICES:
         return wkv6_bwd_ref(r, k, v, logw, u, state, dout, dstate)
     _check_kernel(r)
     _refuse_grad(r, k, v, logw, u, state, dout, dstate)
@@ -210,7 +211,7 @@ def wkv6_bhsn(r, k, v, logw, u, state=None):
     (BH, N, N) fp32). The caller's state is not modified. Differentiable: on
     the CPU through the plain chunked form, on CUDA through ``WKV6``."""
     _check(r, k, v, logw, u, state)
-    if r.device.type == "cpu":
+    if r.device.type in PLAIN_DEVICES:
         return wkv_chunked_bhsn(r, k, v, logw, u, state)
     if not needs_grad(r, k, v, logw, u, state):
         return wkv6_fwd(r, k, v, logw, u, state)

@@ -5,8 +5,14 @@ on the CPU. With ``--coordinator process`` and a checkpoint directory an
 in-process PaxosLease cell (``cluster.coordinator``) elects the checkpoint
 writer, and the trainer writes only while it holds the lease.
 
+Under torchrun the run is data-parallel over the ranks (``Trainer``): one
+GPU a rank on NCCL (gloo with ``--device cpu``), the global batch of
+``--batch-size`` rows split among them, and rank 0 alone running the lease
+guard and writing checkpoints.
+
   PYTHONPATH=src python -m repro_torch.launch.train --arch lm20m --steps 100
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b --reduced --steps 20 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch internlm2-1.8b --batch-size 32 --seq-len 4096 --microbatches 4
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ def main(argv=None) -> list:
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import dp_world
     from repro_torch.train import Trainer, TrainerConfig
 
     cfg = get_config(args.arch)
@@ -37,7 +44,8 @@ def main(argv=None) -> list:
         cfg = reduced(cfg)
 
     lease_guard = None
-    if args.coordinator == "process" and args.ckpt_dir:
+    rank = dp_world()[0]
+    if args.coordinator == "process" and args.ckpt_dir and rank == 0:
         # a single host still runs the real protocol (loopback cell): the
         # trainer writes checkpoints only while it holds the writer lease
         from repro_torch.cluster.coordinator import CKPT_RESOURCE, build_coordinated_cluster
@@ -59,8 +67,15 @@ def main(argv=None) -> list:
         log_every=max(args.steps // 20, 1),
     )
     tr = Trainer(cfg, tc, lease_guard=lease_guard, device=args.device)
-    hist = tr.run()
-    print(f"done on {tr.device}: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+    try:
+        hist = tr.run()
+    finally:
+        if tr.mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    print(f"done on {tr.device} (rank {tr.rank} of {tr.world}): "
+          f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
     return hist
 
 

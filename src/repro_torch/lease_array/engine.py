@@ -17,7 +17,14 @@ Three modes:
 The engine lives on one device, CUDA unless the caller passes
 ``device="cpu"``; without a CUDA device the default raises. The backend
 follows the device unless given: the kernels on the card, the plain version
-on the CPU. State, owners and counts stay tensors on that device.
+on the CPU. State, owners and counts stay tensors on that device. A bulk
+dispatch of an engine on the card uses every visible CUDA device
+(``_split_devices``), as the reference's ``shard_map`` uses every JAX
+device: ``run_trace`` splits the cell axis (``_split_trace``), ``sweep``
+the batch axis (``_split_sweep``); each shard runs the same entry on its
+own device, and the results come back in order on the engine's device. An
+axis that does not divide by the device count stays on one device, and so
+does everything on one device: that path is the one-card path, unchanged.
 
 Clock drift (§4): the engine carries each node's accumulated local clock
 (``prop_clk``/``acc_clk``, local quarter-ticks) across dispatches, so a
@@ -75,6 +82,7 @@ from .state import (
     I32,
     NO_PROPOSER,
     QUARTERS,
+    LeaseArrayState,
     check_pack_budget,
     guarded_lease_q4,
     init_state,
@@ -108,6 +116,78 @@ def _static_pack_findings(
         max_restarts=max_restarts,
     )
     return tuple(str(f) for f in analyze_tick_config(cfg))
+
+
+def _split_devices(device: torch.device) -> list:
+    """The devices a bulk dispatch of an engine on ``device`` splits over:
+    every visible CUDA device for an engine on the card, the engine's own
+    device otherwise. Tests put a list of their own in its place (the
+    counterpart of the reference's tests forcing two host devices); it is
+    not a user option."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _shards(n: int, devices: list) -> list:
+    """(device, slice) of each of ``len(devices)`` equal parts of an axis of
+    ``n`` (``n`` divides by the device count)."""
+    w = n // len(devices)
+    return [(dev, slice(i * w, (i + 1) * w)) for i, dev in enumerate(devices)]
+
+
+def _gather(parts, home, dim: int):
+    """Per-shard results (tensors, NamedTuples of them, or dicts of them),
+    joined along ``dim`` on ``home`` in shard order."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([p.to(home) for p in parts], dim=dim)
+    if isinstance(first, dict):
+        return {k: _gather([p[k] for p in parts], home, dim) for k in first}
+    fields = [_gather(list(f), home, dim) for f in zip(*parts)]
+    return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+
+
+def _split_trace(devices: list, state, net, t0, clk0, rst0, planes: dict, **kw):
+    """``_window_scan_impl`` with the cell axis split over ``devices``, by
+    the reference's rule (``_cell_sharding_specs``): the state, net and
+    output planes split on their trailing cell axis, a scenario plane
+    splits iff its registered dims carry ``"N"``, and everything else
+    (acc_up, the link and clock-rate planes, the clock offsets, the restart
+    history) goes to every shard whole. A plane that splits goes to the
+    state's device once, whole, and is cut there: a cut of a host array on
+    its trailing axis is strided, and copying it out shard by shard cost
+    the host more than the one-device upload. Every shard is launched
+    before any result is read back, so the devices run together; the
+    results come back in cell order on the state's device."""
+    home = state.highest_promised.device
+    split = {k: _as_i32(v, home) for k, v in planes.items() if "N" in PLANES[k].dims}
+    outs = []
+    for dev, cells in _shards(state.n_cells, devices):
+        part = {k: split[k][..., cells].contiguous() if k in split else v
+                for k, v in planes.items()}
+        outs.append(_window_scan_impl(
+            LeaseArrayState(*(x[:, cells].to(dev) for x in state)),
+            NetPlaneState(*(x[:, cells].to(dev) for x in net)),
+            t0, clk0, rst0, part, **kw))
+    return _gather(outs, home, dim=-1)
+
+
+def _split_sweep(devices: list, scan, state, net, t0, clk0, rst0, planes: dict, **kw):
+    """A sweep body (``_sweep_scan_impl`` or ``_margin_scan_impl``) with the
+    batch axis split over ``devices``, as the reference's ``_sweep_fn``:
+    each shard replays its scenarios from the whole start state on its own
+    device; the per-scenario results come back in batch order on the
+    state's device."""
+    home = state.highest_promised.device
+    B = int(planes["attempts"].shape[0])
+    outs = []
+    for dev, rows in _shards(B, devices):
+        outs.append(scan(
+            LeaseArrayState(*(x.to(dev) for x in state)),
+            NetPlaneState(*(x.to(dev) for x in net)),
+            t0, clk0, rst0, {k: v[rows] for k, v in planes.items()}, **kw))
+    return _gather(outs, home, dim=0)
 
 
 #: set once the analyzer itself failed (the gate then warned, once)
@@ -491,7 +571,9 @@ class LeaseArrayEngine:
         raises where that cannot honor the scenario.
         Returns (owners [T, N], owner_counts [T, N]) as int32 tensors on
         the engine's device; the engine's state/tick advance past the
-        trace.
+        trace. On several devices (``_split_devices``) the cell axis is
+        split among them, one launch a device, when N divides by their
+        count.
         """
         scenario = self._coerce_scenario(scenario)
         T = scenario.n_ticks
@@ -520,7 +602,11 @@ class LeaseArrayEngine:
         # honest replay does no fault work; once restart mode is pinned,
         # rst0 (not the planes) keeps it on across quiet dispatches
         planes = strip_default_planes(scenario.planes)
-        self.state, self.net, owners, counts = _window_scan_impl(
+        devices = _split_devices(self.device)
+        scan = _window_scan_impl
+        if len(devices) > 1 and self.n_cells % len(devices) == 0:
+            scan = functools.partial(_split_trace, devices)
+        self.state, self.net, owners, counts = scan(
             self.state, self.net, self.t, self._clk0(), self._rst0(), planes,
             majority=self.majority, lease_q4=self.lease_q4,
             round_q4=self.round_q4, guard_q4=self.guard_q4,
@@ -552,8 +638,10 @@ class LeaseArrayEngine:
         tick, clocks and restart history; the engine itself is NOT advanced
         (a sweep is a fan-out query, not a state transition). On
         ``backend="cuda"`` the batch is one launch of a batched window
-        kernel (``kernel.lease_window_*_batched``); ``"torch"`` runs the
-        plain window loop scenario by scenario. ``backend=None`` is the
+        kernel (``kernel.lease_window_*_batched``), one a device when the
+        batch splits over several (``_split_devices``; B must divide by
+        their count, else one device runs it); ``"torch"`` runs the plain
+        window loop scenario by scenario. ``backend=None`` is the
         engine's.
 
         ``collect="summary"`` (default) reduces inside the kernel — only
@@ -619,8 +707,13 @@ class LeaseArrayEngine:
                 f"unknown lease-plane backend {backend!r}; one of {BACKENDS}"
             )
         owners = counts = margins = None
+        devices = _split_devices(self.device)
+        margin_scan, sweep_scan = _margin_scan_impl, _sweep_scan_impl
+        if len(devices) > 1 and int(planes["attempts"].shape[0]) % len(devices) == 0:
+            margin_scan = functools.partial(_split_sweep, devices, margin_scan)
+            sweep_scan = functools.partial(_split_sweep, devices, sweep_scan)
         if collect == "margins":
-            out = _margin_scan_impl(
+            out = margin_scan(
                 self.state, self.net, self.t, self._clk0(), self._rst0(),
                 strip_default_planes(planes),
                 majority=self.majority, lease_q4=self.lease_q4,
@@ -630,7 +723,7 @@ class LeaseArrayEngine:
             margins = out[2]
             out = window_summary(*out[:2])
         else:
-            out = _sweep_scan_impl(
+            out = sweep_scan(
                 self.state, self.net, self.t, self._clk0(), self._rst0(),
                 strip_default_planes(planes),
                 majority=self.majority, lease_q4=self.lease_q4,

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..parallel.sharding import hint
 from .layers import _act
 from .schema import P, Schema
 
@@ -108,7 +109,10 @@ def moe_dispatch(cfg: ModelConfig, params, x: torch.Tensor):
     ti = torch.arange(tg, device=x.device)[None, :, None].expand(g, tg, k)
     xb = x.new_zeros((g, e * cap + 1, d))
     xb[gi, rows] = xg[gi, ti]
-    yb = _expert_ffn(cfg, params, xb[:, :-1].reshape(g, e, cap, d))
+    # optional EP constraints, active only when the run's sharding rules
+    # define "moe_group" (as the reference's)
+    xe = hint(xb[:, :-1].reshape(g, e, cap, d), ("moe_group", "experts", None, "embed"))
+    yb = hint(_expert_ffn(cfg, params, xe), ("moe_group", "experts", None, "embed"))
     yb = torch.cat([yb.reshape(g, e * cap, d), yb.new_zeros((g, 1, d))], dim=1)
     # the combine weights in x's dtype, the sum over slots in fp32, as a
     # product of x.dtype operands accumulates

@@ -2,8 +2,9 @@
 
 A *schema* is a nested dict whose leaves are ``P`` descriptors (shape, logical
 axes, init kind); ``init_params`` turns it into a nested dict of tensors with
-the same keys. The logical axis names are kept for the sharding rules a
-multi-GPU slice will need.
+the same keys, ``abstract_params`` into one of ``meta`` tensors (shapes and
+dtypes, no storage: the dry run's), and ``logical_axes`` into the tree of
+logical axis names that ``parallel.sharding`` maps onto a mesh.
 
 Initial weights come from one ``torch.Generator`` walking the leaves in a
 fixed order, so a seed gives the same weights on every run. They are not the
@@ -89,6 +90,21 @@ def init_params(schema: Schema, gen: torch.Generator, dtype=torch.float32) -> di
     for path, p in leaf_paths(schema):
         set_path(params, path, _init_leaf(gen, p, dtype, gen.device))
     return params
+
+
+def abstract_params(schema: Schema, dtype=torch.float32) -> dict:
+    """A ``meta`` tensor for every leaf (for dry runs: no allocation)."""
+    tree: dict = {}
+    for path, p in leaf_paths(schema):
+        set_path(tree, path, torch.empty(p.shape, dtype=dtype, device="meta"))
+    return tree
+
+
+def logical_axes(schema: Schema) -> dict:
+    tree: dict = {}
+    for path, p in leaf_paths(schema):
+        set_path(tree, path, p.axes)
+    return tree
 
 
 def stacked(schema: Schema, n: int) -> Schema:

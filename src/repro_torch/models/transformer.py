@@ -51,11 +51,12 @@ from torch.utils.checkpoint import (
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels.flash_attention.ops import flash_attention
+from ..parallel.sharding import hint
 from . import rwkv6, ssm
 from .attention import attention_full, attn_schema, out_project, project, qkv_project
 from .layers import apply_mlp, apply_norm, mlp_schema, norm_schema, sinusoidal_positions
 from .moe import moe_dispatch, moe_schema
-from .schema import P, Schema, init_params, map_tree, stacked
+from .schema import P, Schema, abstract_params, init_params, logical_axes, map_tree, stacked
 
 AUX_COEF = 0.01  # MoE load-balance loss coefficient
 #: decode-cache leaves that a step overwrites whole (rwkv6's and hymba's
@@ -126,6 +127,16 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     return init_params(model_schema(cfg), gen, dtype=torch_dtype(cfg.param_dtype))
 
 
+def abstract_model(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` tensors (shapes and dtypes only)."""
+    return abstract_params(model_schema(cfg), dtype=torch_dtype(cfg.param_dtype))
+
+
+def model_axes(cfg: ModelConfig) -> dict:
+    """The parameter tree's logical axis names (``parallel.sharding``)."""
+    return logical_axes(model_schema(cfg))
+
+
 # ---------------------------------------------------------------------------
 # Cache
 # ---------------------------------------------------------------------------
@@ -152,6 +163,12 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> dict:
     dev = resolve_device(device)
     return {k: torch.full(shape, -1 if k == "slot_pos" else 0, dtype=dt, device=dev)
+            for k, (shape, dt) in cache_spec(cfg, batch, max_len).items()}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The decode cache as ``meta`` tensors."""
+    return {k: torch.empty(shape, dtype=dt, device="meta")
             for k, (shape, dt) in cache_spec(cfg, batch, max_len).items()}
 
 
@@ -297,6 +314,7 @@ def run_encoder(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     enc = params["encoder"]
     h = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
                                       device=frames.device).to(frames.dtype)
+    h = hint(h, ("batch", "seq", "embed"))
     positions = torch.arange(h.shape[1], device=h.device)
     for layer in range(cfg.n_encoder_layers):
         h = block_seq(cfg, layer_params(enc, layer, dtype), h, positions, causal=False)[0]
@@ -354,11 +372,13 @@ def _forward(cfg: ModelConfig, params, batch: dict, *, emit_cache: bool = False,
         h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
     if not cfg.use_rope:  # whisper's decoder too: positions added once
         h = h + sinusoidal_positions(h.shape[1], cfg.d_model, device=h.device).to(h.dtype)
+    h = hint(h, ("batch", "seq", "embed"))
     positions = torch.arange(h.shape[1], device=h.device)
 
     def layer_fn(x, layer):
-        return block_seq(cfg, layer_params(params, layer, dtype), x, positions,
-                         causal=True, emit_cache=emit_cache, enc_out=enc_out)
+        x, emit, aux_l = block_seq(cfg, layer_params(params, layer, dtype), x, positions,
+                                   causal=True, emit_cache=emit_cache, enc_out=enc_out)
+        return hint(x, ("batch", "seq", "embed")), emit, aux_l
 
     body = _remat(cfg, layer_fn) if remat else layer_fn
     aux = h.new_zeros((), dtype=torch.float32)
@@ -370,7 +390,7 @@ def _forward(cfg: ModelConfig, params, batch: dict, *, emit_cache: bool = False,
     h = apply_norm(cfg, params["final_norm"], h)
     if logits_mode == "last":
         h = h[:, -1:, :]
-    logits = _unembed(cfg, params, h)
+    logits = hint(_unembed(cfg, params, h), ("batch", "seq", "vocab"))
     cache = None
     if emit_cache:
         cache = _assemble_cache(cfg, {name: torch.stack([e[name] for e in emits])
@@ -450,8 +470,10 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens, pos):
         pe = torch.stack([sinusoidal_positions(1, cfg.d_model, offset=o, device=dev)
                           for o in pos])
         h = h + pe.to(h.dtype)
+    h = hint(h, ("batch", None, "embed"))
     for layer in range(cfg.n_layers):
         cache_l = {name: leaf[layer] for name, leaf in cache.items()}
-        h = block_step(cfg, layer_params(params, layer, dtype), h, pos, cache_l)
+        h = hint(block_step(cfg, layer_params(params, layer, dtype), h, pos, cache_l),
+                 ("batch", None, "embed"))
     h = apply_norm(cfg, params["final_norm"], h)
     return _unembed(cfg, params, h), cache

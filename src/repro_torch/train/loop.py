@@ -3,7 +3,17 @@
 (async) checkpoints, and resume from the latest checkpoint at
 construction.
 
-Runs on the card unless given ``device="cpu"``. Fault-tolerance hooks, as
+Runs on the card unless given ``device="cpu"``. When torchrun's environment
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) says the world
+is larger than one, the trainer initialises the default process group
+(NCCL on the card, each rank on ``cuda:LOCAL_RANK``; gloo on the CPU),
+builds the data = world, model = 1 mesh, and trains data-parallel: each
+rank takes its contiguous slice of every global batch of
+``tc.batch_size`` rows, and the gradients are averaged across the ranks
+before the clip and AdamW (``launch.steps.accumulate_grads``). Rank 0
+alone writes checkpoints (and runs the lease guard); every rank resumes
+from them. With a world of one nothing of this runs and no process group
+is created. Fault-tolerance hooks, as
 the reference's: ``on_step`` (straggler/fault injection in tests), the
 lease guard of the checkpoint writer, and the lease-driven shard set of the
 loader (``owned_shards``). Weights come from the port's own generator
@@ -22,10 +32,12 @@ from ..checkpoint import AsyncCheckpointer, CheckpointManager, latest_step, rest
 from ..configs.base import ModelConfig
 from ..data import ShardedLoader, SyntheticTokens
 from ..device import resolve_device
-from ..launch.steps import make_train_step
+from ..launch.mesh import dp_world, init_data_parallel
+from ..launch.steps import make_train_step, shard_batch
 from ..models import init_model
 from ..models.schema import map_tree
 from ..optim import adamw_init
+from ..parallel.sharding import use_mesh
 
 
 @dataclass
@@ -70,8 +82,16 @@ class Trainer:
     ) -> None:
         self.cfg = cfg
         self.tc = tc
-        self.verbose = verbose
         self.device = resolve_device(device)
+        self.rank, self.world, local_rank = dp_world()
+        if self.world > 1 and self.device.type == "cuda":
+            self.device = torch.device("cuda", local_rank)
+            torch.cuda.set_device(self.device)
+        #: the data = world, model = 1 mesh (None for a world of one)
+        self.mesh = init_data_parallel(self.device)
+        if self.mesh is None:
+            self.rank, self.world = 0, 1
+        self.verbose = verbose and self.rank == 0
         self.gen = SyntheticTokens(cfg.vocab_size, tc.seq_len, seed=tc.seed)
         self.loader = ShardedLoader(self.gen, tc.n_shards, tc.batch_size, owned_shards=owned_shards)
         self.step = 0
@@ -85,12 +105,12 @@ class Trainer:
             _load_into(self.params, state["params"])
             _load_into(self.opt_state, state["opt"])
             self.step = step
-            if verbose:
+            if self.verbose:
                 print(f"[trainer] resumed from step {step}")
 
         self.ckpt = None
         self.async_ckpt = None
-        if tc.ckpt_dir:
+        if tc.ckpt_dir and self.rank == 0:
             if tc.ckpt_async:
                 self.async_ckpt = AsyncCheckpointer(tc.ckpt_dir, keep=tc.keep,
                                                     lease_guard=lease_guard)
@@ -98,16 +118,19 @@ class Trainer:
                 self.ckpt = CheckpointManager(tc.ckpt_dir, every_steps=tc.ckpt_every,
                                               keep=tc.keep, lease_guard=lease_guard)
 
-        self._train_step = make_train_step(cfg, peak_lr=tc.peak_lr, warmup=tc.warmup,
-                                           total=tc.steps, microbatches=tc.microbatches)
+        self._train_step = make_train_step(
+            cfg, peak_lr=tc.peak_lr, warmup=tc.warmup, total=tc.steps,
+            microbatches=tc.microbatches,
+            dp_group=None if self.mesh is None else self.mesh.get_group("data"))
 
     # ------------------------------------------------------------------ run
     def run(self, *, on_step: Optional[Callable[[int, dict], None]] = None) -> list[dict]:
         t_start = time.time()
         while self.step < self.tc.steps:
-            batch = self.loader.next_batch()
-            self.params, self.opt_state, metrics = self._train_step(
-                self.params, self.opt_state, batch)
+            batch = shard_batch(self.loader.next_batch(), self.rank, self.world)
+            with use_mesh(self.mesh):
+                self.params, self.opt_state, metrics = self._train_step(
+                    self.params, self.opt_state, batch)
             self.step += 1
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = self.step

@@ -54,7 +54,9 @@ def test_package_has_the_slice_modules():
                  "analysis.staticcheck.__main__", "optim", "optim.adamw",
                  "optim.schedule", "data", "data.synthetic", "data.loader",
                  "checkpoint", "checkpoint.io", "checkpoint.manager",
-                 "train.loop", "launch.train"):
+                 "train.loop", "launch.train", "parallel", "parallel.sharding",
+                 "launch.mesh", "launch.dryrun", "analysis.roofline",
+                 "analysis.costs", "analysis.hlo"):
         assert f"repro_torch.{name}" in MODULES
 
 
