@@ -15,9 +15,13 @@ flash backward kernel, internlm2-1.8b trained whole through the flash
 kernels forward and backward, an fp32 step, a checkpoint), rwkv6
 training (phases 46-49: the WKV6 backward kernel, rwkv6-3b trained whole
 through the WKV6 kernels forward and backward, an fp32 step), the
-static pack-budget gate in front of the lease kernels (phase 50), and more
+static pack-budget gate in front of the lease kernels (phase 50), more
 than one device (phases 51-53: the lease plane split over devices,
-data-parallel training over NCCL, the dry run and the first MFU).
+data-parallel training over NCCL, the dry run, the first MFU and the dry
+run's temp count against the measured peak), and the reference's last
+modules (phases 54-55: the deprecated lease shims through the lease
+kernels, and the resharding restore onto a DTensor mesh resumed through the
+flash kernels).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``); it exits nonzero
@@ -271,16 +275,38 @@ Phases (one line each):
  53. the dry run of internlm2-1.8b ``train_4k`` and ``decode_32k`` on the
      16 x 16 mesh (per-rank bytes, the roofline at H100 rates), and the
      port's first MFU: ``model_flops`` of phase 44's step (8 x 4096 tokens)
-     over its measured time x 989e12.
+     over its measured time x 989e12; then ``analysis.memory``'s temp count
+     at phase 44's configuration (one rank, 4 microbatches of 2 x 4096,
+     remat "dots") plus the fp32 parameters, gradients and AdamW moments,
+     within 25 % of phase 44's measured peak;
+ 54. the deprecated spellings at the renewal deployment's width (N 2^20,
+     A 5, P 8, its first 32 ticks): the legacy ``run_trace`` with raw plane
+     arrays (delayed, and the zero-delay planes on the sync model) against
+     the ``Scenario`` form, 16 legacy ``step``s (the per-plane keywords, the
+     bare attempt row and the full positional form in turn) against
+     ``make_tick`` steps, and 12 ticks each of ``lease_plane_step_delayed``
+     and ``lease_plane_step`` against ``lease_plane_tick``: owners, counts,
+     state and net bit-exact, exactly one DeprecationWarning a legacy call,
+     and both lease kernels launched by the legacy calls;
+ 55. the resharding restore: internlm2-1.8b at full width, 4 of its 24
+     layers, 2 x 4096, bf16 compute over fp32 master weights: one
+     ``Trainer`` step saved by its ``CheckpointManager``, ``restore_latest``
+     with ``param_shardings`` and ``opt_shardings(zero1=True)`` onto the
+     one-rank NCCL mesh (``make_local_mesh``): every leaf a DTensor of its
+     spec's local shape, its ``full_tensor()`` bit-identical to the saved
+     leaf; a fresh ``Trainer`` loaded from it takes step 2, within 1e-6 a
+     leaf of the unbroken run's step 2; the bf16 flash forward and
+     backward kernels launch in both runs.
 The line before the last holds every kernel's launches on its main path
 (phases 3-6, the phase-21 directory ticks, the phase-50 replays and the
-phase-51 split runs for the unbatched delayed kernel; the phase-12, 28, 32, 37 and 41 bf16 prefills for the wgmma
+phase-51 split runs and the phase-54 legacy calls for the unbatched delayed
+kernel, the phase-54 sync shims and sync legacy ``run_trace`` for the sync one; the phase-12, 28, 32, 37 and 41 bf16 prefills for the wgmma
 flash kernel, the phase-9, 25, 29, 34 and 38 prefills and phase-11
 serving for the fp32 3xTF32 one; the phase-17 bf16
 prefill for the tensor-core WKV6 kernel, the phase-14 prefill and
 phase-16 serving for the CUDA-core one; the phase-19 sweeps, the
 phase-20 shrinker probes and the phase-51 split sweeps for the batched
-lease kernels; the phase-44, 45 and 52 training steps for the backward
+lease kernels; the phase-44, 45, 52 and 55 training steps for the backward
 kernel's bf16 and fp32 entries, whose forward launches join the forward
 rows; the phase-48 and 49 training
 steps for the WKV6 backward's bf16 and fp32 passes, whose forward launches
@@ -3236,6 +3262,7 @@ def train_slice(dev) -> tuple:
           "phase 44: a bf16 step launched an fp32 kernel")
     mean_s = sum(step_s[1:]) / max(len(step_s) - 1, 1)
     MEASURED["train_step_s"] = mean_s  # phase 53's MFU
+    MEASURED["train_peak_bytes"] = torch.cuda.max_memory_allocated()  # phase 53's temp check
     tokens = TRAIN_BATCH * TRAIN_SEQ
     print(f"phase 44 Trainer: {TRAIN_STEPS} steps, losses " + ", ".join(f"{x:.4f}" for x in losses)
           + f"; grad norms " + ", ".join(f"{h['grad_norm']:.4f}" for h in hist)
@@ -4368,13 +4395,22 @@ def dp_train_phase() -> dict:
     return launches
 
 
+#: phase 53: the temp count plus the training state against phase 44's
+#: measured peak, |count - peak| / peak
+TEMP_TOL = 0.25
+
+
 def dryrun_phase(smi: str) -> None:
     """Phase 53: two dry-run cells of internlm2-1.8b on the 16 x 16 mesh
-    (host only, meta tensors), and the port's first MFU from phase 44's
-    measured step time."""
+    (host only, meta tensors), the port's first MFU from phase 44's
+    measured step time, and the dry run's temp count at phase 44's
+    configuration plus the training state against phase 44's measured
+    peak."""
+    from repro_torch.analysis.memory import rank_temp
     from repro_torch.analysis.roofline import PEAK_FLOPS, model_flops
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.launch import dryrun
+    from repro_torch.parallel.sharding import AbstractMesh, make_rules
 
     t_phase = time.perf_counter()
     for shape in ("train_4k", "decode_32k"):
@@ -4397,7 +4433,300 @@ def dryrun_phase(smi: str) -> None:
     print(f"phase 53 the port's first MFU: model_flops {mf:.4e} (6 N D, {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} tokens) / (phase 44's step {step_s:.3f} s x {PEAK_FLOPS:.3e}) = "
           f"{mfu:.4f} on {smi}", flush=True)
+    # the temp count at phase 44's configuration beside the card's peak
+    cfg = get_config(TRAIN_ARCH)
+    one = AbstractMesh((1, 1), ("data", "model"))
+    t0 = time.perf_counter()
+    parts = rank_temp(cfg, ShapeConfig("phase 44", "train", TRAIN_SEQ, TRAIN_BATCH), one,
+                      make_rules(one), microbatches=TRAIN_MICRO)
+    count_s = time.perf_counter() - t0
+    temp = parts["total"]
+    state = 4 * 4 * cfg.n_params()  # fp32 parameters, gradients and the two AdamW moments
+    peak = MEASURED["train_peak_bytes"]
+    off = (temp + state - peak) / peak
+    check(temp > 0 and abs(off) <= TEMP_TOL, f"phase 53: the temp count {temp / 1e9:.3f} GB "
+          f"+ state {state / 1e9:.3f} GB = {(temp + state) / 1e9:.3f} GB is {off:+.1%} off "
+          f"phase 44's measured peak {peak / 1e9:.3f} GB (limit {TEMP_TOL:.0%})")
+    print(f"phase 53 temp count at phase 44's configuration (one rank, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} in {TRAIN_MICRO} microbatches, remat {cfg.remat_policy!r}; meta tensors, "
+          f"{count_s:.1f} s): temp_size_in_bytes {temp} ({temp / 1e9:.3f} GB: saved by autograd "
+          f"{parts['saved'] / 1e9:.3f}, kept by the remat policy {parts['kept'] / 1e9:.3f}, the "
+          f"loss head's transients {parts['head'] / 1e9:.3f}) + parameters, "
+          f"gradients and AdamW moments {state / 1e9:.3f} GB = {(temp + state) / 1e9:.3f} GB "
+          f"beside phase 44's measured peak {peak / 1e9:.3f} GB: {off:+.2%} (limit "
+          f"{TEMP_TOL:.0%}) on {smi}", flush=True)
     print(f"phase 53 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+#: phase 54: ticks of the renewal deployment the legacy run_trace replays,
+#: legacy engine steps, and shim ticks (delayed and sync)
+SHIM_TICKS, SHIM_STEPS, SHIM_OPS = 32, 16, 12
+
+
+def one_warning(fn, *args, **kw):
+    """``fn``'s result; fails unless the call gave exactly one
+    DeprecationWarning."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        out = fn(*args, **kw)
+    n = sum(issubclass(w.category, DeprecationWarning) for w in got)
+    check(n == 1, f"phase 54: {getattr(fn, '__name__', fn)} gave {n} DeprecationWarnings, not 1")
+    return out
+
+
+def shims_phase(dev, trace) -> dict:
+    """Phase 54: the deprecated spellings at the renewal deployment's width
+    (``trace``: phase 3's, N 2^20, A 5, P 8), each against the current form
+    on the card: the legacy ``run_trace`` (raw planes; delayed, then the
+    zero-delay planes on the sync model), ``SHIM_STEPS`` legacy ``step``s in
+    turn by each spelling against ``make_tick`` steps, and
+    ``lease_plane_step_delayed``/``lease_plane_step`` against
+    ``lease_plane_tick``. Owners, counts, state and net bit-exact; one
+    DeprecationWarning a legacy call. Returns the lease kernels' launches
+    by the legacy calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.lease_array import LeaseArrayEngine, Scenario, make_tick
+    from repro_torch.lease_array import kernel as K
+    from repro_torch.lease_array.netplane import init_netplane
+    from repro_torch.lease_array.ops import (
+        lease_plane_step,
+        lease_plane_step_delayed,
+        lease_plane_tick,
+    )
+    from repro_torch.lease_array.state import init_state
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize
+    T, n = SHIM_TICKS, trace.n_cells
+    att, rel, up = trace.attempts[:T], trace.releases[:T], trace.acc_up[:T]
+    delay = trace.delay[:T]
+    drop = np.zeros_like(delay) if trace.drop is None else trace.drop[:T]
+    geo = dict(n_cells=n, n_acceptors=trace.n_acceptors, n_proposers=trace.n_proposers)
+
+    def engine():
+        return LeaseArrayEngine(n, n_acceptors=trace.n_acceptors,
+                                n_proposers=trace.n_proposers, lease_ticks=trace.lease_ticks,
+                                round_ticks=trace.round_ticks, device=dev)
+
+    def same(a, b, what):
+        for i, (x, y) in enumerate(zip(a, b)):
+            err = int((x.long() - y.long()).abs().max()) if x.numel() else 0
+            check(x.shape == y.shape and err == 0, f"phase 54 {what}: field {i} differs "
+                  f"(max |err| {err})")
+
+    launches = dict.fromkeys(("lease_window_delayed", "lease_window_sync"), 0)
+
+    def legacy(fn, *args, **kw):
+        """A legacy call: one DeprecationWarning, its lease launches counted."""
+        before = K.lease_window_delayed.launches, K.lease_window_sync.launches
+        out = one_warning(fn, *args, **kw)
+        launches["lease_window_delayed"] += K.lease_window_delayed.launches - before[0]
+        launches["lease_window_sync"] += K.lease_window_sync.launches - before[1]
+        return out
+
+    timings = {}
+    # (a) run_trace with raw planes: delayed, then zero-delay planes (sync)
+    for model, planes in (("delayed", dict(delay=delay, drop=drop)), ("sync", {})):
+        old, new = engine(), engine()
+        t0 = time.perf_counter()
+        ow, cn = legacy(old.run_trace, att, rel, up, **planes)
+        sync()
+        timings[f"run_trace {model}"] = (time.perf_counter() - t0) * 1e3
+        ow2, cn2 = new.run_trace(Scenario.build(attempts=att, releases=rel, acc_up=up,
+                                                **planes, **geo))
+        sync()
+        same((ow, cn, *old.state, *old.net), (ow2, cn2, *new.state, *new.net),
+             f"legacy run_trace ({model})")
+        check(old._netplane_active == (model == "delayed") and old.t == new.t == T,
+              f"phase 54: the legacy run_trace ({model}) took the wrong model")
+    # (b) SHIM_STEPS legacy steps, the spellings in turn, against make_tick steps
+    old, new = engine(), engine()
+    spellings = ("keywords", "bare", "positional")
+    t0 = time.perf_counter()
+    for tau in range(SHIM_STEPS):
+        spelling = spellings[tau % 3]
+        planes = dict(attempts=att[tau])
+        if spelling == "keywords":
+            ow = legacy(old.step, attempt=att[tau], release=rel[tau], acc_up=up[tau],
+                        delay=delay[tau], drop=drop[tau])
+            planes.update(releases=rel[tau], acc_up=up[tau], delay=delay[tau], drop=drop[tau])
+        elif spelling == "bare":
+            ow = legacy(old.step, att[tau])
+        else:
+            ow = legacy(old.step, att[tau], rel[tau], up[tau], delay[tau], drop[tau])
+            planes.update(releases=rel[tau], acc_up=up[tau], delay=delay[tau], drop=drop[tau])
+        ow2 = new.step(make_tick(**geo, **planes))
+        same((ow,), (ow2,), f"legacy step {tau} ({spelling})")
+    sync()
+    timings["steps"] = (time.perf_counter() - t0) * 1e3
+    same((*old.state, *old.net, old.last_owner_count),
+         (*new.state, *new.net, new.last_owner_count), "legacy steps' final state")
+    # (c) the ops shims against lease_plane_tick, delayed then sync
+    kw = dict(majority=trace.n_acceptors // 2 + 1, lease_q4=4 * trace.lease_ticks + 1)
+    rq = 4 * trace.round_ticks
+    st = tst = init_state(n, trace.n_acceptors, trace.n_proposers, device=dev)
+    net = tnet = init_netplane(n, trace.n_acceptors, device=dev)
+    t0 = time.perf_counter()
+    for t in range(SHIM_OPS):
+        st, net, c = legacy(lease_plane_step_delayed, st, net, t, att[t], rel[t], up[t],
+                            delay[t], drop[t], round_q4=rq, **kw)
+        tick = make_tick(**geo, attempts=att[t], releases=rel[t], acc_up=up[t],
+                         delay=delay[t], drop=drop[t])
+        tst, tnet, tc = lease_plane_tick(tst, tnet, t, tick, round_q4=rq, **kw)
+        same((*st, *net, c), (*tst, *tnet, tc), f"lease_plane_step_delayed tick {t}")
+    st = tst = init_state(n, trace.n_acceptors, trace.n_proposers, device=dev)
+    for t in range(SHIM_OPS):
+        st, c = legacy(lease_plane_step, st, t, att[t], rel[t], up[t], **kw)
+        tick = make_tick(**geo, attempts=att[t], releases=rel[t], acc_up=up[t])
+        tst, _, tc = lease_plane_tick(tst, None, t, tick, round_q4=0, sync=True, **kw)
+        same((*st, c), (*tst, tc), f"lease_plane_step tick {t}")
+    sync()
+    timings["ops shims"] = (time.perf_counter() - t0) * 1e3
+    owned = float((c >= 1).float().mean())
+    for name, v in launches.items():
+        check(v > 0, f"phase 54: the legacy calls launched {name} {v} times")
+    print(f"phase 54 the deprecated spellings at N {n}, A {trace.n_acceptors}, P "
+          f"{trace.n_proposers} (the renewal deployment's planes, delay {int(delay.max())}): "
+          f"legacy run_trace of {T} ticks (delayed, sync), {SHIM_STEPS} legacy steps (keywords, "
+          f"bare row, positional in turn), {SHIM_OPS} ticks of lease_plane_step_delayed and of "
+          f"lease_plane_step, each bit-exact against the Scenario / make_tick / "
+          f"lease_plane_tick form (max |err| 0), one DeprecationWarning a legacy call; "
+          f"host ms " + ", ".join(f"{k} {v:.1f}" for k, v in timings.items())
+          + f"; cells owned after the sync shim's {SHIM_OPS} ticks {owned:.4f}; launches by "
+          f"the legacy calls {launches}", flush=True)
+    print(f"phase 54 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+#: phase 55: the relative distance a leaf of the resumed step 2 may have
+#: from the unbroken run's (phase 52's limit: the embedding's backward adds
+#: by atomics in no fixed order)
+RESHARD_TOL = 1e-6
+
+
+def reshard_phase(dev) -> dict:
+    """Phase 55: internlm2-1.8b at full width, ``DP_LAYERS`` layers, 2 x 4096,
+    bf16 compute over fp32 master weights: one ``Trainer`` step, saved by its
+    ``CheckpointManager``; ``restore_latest`` with the spec trees of
+    ``param_shardings`` and ``opt_shardings(zero1=True)`` onto the one-rank
+    NCCL mesh (``make_local_mesh``); every leaf a DTensor of its spec's local
+    shape whose ``full_tensor()`` equals the saved leaf bit for bit; the
+    restored state loaded into a fresh ``Trainer`` for step 2, against the
+    unbroken run's step 2 (< ``RESHARD_TOL`` a leaf). Returns the bf16 flash
+    entries' launches over both training runs."""
+    import dataclasses
+    import shutil
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import opt_shardings, param_shardings
+    from repro_torch.models.schema import leaf_paths
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=DP_LAYERS)
+    ckpt_dir = ROOT / "build" / "chip_smoke_reshard"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(steps=2, batch_size=DP_RANK_BATCH, seq_len=DP_SEQ, warmup=1, peak_lr=1e-4,
+              log_every=100, seed=0)
+    bf16 = (FK.KERNELS[torch.bfloat16], *FK.BWD_KERNELS[torch.bfloat16])
+    launches = dict.fromkeys(bf16, 0)
+
+    def run(tr, steps: int, label: str) -> None:
+        """``tr`` on to ``steps`` steps; the bf16 flash entries must launch."""
+        FK.reset_launches()
+        tr.tc.steps = steps
+        tr.run()
+        sync()
+        counts = FK.flash_attention_bhsd.launches_by_kernel
+        for e in bf16:
+            check(counts[e] > 0, f"phase 55: {label} launched {e} {counts[e]} times")
+            launches[e] += counts[e]
+
+    # the unbroken run: step 1, saved; its step 2 after the restore below
+    unbroken = Trainer(cfg, TrainerConfig(**kw, ckpt_dir=str(ckpt_dir), ckpt_every=1, keep=2),
+                       verbose=False, device=dev)
+    run(unbroken, 1, "the unbroken run's step 1")
+    saved = {k: x.clone() for k, x in leaf_paths({"params": unbroken.params,
+                                                  "opt": unbroken.opt_state})}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cuda = dev.type == "cuda"  # a rehearsal on the CPU takes gloo
+    dist.init_process_group(
+        "nccl" if cuda else "gloo", init_method=f"tcp://localhost:{port}", rank=0,
+        world_size=1, device_id=torch.device("cuda", torch.cuda.current_device()) if cuda else None)
+    try:
+        mesh = make_local_mesh()
+        rules = shd.make_rules(mesh)
+        specs = {"params": param_shardings(cfg, mesh, rules),
+                 "opt": opt_shardings(cfg, mesh, rules, zero1=True)}
+        flat_specs = dict(leaf_paths(specs))
+        t0 = time.perf_counter()
+        restored, at = unbroken.ckpt.restore_latest(shardings=specs, mesh=mesh)
+        sync()
+        restore_s = time.perf_counter() - t0
+        size_gb = sum(p.stat().st_size for p in ckpt_dir.rglob("*") if p.is_file()) / 1e9
+        check(at == 1, f"phase 55: restored step {at}, not 1")
+        got = dict(leaf_paths(restored))
+        check(set(got) == set(saved), "phase 55: the restored leaves differ from the saved ones")
+        sharded = 0
+        full = {}
+        for k, x in got.items():
+            spec = flat_specs[k]
+            check(isinstance(x, DTensor) and x.placements == shd.placements(mesh, spec),
+                  f"phase 55: {'/'.join(k)} is not a DTensor of its spec {spec}")
+            local = x.to_local()
+            check(tuple(local.shape) == shd.local_shape(mesh, spec, tuple(x.shape))
+                  and local.device == saved[k].device,
+                  f"phase 55: {'/'.join(k)} local {tuple(local.shape)} on {local.device}")
+            full[k] = x.full_tensor()
+            check(full[k].dtype == saved[k].dtype and torch.equal(full[k], saved[k]),
+                  f"phase 55: {'/'.join(k)} differs from the saved leaf")
+            sharded += any(p.is_shard() for p in x.placements)
+    finally:
+        dist.destroy_process_group()
+    unbroken.ckpt = None  # step 2 needs no checkpoint of its own
+    run(unbroken, 2, "the unbroken run's step 2")
+    del restored, got, saved
+    resumed = Trainer(cfg, TrainerConfig(**kw), verbose=False, device=dev)
+    with torch.no_grad():
+        for k, x in leaf_paths({"params": resumed.params, "opt": resumed.opt_state}):
+            x.copy_(full[k])
+    del full
+    resumed.step = 1
+    resumed.loader.next_batch()  # step 1's batch, taken by the unbroken run
+    run(resumed, 2, "the resumed run's step 2")
+    rel = {"/".join(k): float((p - q).float().norm() / q.float().norm().clamp_min(1e-30))
+           for (k, p), (_, q) in zip(leaf_paths(resumed.params), leaf_paths(unbroken.params))}
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    check(worst[1] < RESHARD_TOL, f"phase 55: the resumed step 2 differs from the unbroken "
+          f"run's: {worst[0]} {worst[1]:.3e} (limit {RESHARD_TOL})")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"phase 55 resharding restore, {TRAIN_ARCH} full width, {DP_LAYERS} layers, "
+          f"{DP_RANK_BATCH} x {DP_SEQ}: restore_latest of step 1 ({len(flat_specs)} leaves, "
+          f"{size_gb:.2f} GB on disk) onto the one-rank NCCL mesh {dict(shd.mesh_axes(mesh))} "
+          f"with param_shardings and opt_shardings(zero1=True) in {restore_s:.1f} s: every leaf "
+          f"a DTensor of its spec's local shape ({sharded} with a Shard placement), "
+          f"full_tensor() bit-identical to the saved leaf; step 2 resumed from it against the "
+          f"unbroken run's step 2: worst leaf {worst[0]} ||d|| / ||p|| {worst[1]:.3e} (limit "
+          f"{RESHARD_TOL}); bf16 flash launches over both runs {launches}", flush=True)
+    del unbroken, resumed
+    torch.cuda.empty_cache()
+    print(f"phase 55 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -4949,6 +5278,16 @@ def main() -> int:
     stamp("phase 52")
     dryrun_phase(smi)
     stamp("phase 53")
+    for name, n in shims_phase(dev, renew).items():
+        by_name[name]["launches"] += n
+    del renew, sc3
+    torch.cuda.empty_cache()
+    stamp("phase 54")
+    launches = reshard_phase(dev)
+    by_name["flash_attention_bhsd"]["launches"] += launches[flash_kernel.KERNELS[torch.bfloat16]]
+    by_name["flash_attention_bwd"]["launches"] += sum(
+        launches[e] for e in flash_kernel.BWD_KERNELS[torch.bfloat16])
+    stamp("phase 55")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

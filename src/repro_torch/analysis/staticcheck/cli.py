@@ -80,10 +80,10 @@ def _check_intervals() -> list[Finding]:
 
 def _check_purity() -> list[Finding]:
     from .conventions import _repo_root
-    from .purity import check_sources, check_tick_cores
+    from .purity import check_honest_strip, check_sources, check_tick_cores
 
-    return check_sources(_repo_root()) + check_tick_cores(
-        _P, _A, _LEASE_Q4)
+    return (check_sources(_repo_root())
+            + check_tick_cores(_P, _A, _LEASE_Q4) + check_honest_strip())
 
 
 def _check_launch() -> list[Finding]:

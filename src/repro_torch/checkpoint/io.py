@@ -9,11 +9,22 @@ the reference writes one: its raw two-byte values (numpy ``|V2``) with
 ``"bfloat16"`` in the manifest; ``restore_checkpoint`` turns such a leaf
 back into a bf16 tensor (the reference's own reader returns the raw
 bytes). Either package reads the other's checkpoints.
+
+The resharding restore (``restore_checkpoint(..., shardings=, mesh=)``)
+places leaves straight onto a ``DeviceMesh``: ``shardings`` is a tree of
+specs (``parallel.sharding``'s tuples, as ``launch.steps.param_shardings``
+and ``opt_shardings`` build them) matched to the state by path. Each rank
+reads the saved array on the host, cuts its own slice there (the mesh
+coordinates of ``sharding.placements(mesh, spec)``'s ``Shard`` dims, in
+mesh-dim order, as DTensor lays shards out) and copies only that slice to
+the mesh's device, where ``DTensor.from_local`` wraps it: no collective
+runs. A leaf without a spec comes back as it would without ``shardings``.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -110,11 +121,62 @@ def latest_step(ckpt_dir: str | pathlib.Path) -> Optional[int]:
     return int(steps[-1].name.split("_")[1])
 
 
+def _mesh_device(mesh) -> torch.device:
+    """The device a ``DeviceMesh``'s local shards live on."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _local_slice(mesh, spec: tuple, a):
+    """This rank's shard of the host array or tensor ``a`` under ``spec``,
+    and the placements: each mesh dim that shards tensor dim d splits the
+    part left by the mesh dims before it into equal pieces and keeps the
+    piece at this rank's coordinate."""
+    from ..parallel.sharding import placements
+
+    pl = placements(mesh, spec)
+    coord = mesh.get_coordinate()
+    index = [slice(None)] * len(a.shape)
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            d, n = p.dim, mesh.size(i)
+            s = index[d]
+            start, stop = s.start or 0, a.shape[d] if s.stop is None else s.stop
+            if (stop - start) % n:
+                raise ValueError(f"dim {d} of {tuple(a.shape)} does not split "
+                                 f"into {n} shards on mesh dim {i}")
+            w = (stop - start) // n
+            index[d] = slice(start + coord[i] * w, start + (coord[i] + 1) * w)
+    return a[tuple(index)], pl
+
+
+def _to_dtensor(mesh, spec: tuple, a):
+    """A DTensor on ``mesh`` with ``spec``'s placements, from the host array
+    (or CPU tensor) ``a`` of the whole leaf."""
+    from torch.distributed.tensor import DTensor
+
+    part, pl = _local_slice(mesh, spec, a)
+    local = (part if isinstance(part, torch.Tensor)
+             else torch.from_numpy(np.array(part, order="C")))
+    local = local.contiguous().to(_mesh_device(mesh))
+    full = tuple(a.shape)
+    stride = tuple(math.prod(full[i + 1:]) for i in range(len(full)))
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=full,
+                              stride=stride)
+
+
 def restore_checkpoint(ckpt_dir: str | pathlib.Path, step: Optional[int] = None,
-                       *, device=None) -> tuple[dict, int]:
+                       *, device=None, shardings=None, mesh=None) -> tuple[dict, int]:
     """Returns (state, step): numpy arrays (bf16 leaves as bf16 tensors on
     the CPU), or, given ``device``, every leaf as a tensor there. ``step``
-    None reads the latest."""
+    None reads the latest. With ``shardings`` (a spec tree, matched to the
+    state by path) and ``mesh`` (a ``DeviceMesh``) every leaf that has a
+    spec comes back as a DTensor on the mesh holding this rank's shard; a
+    spec for a path the checkpoint lacks raises."""
+    if shardings is not None and mesh is None:
+        raise ValueError("restoring with shardings needs the mesh they refer to")
+    flat_sh = {} if shardings is None else _flatten(shardings)
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -122,13 +184,18 @@ def restore_checkpoint(ckpt_dir: str | pathlib.Path, step: Optional[int] = None,
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     d = ckpt_dir / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
+    if missing := sorted(set(flat_sh) - set(manifest["keys"])):
+        raise KeyError(f"shardings name paths the checkpoint at {d} lacks: {missing}")
     flat = {}
     with np.load(d / "arrays.npz") as z:
         for k in manifest["keys"]:
             a = z[k]
             if manifest["dtypes"][k] == "bfloat16":
                 a = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-            elif device is not None:
+            if k in flat_sh:
+                flat[k] = _to_dtensor(mesh, flat_sh[k], a)
+                continue
+            if device is not None and not isinstance(a, torch.Tensor):
                 a = torch.from_numpy(a)
             flat[k] = a.to(device) if device is not None else a
     return _unflatten(flat), int(manifest["step"])

@@ -45,8 +45,11 @@ class CheckpointManager:
         self.saved_steps.append(step)
         return True
 
-    def restore_latest(self, *, device=None):
-        return restore_checkpoint(self.ckpt_dir, device=device)
+    def restore_latest(self, *, device=None, shardings=None, mesh=None):
+        """The latest checkpoint, as ``restore_checkpoint`` returns it (with
+        ``shardings`` and ``mesh``, leaves with a spec as DTensors)."""
+        return restore_checkpoint(self.ckpt_dir, device=device,
+                                  shardings=shardings, mesh=mesh)
 
 
 class AsyncCheckpointer:

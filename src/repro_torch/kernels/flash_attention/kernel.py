@@ -42,7 +42,7 @@ import math
 
 import torch
 
-from ...device import PLAIN_DEVICES
+from ...device import footprint, plain_path
 from . import _build
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
@@ -124,9 +124,13 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None, with_lse: 
     masked scores, (BHq, Sq) fp32. Records no autograd graph: raises for
     CUDA inputs that want a gradient. CPU tensors run the plain versions."""
     _check(q, k, v, window)
-    if q.device.type in PLAIN_DEVICES:
+    if plain_path(q):
         lse = attention_lse_ref(q, k, causal=causal, window=window) if with_lse else None
         return attention_ref(q, k, v, causal=causal, window=window), lse
+    if footprint(q):  # what the kernel returns, not computed
+        lse = (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+               if with_lse else None)
+        return torch.empty_like(q), lse
     _check_kernel(q, k)
     _refuse_grad(q, k, v)
     bhq, sq, dh = q.shape
@@ -162,7 +166,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window=None
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:2]:
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} and lse "
                          f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
-    if q.device.type in PLAIN_DEVICES:
+    if plain_path(q):
         return attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
     _check_kernel(q, k)
     if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
@@ -220,10 +224,12 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window=None) -> torch.
     with k_pos > q_pos - window (None: all). Differentiable: on the CPU (and
     ``meta``) through ``attention_ref``, on CUDA through ``FlashAttention``."""
     _check(q, k, v, window)
-    if q.device.type in PLAIN_DEVICES:
+    if plain_path(q):
         return attention_ref(q, k, v, causal=causal, window=window)
     if not needs_grad(q, k, v):
         return flash_attention_fwd(q, k, v, causal=causal, window=window)[0]
+    if footprint(q):
+        return FlashAttention.apply(q, k, v, causal, window)
     _check_kernel(q, k)
     if (causal or window is not None) and q.shape[1] > k.shape[1]:
         raise ValueError(

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from ...device import PLAIN_DEVICES
+from ...device import footprint, plain_path
 from . import _build
 from .ref import wkv6_bwd_ref, wkv_chunked_bhsn
 
@@ -119,8 +119,12 @@ def wkv6_fwd(r, k, v, logw, u, state=None):
     fp32). Records no autograd graph: raises for CUDA inputs that want a
     gradient. CPU tensors run the plain chunked form."""
     _check(r, k, v, logw, u, state)
-    if r.device.type in PLAIN_DEVICES:
+    if plain_path(r):
         return wkv_chunked_bhsn(r, k, v, logw, u, state)
+    if footprint(r):  # what the kernel returns, not computed
+        bh, s, n = r.shape
+        return (torch.empty((bh, s, n), dtype=torch.float32, device=r.device),
+                torch.empty((bh, n, n), dtype=torch.float32, device=r.device))
     _check_kernel(r)
     _refuse_grad(r, k, v, logw, u, state)
     bh, s, n = r.shape
@@ -154,7 +158,7 @@ def wkv6_bwd(r, k, v, logw, u, state, dout, dstate=None):
         raise ValueError(f"dout must be {(bh, s, n)}, not {tuple(dout.shape)}")
     if dstate is not None and tuple(dstate.shape) != (bh, n, n):
         raise ValueError(f"dstate must be {(bh, n, n)}, not {tuple(dstate.shape)}")
-    if r.device.type in PLAIN_DEVICES:
+    if plain_path(r):
         return wkv6_bwd_ref(r, k, v, logw, u, state, dout, dstate)
     _check_kernel(r)
     _refuse_grad(r, k, v, logw, u, state, dout, dstate)
@@ -211,7 +215,7 @@ def wkv6_bhsn(r, k, v, logw, u, state=None):
     (BH, N, N) fp32). The caller's state is not modified. Differentiable: on
     the CPU through the plain chunked form, on CUDA through ``WKV6``."""
     _check(r, k, v, logw, u, state)
-    if r.device.type in PLAIN_DEVICES:
+    if plain_path(r):
         return wkv_chunked_bhsn(r, k, v, logw, u, state)
     if not needs_grad(r, k, v, logw, u, state):
         return wkv6_fwd(r, k, v, logw, u, state)

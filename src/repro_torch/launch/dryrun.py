@@ -13,9 +13,12 @@ process group and no device is needed:
     state and the batch (train), of the parameters and the batch
     (prefill), or of the parameters, the cache and the tokens (decode) —
     under the spec trees of ``launch.steps.step_shardings``;
-    ``output_size_in_bytes`` the same of its outputs. No compiler plans the
-    step's buffers, so ``temp_size_in_bytes`` is absent (the artifact says
-    so).
+    ``output_size_in_bytes`` the same of its outputs;
+    ``temp_size_in_bytes`` one rank's temporaries, counted by
+    ``analysis.memory.rank_temp`` on meta tensors (what the forward
+    leaves for the backward and the loss head's transients; a forward's
+    peak of live activations for prefill and decode), and ``temp_source``
+    says how.
   - ``cost_analysis.flops``: the whole step (global batch; the train step's
     gradient with its remat recompute) counted by ``analysis.costs`` on
     meta tensors. The layers are identical, so the count runs at 1 and 2
@@ -46,6 +49,7 @@ import traceback
 import torch
 
 from ..analysis.costs import cost_analysis_dict
+from ..analysis.memory import TEMP_SOURCE, rank_temp
 from ..analysis.roofline import MESHES, collective_bytes_by_op, roofline_terms
 from ..configs import SHAPES, ShapeConfig, arch_ids, get_config, get_shape, supports_shape
 from ..models import frontends, transformer
@@ -53,10 +57,6 @@ from ..models.schema import map_tree
 from ..parallel import sharding as shd
 from . import steps as steps_lib
 from .mesh import abstract_production_mesh
-
-#: what stands in the artifact where the reference's compiler reported temps
-NO_TEMP = ("absent: no compiler plans the step's buffers in the port; "
-           "activation memory is measured on the card (peak allocated), not estimated here")
 
 #: the reference's flags for variants the port has none of: they refuse
 NO_VARIANT = {
@@ -179,7 +179,9 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool, zero1: bool = Fal
     mem = {
         "argument_size_in_bytes": sum(local_bytes(mesh, s, a) for s, a in zip(in_sh, args)),
         "output_size_in_bytes": sum(local_bytes(mesh, s, o) for s, o in zip(out_sh, outs)),
-        "temp_size_in_bytes": NO_TEMP,
+        "temp_size_in_bytes": rank_temp(cfg, shape, mesh, rules, microbatches=microbatches,
+                                        logits_mode=logits_mode)["total"],
+        "temp_source": TEMP_SOURCE,
     }
     t_lower = time.time() - t0
     t0 = time.time()

@@ -38,6 +38,14 @@ tick) carrying nonzero delay/drop, corruption, restart or extends planes
 switches the engine onto the delayed model for good (messages may be in
 flight).
 
+The pre-Scenario spellings still work, with a ``DeprecationWarning``: the
+per-plane ``step(attempt=, release=, acc_up=, delay=, drop=)`` keywords,
+the bare attempt row as ``step``'s first argument and the full positional
+``step(attempt, release, acc_up, delay, drop)``, and ``run_trace`` given raw
+plane arrays (``run_trace(attempts, releases, acc_up, delay=, drop=)`` or
+``attempts=``). Each builds the ``TickInputs`` or ``Scenario`` and
+forwards to the current form; the current forms are silent.
+
 The packed int32 layout bounds the clock: ``run_trace``/``step`` raise
 once a trace would cross ``state.max_pack_tick`` (≈ 4k ticks at P = 8).
 Before a bulk dispatch (``run_trace``, ``sweep``) the interval analysis of
@@ -60,6 +68,7 @@ from .ops import (
     BACKENDS,
     _as_i32,
     _host,
+    _legacy_plane,
     _margin_scan_impl,
     _sweep_scan_impl,
     _window_scan_impl,
@@ -75,6 +84,7 @@ from .scenario import (
     RESTART_PLANES,
     Scenario,
     TickInputs,
+    make_tick,
     plane_digest,
 )
 from .state import (
@@ -90,6 +100,19 @@ from .state import (
     rate1_clock,
     resolve_device,
 )
+
+
+_DEPRECATED_STEP_KWARGS = (
+    "per-plane LeaseArrayEngine.step arguments (attempt=, release=, "
+    "acc_up=, delay=, drop=) are deprecated; build a TickInputs with "
+    "make_tick(...) and pass it as the single argument"
+)
+_DEPRECATED_TRACE_PLANES = (
+    "LeaseArrayEngine.run_trace with raw plane arrays is deprecated; "
+    "pass a Scenario (Scenario.build(...) or Trace.scenario())"
+)
+#: what a legacy plane argument may be: an array, a tensor or a nested list
+_PLANE_TYPES = (np.ndarray, torch.Tensor, list, tuple)
 
 
 @functools.lru_cache(maxsize=512)
@@ -472,12 +495,21 @@ class LeaseArrayEngine:
         ).astype(np.int32)
 
     # ------------------------------------------------------------ one tick
-    def step(self, tick: TickInputs) -> torch.Tensor:
+    def step(
+        self, tick=None, release=None, acc_up=None, delay=None, drop=None,
+        *, attempt=None,
+    ) -> torch.Tensor:
         """Advance one tick; returns the per-cell owner row (id or -1).
 
-        ``tick`` is a :class:`TickInputs` (``make_tick(...)``). A tick whose
-        delay/drop, corruption, restart or extends planes are nonzero
-        switches the engine onto the delayed model permanently.
+        ``tick`` is a :class:`TickInputs` (``make_tick(...)``); with no
+        argument, the default tick (no attempt, no release, every acceptor
+        up). A tick whose delay/drop, corruption, restart or extends planes
+        are nonzero switches the engine onto the delayed model permanently.
+        The deprecated per-plane spellings (``attempt=``, ``release=``,
+        ``acc_up=``, ``delay=``, ``drop=``; the attempt row as the first
+        argument; all five positionally) build the tick with ``make_tick``
+        and warn; passing ``delay`` or ``drop`` that way switches the engine
+        onto the delayed model too.
 
         Slot-isolation precondition (netplane.py): a new attempt on a cell
         overwrites that cell's in-flight request slots, so attempts on the
@@ -485,11 +517,36 @@ class LeaseArrayEngine:
         while older messages may be in flight; releases ``max_delay``
         (``random_trace`` enforces both).
         """
-        if not isinstance(tick, TickInputs):
+        if tick is not None and not isinstance(tick, TickInputs):
+            if not isinstance(tick, _PLANE_TYPES):
+                raise TypeError(
+                    "step takes a TickInputs (build one with make_tick(...)); "
+                    f"got {type(tick).__name__}"
+                )
+            if attempt is not None:
+                raise TypeError(
+                    "pass the attempt row positionally or as attempt=, not both"
+                )
+            attempt, tick = tick, None  # the legacy positional attempt row
+        legacy = (attempt, release, acc_up, delay, drop)
+        if tick is not None and any(x is not None for x in legacy):
             raise TypeError(
-                "step takes a TickInputs (build one with make_tick(...)); "
-                f"got {type(tick).__name__}"
+                "pass planes inside the TickInputs, not alongside it"
             )
+        if tick is None:
+            if any(x is not None for x in legacy):
+                warnings.warn(_DEPRECATED_STEP_KWARGS, DeprecationWarning,
+                              stacklevel=2)
+            tick = make_tick(  # validates ghost proposer ids, shapes, dtypes
+                n_cells=self.n_cells, n_acceptors=self.n_acceptors,
+                n_proposers=self.n_proposers,
+                attempts=_legacy_plane(attempt),
+                releases=_legacy_plane(release),
+                acc_up=_legacy_plane(acc_up), delay=_legacy_plane(delay),
+                drop=_legacy_plane(drop),
+            )
+            if delay is not None or drop is not None:
+                self._netplane_active = True  # only once validation passed
         tick.validate_for(
             n_cells=self.n_cells, n_acceptors=self.n_acceptors,
             n_proposers=self.n_proposers,
@@ -532,11 +589,23 @@ class LeaseArrayEngine:
         return owner_row(self.state)
 
     # ---------------------------------------------------------- validation
-    def _coerce_scenario(self, scenario) -> Scenario:
+    def _coerce_scenario(self, scenario, releases=None, acc_up=None,
+                         delay=None, drop=None) -> Scenario:
+        """A Scenario as it is (validated), or the legacy raw planes built
+        into one (validated alike, ghost proposer ids included)."""
         if not isinstance(scenario, Scenario):
-            raise TypeError(
-                "run_trace takes a Scenario (Scenario.build(...) or "
-                f"Trace.scenario()); got {type(scenario).__name__}"
+            if not isinstance(scenario, _PLANE_TYPES):
+                raise TypeError(
+                    "run_trace takes a Scenario (Scenario.build(...) or "
+                    f"Trace.scenario()); got {type(scenario).__name__}"
+                )
+            return Scenario.build(
+                n_cells=self.n_cells, n_acceptors=self.n_acceptors,
+                n_proposers=self.n_proposers,
+                attempts=_legacy_plane(scenario),
+                releases=_legacy_plane(releases),
+                acc_up=_legacy_plane(acc_up), delay=_legacy_plane(delay),
+                drop=_legacy_plane(drop),
             )
         scenario.validate_for(
             n_cells=self.n_cells, n_acceptors=self.n_acceptors,
@@ -560,8 +629,16 @@ class LeaseArrayEngine:
         return not (wants_net or self._netplane_active)
 
     # ------------------------------------------------------------ bulk path
-    def run_trace(self, scenario: Scenario, *, netplane=None):
+    def run_trace(
+        self, scenario=None, releases=None, acc_up=None, delay=None,
+        drop=None, *, netplane=None, attempts=None,
+    ):
         """Replay a [T]-tick :class:`Scenario` in one fused dispatch.
+
+        The first argument is a ``Scenario``. The deprecated form, a [T, N]
+        attempts array (positionally or as ``attempts=``) with per-plane
+        arrays (``delay``/``drop`` as [T, A] or [T, P, A] schedules), warns
+        and builds one.
 
         ``netplane`` picks the network model: None (default) takes the
         delayed in-flight model iff the scenario carries nonzero
@@ -575,7 +652,19 @@ class LeaseArrayEngine:
         split among them, one launch a device, when N divides by their
         count.
         """
-        scenario = self._coerce_scenario(scenario)
+        if attempts is not None:
+            if scenario is not None:
+                raise TypeError(
+                    "pass the attempts plane positionally or as attempts=, "
+                    "not both"
+                )
+            scenario = attempts  # the legacy keyword call sites
+        if not isinstance(scenario, Scenario) and isinstance(
+                scenario, _PLANE_TYPES):
+            warnings.warn(_DEPRECATED_TRACE_PLANES, DeprecationWarning,
+                          stacklevel=2)
+        scenario = self._coerce_scenario(scenario, releases, acc_up, delay,
+                                         drop)
         T = scenario.n_ticks
         restarted = scenario.restarted
         sync = self._pick_model(

@@ -21,11 +21,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..scenario import CORRUPTION_PLANES, EXTEND_PLANES, RESTART_PLANES
-from ..state import MAX_RESTARTS, NO_PROPOSER
+from ..state import DEFAULT_RATE, I32, MAX_RESTARTS, NO_PROPOSER, resolve_device
 
-__all__ = ["MUTATION_OPS", "MutationSpace", "mutate"]
+__all__ = ["MUTATION_OPS", "MutationSpace", "default_rate_planes", "mutate"]
 
 
 @dataclass(frozen=True)
@@ -278,3 +279,12 @@ def mutate(
             MUTATION_OPS[name][0](out, b, rng, space)
     return out, op_idx
 
+
+def default_rate_planes(B: int, T: int, P: int, A: int, *, device="cuda") -> dict:
+    """Drift-free [B, T, P]/[B, T, A] rate planes (the DEFAULT_RATE fill), as
+    int32 tensors on ``device``."""
+    device = resolve_device(device)
+    return {
+        "prop_rate": torch.full((B, T, P), DEFAULT_RATE, dtype=I32, device=device),
+        "acc_rate": torch.full((B, T, A), DEFAULT_RATE, dtype=I32, device=device),
+    }

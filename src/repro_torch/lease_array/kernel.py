@@ -561,6 +561,18 @@ def _check_sync_inputs(packed, cols, lead: tuple, P: int, window: int,
     return dev, N, T, plan
 
 
+def plane_groups(opt: dict) -> tuple[str, ...]:
+    """The optional plane groups (of ``VARIANTS``) a delayed launch carries,
+    from its ``DELAYED_OPTIONAL`` planes (None or missing = absent): the
+    variant its launch plan is made for."""
+    return tuple(v for v, present in zip(VARIANTS, (
+        opt.get("extends") is not None,
+        opt.get("stale") is not None or opt.get("equiv") is not None,
+        any(opt.get(k) is not None
+            for k in ("acc_restart", "acc_deaf", "prop_restart", "prop_rc")),
+    )) if present)
+
+
 def _check_delayed_inputs(packed, net, cols, link, opt: dict, lead: tuple,
                           P: int, window: int, ticked, collect="summary"):
     """Checks a delayed launch's state, net and [*lead, T, ...] planes
@@ -572,12 +584,7 @@ def _check_delayed_inputs(packed, net, cols, link, opt: dict, lead: tuple,
     dev = _cuda_device(packed.promised)
     A, N = packed.promised.shape
     T = cols[0].shape[len(lead)]
-    variant = tuple(v for v, present in zip(VARIANTS, (
-        opt["extends"] is not None,
-        opt["stale"] is not None or opt["equiv"] is not None,
-        any(opt[k] is not None
-            for k in ("acc_restart", "acc_deaf", "prop_restart", "prop_rc")),
-    )) if present)
+    variant = plane_groups(opt)
     plan = (delayed_batched_launch_plan(A, N, P, T, lead[0], window=window,
                                         variant=variant, collect=collect)
             if lead else

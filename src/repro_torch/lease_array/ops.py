@@ -17,7 +17,11 @@ device, ``"torch"`` on the CPU.
 
 One step: :func:`lease_plane_tick` advances every cell one tick of either
 network model through the same dispatch. Its per-tick inputs are a
-:class:`~repro_torch.lease_array.scenario.TickInputs` bundle.
+:class:`~repro_torch.lease_array.scenario.TickInputs` bundle. The
+pre-Scenario one-argument-per-plane forms, :func:`lease_plane_step` (sync)
+and :func:`lease_plane_step_delayed`, remain as deprecated shims: each
+warns, builds the ``TickInputs`` and calls :func:`lease_plane_tick`, so on
+the card they run the same window kernels.
 
 The falsifier's margins sweep has no kernel (nor has the reference's):
 :func:`_margin_scan_impl` replays a batch of scenarios as ONE plain delayed
@@ -31,6 +35,8 @@ restart mode on even when a dispatch's restart planes are quiet, so the
 ballot encoding never switches mid-trace.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -60,6 +66,7 @@ from .scenario import (
     PLANES,
     RESTART_PLANES,
     TickInputs,
+    make_tick,
 )
 from .state import (
     I32,
@@ -87,6 +94,12 @@ def default_backend(device) -> str:
 
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _legacy_plane(x):
+    """A plane argument of a deprecated spelling as a host array (None, the
+    plane's default, stays None)."""
+    return None if x is None else _host(x)
 
 
 def _as_i32(x, device) -> torch.Tensor:
@@ -689,3 +702,81 @@ def lease_plane_tick(
         restart_guard=restart_guard, skip_stable=skip_stable,
     )
     return new_state, new_net, counts[0]
+
+
+# --------------------------------------------------------------------------
+# deprecation shims: the pre-Scenario one-argument-per-fault-dimension API
+# --------------------------------------------------------------------------
+def _shim_tick(state: LeaseArrayState, attempt, release, acc_up, delay, drop):
+    """The ``TickInputs`` of a shim call, built and validated by
+    ``make_tick`` (None = the plane's default; ``delay``/``drop`` ``[A]`` or
+    ``[P, A]``). The reference also lets a traced call skip the host-side
+    validation; the port traces nothing, so every call is validated."""
+    A, N = state.highest_promised.shape
+    return make_tick(
+        n_cells=N, n_acceptors=A, n_proposers=state.n_proposers,
+        attempts=_legacy_plane(attempt), releases=_legacy_plane(release),
+        acc_up=_legacy_plane(acc_up), delay=_legacy_plane(delay),
+        drop=_legacy_plane(drop),
+    )
+
+
+def lease_plane_step(
+    state: LeaseArrayState,
+    t,
+    attempt,
+    release,
+    acc_up,
+    *,
+    majority: int,
+    lease_q4: int,
+    backend: str = None,
+    window: int = 16,
+) -> tuple[LeaseArrayState, torch.Tensor]:
+    """Deprecated: build a :class:`TickInputs` and call
+    :func:`lease_plane_tick` with ``sync=True`` instead. Returns
+    (new_state, owner_count [N])."""
+    warnings.warn(
+        "lease_plane_step is deprecated; use lease_plane_tick(state, net, "
+        "t, tick, ..., sync=True) with a scenario.TickInputs",
+        DeprecationWarning, stacklevel=2,
+    )
+    tick = _shim_tick(state, attempt, release, acc_up, None, None)
+    new_state, _, count = lease_plane_tick(
+        state, None, t, tick,
+        majority=majority, lease_q4=lease_q4, round_q4=0,
+        backend=backend, window=window, sync=True,
+    )
+    return new_state, count
+
+
+def lease_plane_step_delayed(
+    state: LeaseArrayState,
+    net: NetPlaneState,
+    t,
+    attempt,
+    release,
+    acc_up,
+    delay,     # [A] or [P, A] int32 delays (ticks) for legs sent this tick
+    drop,      # [A] or [P, A] bool/int32 drop masks for legs sent this tick
+    *,
+    majority: int,
+    lease_q4: int,
+    round_q4: int,
+    backend: str = None,
+    window: int = 16,
+) -> tuple[LeaseArrayState, NetPlaneState, torch.Tensor]:
+    """Deprecated: build a :class:`TickInputs` and call
+    :func:`lease_plane_tick` instead. Returns (new_state, new_net,
+    owner_count [N])."""
+    warnings.warn(
+        "lease_plane_step_delayed is deprecated; use lease_plane_tick with "
+        "a scenario.TickInputs",
+        DeprecationWarning, stacklevel=2,
+    )
+    tick = _shim_tick(state, attempt, release, acc_up, delay, drop)
+    return lease_plane_tick(
+        state, net, t, tick,
+        majority=majority, lease_q4=lease_q4, round_q4=round_q4,
+        backend=backend, window=window, sync=False,
+    )

@@ -11,9 +11,10 @@ Two implementations sharing one router, with the reference's names:
   and out of the buffers by an exact gather and scatter (the reference's
   one-hot products are exact too), with integer positions.
 - ``moe_dense``: every expert computes every token, combined with the
-  router's weights. Nothing drops; the oracle of the tests. (The
-  reference's ``apply_moe`` switch between the two is not ported: the block
-  calls ``moe_dispatch`` and the tests call ``moe_dense``.)
+  router's weights. Nothing drops; the oracle of the tests.
+
+``apply_moe`` switches between the two (``impl="dispatch"``, the default,
+or ``"dense"``), as the reference's; the transformer block calls it.
 
 Each returns ``(y, aux, dropped)``: the output, the Switch load-balance loss
 and the share of (token, slot) pairs dropped. The expert products are plain
@@ -75,25 +76,27 @@ def _expert_ffn(cfg: ModelConfig, params, xb: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ecf,efd->...ecd", h, params["wo"])
 
 
-def group_and_capacity(cfg: ModelConfig, t: int) -> tuple[int, int]:
-    """The reference's group size for ``t`` tokens (``min(GROUP_SIZE, t)``, or
-    its gcd with ``t`` where it does not divide) and the capacity of one
+def group_and_capacity(cfg: ModelConfig, t: int,
+                       group_size: int = GROUP_SIZE) -> tuple[int, int]:
+    """The reference's group size for ``t`` tokens (``min(group_size, t)``,
+    or its gcd with ``t`` where it does not divide) and the capacity of one
     (group, expert) buffer (``ceil(tg·k·cf / E)``, rounded up to a multiple
     of 4)."""
     moe = cfg.moe
-    tg = min(GROUP_SIZE, t)
+    tg = min(group_size, t)
     if t % tg != 0:
         tg = math.gcd(t, tg)
     cap = max(1, math.ceil(tg * moe.top_k * moe.capacity_factor / moe.n_experts))
     return tg, (cap + 3) // 4 * 4
 
 
-def moe_dispatch(cfg: ModelConfig, params, x: torch.Tensor):
+def moe_dispatch(cfg: ModelConfig, params, x: torch.Tensor, *,
+                 group_size: int = GROUP_SIZE):
     """Group-capacity dispatch. x: (B, S, d) -> (y, aux, dropped)."""
     moe = cfg.moe
     b, s, d = x.shape
     e, k = moe.n_experts, moe.top_k
-    tg, cap = group_and_capacity(cfg, b * s)
+    tg, cap = group_and_capacity(cfg, b * s, group_size)
     g = b * s // tg
     xg = x.reshape(g, tg, d)
     gates, idx, aux = router_topk(cfg, params, xg)  # (g, tg, k)
@@ -135,3 +138,12 @@ def moe_dense(cfg: ModelConfig, params, x: torch.Tensor):
     y = torch.einsum("bsed,bse->bsd", ye, weights.to(x.dtype))
     return y, aux, torch.zeros((), dtype=torch.float32, device=x.device)
 
+
+def apply_moe(cfg: ModelConfig, params, x: torch.Tensor, *, impl: str = "dispatch",
+              group_size: int = GROUP_SIZE):
+    """The block's MoE: ``moe_dispatch`` (groups of ``group_size`` tokens),
+    or with ``impl="dense"`` the ``moe_dense`` oracle. Returns
+    (y, aux, dropped)."""
+    if impl == "dense":
+        return moe_dense(cfg, params, x)
+    return moe_dispatch(cfg, params, x, group_size=group_size)

@@ -55,7 +55,7 @@ from ..parallel.sharding import hint
 from . import rwkv6, ssm
 from .attention import attention_full, attn_schema, out_project, project, qkv_project
 from .layers import apply_mlp, apply_norm, mlp_schema, norm_schema, sinusoidal_positions
-from .moe import moe_dispatch, moe_schema
+from .moe import apply_moe, moe_schema
 from .schema import P, Schema, abstract_params, init_params, logical_axes, map_tree, stacked
 
 AUX_COEF = 0.01  # MoE load-balance loss coefficient
@@ -231,7 +231,7 @@ def _ffn(cfg, p, h):
     """Second half of a block: the MLP, or the MoE. Returns (out, the MoE
     load-balance loss, fp32; 0 for the MLP)."""
     if cfg.moe is not None:
-        y, aux, _dropped = moe_dispatch(cfg, p["moe"], h)
+        y, aux, _dropped = apply_moe(cfg, p["moe"], h)
         return y, aux.float()
     return apply_mlp(cfg, p["mlp"], h), h.new_zeros((), dtype=torch.float32)
 

@@ -208,10 +208,11 @@ def hint(x: torch.Tensor, logical: tuple) -> torch.Tensor:
     """A DTensor redistributed to ``spec_for``'s placements under an ambient
     mesh; identity otherwise (no mesh, or a plain tensor).
 
-    Nothing in the port makes a DTensor yet (data-parallel training
-    all-reduces plain tensors), so at the models' call sites, the
-    reference's, it returns its argument; they wait for execution along the
-    "model" axis.
+    The port's only DTensors are the leaves of a resharding restore
+    (``checkpoint.restore_checkpoint(..., shardings=, mesh=)``); the model
+    code takes plain tensors (data-parallel training all-reduces them), so
+    at the models' call sites, the reference's, it returns its argument;
+    they wait for execution along the "model" axis.
 
     If any named logical axis is absent from the active rules the hint is a
     no-op (lets optional hints — e.g. MoE buffer EP constraints — be enabled

@@ -75,7 +75,8 @@ def test_cells_have_the_references_keys_and_status(artifacts, arch, shape, statu
     assert port["collectives"]["source"] == "analytic"
     mem = port["memory_analysis"]
     assert {"argument_size_in_bytes", "output_size_in_bytes"} <= set(mem)
-    assert isinstance(mem["temp_size_in_bytes"], str)  # absent, and why
+    assert isinstance(mem["temp_size_in_bytes"], int) and mem["temp_size_in_bytes"] > 0
+    assert isinstance(mem["temp_source"], str) and "counted" in mem["temp_source"]
     assert port["roofline"] == roofline.roofline_terms(
         dryrun.get_config(arch), dryrun.get_shape(shape), roofline.MESHES["pod16x16"],
         {"remat": port["variant"]["remat"], "param_dtype": port["variant"]["param_dtype"],

@@ -149,6 +149,23 @@ def test_population_and_mutants_match_reference(kw):
     assert cfg.mutation_space().op_names() == _ref_cfg(cfg).mutation_space().op_names()
 
 
+@pytest.mark.parametrize("B, T, P, A", [(1, 1, 1, 1), (4, 16, 4, 3), (3, 7, 8, 5)])
+def test_default_rate_planes_match_reference(B, T, P, A):
+    """The drift-free rate planes: int32 tensors equal to the reference's
+    numpy fill."""
+    import torch
+
+    from repro.lease_array.falsify.mutate import default_rate_planes as ref_default_rate_planes
+    from repro_torch.lease_array.falsify.mutate import default_rate_planes
+
+    got = default_rate_planes(B, T, P, A, device="cpu")
+    want = ref_default_rate_planes(B, T, P, A)
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        assert v.dtype == torch.int32 and v.device.type == "cpu"
+        assert np.array_equal(v.numpy(), want[k]), k
+
+
 def test_mutation_is_deterministic():
     cfg = _cfg(pop_size=64, corrupt=True)
     outs = [mutate(_seed_planes(cfg, seed=9), np.random.default_rng(42),

@@ -204,10 +204,12 @@ def test_model_choice_and_input_checks():
     sc = _port_scenario(tr.scenario())
     with pytest.raises(ValueError, match="netplane=False"):
         teng.run_trace(sc, netplane=False)
+    # raw plane arrays are the deprecated spelling (tests/test_torch_deprecations.py);
+    # anything that is neither a Scenario/TickInputs nor a plane is refused
     with pytest.raises(TypeError, match="Scenario"):
-        teng.run_trace(np.zeros((3, tr.n_cells), np.int32))
+        teng.run_trace({"attempts": np.zeros((3, tr.n_cells), np.int32)})
     with pytest.raises(TypeError, match="TickInputs"):
-        teng.step(np.zeros(tr.n_cells, np.int32))
+        teng.step({"attempts": np.zeros(tr.n_cells, np.int32)})
     ow, cn = teng.run_trace(sc[:0])
     assert ow.shape == (0, tr.n_cells) and cn.dtype == torch.int32
     teng.run_trace(sc[:10])

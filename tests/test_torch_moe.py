@@ -208,6 +208,28 @@ def test_moe_dense_matches_dispatch_without_drops(name):
     assert float(aux) == float(auxd) and abs(float(auxd) - float(raux)) < GATE_TOL
 
 
+@pytest.mark.parametrize("impl, group_size", [("dispatch", 512), ("dispatch", 64),
+                                              ("dense", 512)])
+@pytest.mark.parametrize("name", ARCHS)
+def test_apply_moe_matches_the_reference(name, impl, group_size):
+    """``apply_moe`` switches as the reference's: the dispatch at the given
+    group size (at capacity factor 0.5 it drops pairs), or the dense oracle
+    (which drops none)."""
+    cfg, ref_cfg = cfgs(name, capacity_factor=0.5)
+    p = layer0_moe(ref_tree(ref_cfg, seed=9))
+    x = activations((2, 128), cfg.d_model, seed=10)
+    assert router_flips(cfg, ref_cfg, p, x) == 0
+    y, aux, dropped = moe.apply_moe(cfg, torch_tree(p), torch.from_numpy(x), impl=impl,
+                                    group_size=group_size)
+    with ref_warnings_off():
+        ry, raux, rdropped = ref_moe.apply_moe(ref_cfg, p, jnp.asarray(x), impl=impl,
+                                               group_size=group_size)
+    assert rel_err(y, ry) < 2e-4
+    assert abs(float(aux) - float(raux)) < GATE_TOL
+    assert abs(float(dropped) - float(rdropped)) < GATE_TOL
+    assert (float(dropped) > 0) == (impl == "dispatch")
+
+
 # ------------------------------------------------------------------ models
 def _decode_both(cfg, ref_cfg, tree, toks):
     """Per-step logits of the reference's and the port's decode_step, and

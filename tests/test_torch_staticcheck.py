@@ -263,3 +263,32 @@ def test_purity_flags_a_sum_without_dtype_and_passes_gather_indices():
                                   p.long() + 1), link, prop)
     assert {f.rule for f in sc.check_graph_purity(
         leaky, gather_index=True)} == {"int64-promotion"}
+
+
+def test_honest_strip_clean_and_a_strip_that_keeps_a_default_plane():
+    """The all-default extends plane stripped leaves the traced honest
+    dispatch and its launch plan as without the plane; a strip that keeps
+    every plane trips all three checks (the plane survives, the graphs
+    differ, the kernel path plans the extend variant)."""
+    from repro_torch.analysis.staticcheck.purity import check_honest_strip
+
+    assert check_honest_strip() == []
+    found = check_honest_strip(strip=dict, n_ticks=1)
+    assert {f.rule for f in found} == {"honest-strip"}
+    assert [f.where for f in found] == ["ops.strip_default_planes",
+                                        "ops._window_scan_impl",
+                                        "kernel.delayed_launch_plan"]
+    assert "extends" in found[2].detail
+
+
+def test_deprecated_shim_rule_allows_only_its_allowlist():
+    """The shims may be named in ops.py and the deprecation tests only; a
+    call from any other port module or test is a finding."""
+    from repro_torch.analysis.staticcheck.conventions import check_source_text
+
+    src = "from .ops import lease_plane_step_delayed\nlease_plane_step_delayed(s, n)\n"
+    for ok in ("src/repro_torch/lease_array/ops.py", "tests/test_torch_deprecations.py"):
+        assert check_source_text(src, ok) == []
+    for bad in ("src/repro_torch/lease_array/engine.py", "src/repro_torch/lease_array/directory.py",
+                "tests/test_torch_lease_engine.py"):
+        assert {f.rule for f in check_source_text(src, bad)} == {"deprecated-shim"}, bad
