@@ -41,8 +41,9 @@ Phases (one line each):
      (UBLKCP), that the WKV6 backward's state and chunk passes hold HMMA
      (of the TF32 form only) and LDGSTS, its sum pass neither, and none of
      its passes UBLKCP, and print each entry's registers, spills and
-     dynamic shared memory (the fp32 flash backward passes and every WKV6
-     backward pass must spill nothing);
+     dynamic shared memory (the fp32 flash backward passes, every WKV6
+     backward pass and the batched delayed lease kernel at every lane count
+     must spill nothing);
   2. hold both kernels bit-exact against their plain PyTorch versions on
      small traces (delay 0/2/4, asymmetric links, drift, restarts, extends,
      stale/equiv corruption, windows 1/3/16, a ragged cell count, a trace
@@ -128,11 +129,18 @@ Phases (one line each):
      2^14 cells x 128 ticks at A 5, P 8 in summary mode from a warmed
      engine, equal to 64 separate ``run_trace`` calls from the same state,
      bit-exact against the plain batched version on the first 4, max owner
-     count <= 1, the engine unchanged; then each batched kernel's time, launches
-     and bound (at the bench sweep three ways: the kernel's own device time
-     under the profiler, a call in a CUDA graph, and host-paced calls from
-     Python, beside an empty kernel's, the launch floor), and where one
-     sweep's host time goes.
+     count <= 1, the engine unchanged; the batched delayed kernel at every
+     lane count G its plan can take (``kernel.lane_counts``) at both sweeps,
+     against plain and against the plan's own G (each G timed at the chaos
+     sweep); then each
+     batched kernel's time, launches and bound (at the bench sweep three
+     ways: the kernel's own device time under the profiler, a call in a
+     CUDA graph, and host-paced calls from Python, beside an empty kernel's,
+     the launch floor; the delayed bound also over every cell-tick), and
+     where one sweep's host time goes; (c) two of ``LANE_CASES``, small
+     batches carrying every plane group (37 cells at A 3, a quiet 32 at
+     A 5), at every G, every plane-group variant, owners and summary,
+     bit-exact against plain, the quiescence skip taking some windows.
  20. the falsifier (``repro_torch.lease_array.falsify``) on its canonical
      cell (4 cells, A 3, P 4, 16 ticks): margins sweeps of 4096 scenarios
      (honest, corrupt, restarts with extends) bit-exact against the same
@@ -496,6 +504,11 @@ def ops_ms(cell_ticks: int, per_tick: dict) -> float:
 
 
 def lease_kind(entry: str) -> str:
+    """'delayed', 'delayed-batched/G4' (the batched delayed kernel, per lanes
+    a cell), 'sync' or 'sync-batched' for a ptxas entry line or a SASS
+    function name of the lease library."""
+    if m := re.search(r"delayed_batched_kernelILi\d+ELi(\d+)E", entry):
+        return f"delayed-batched/G{m[1]}"
     if "delayed" in entry:
         return "delayed"
     return "sync-batched" if "sync_batched" in entry else "sync"
@@ -1639,6 +1652,64 @@ def batched_kernel_args(eng, stacked, delayed, collect, dev):
     return (packed, net, eng.t, *cols, d["link"]), kw
 
 
+#: the batched delayed kernel at every lane count, on batches of small
+#: scenarios that carry every optional plane group (``python3
+#: tools/sm90_emu.py --lease`` runs them on host threads; phase 19c the
+#: first ``LANE_CASES_ON_CARD``, a ragged batch at A 3 and a quiet one at
+#: A 5, since tests/test_torch_sweep_kernel.py holds all four cell counts on
+#: the card): (A, N, B, T, quiet). The cell counts are ragged about every
+#: tile (37 is no multiple of 32 / G), a warp's (32), past a block at every
+#: G (300) and a few cells (4); a quiet batch lets the quiescence skip fire.
+LANE_CASES = [(3, 37, 2, 24, False), (5, 32, 2, 24, True), (5, 300, 2, 24, False),
+              (3, 4, 2, 24, True)]
+LANE_CASES_ON_CARD = 2
+
+
+def lane_case(dev, A, N, B, T, quiet, seed=1):
+    """A ``LANE_CASES`` batch: an engine of A acceptors and A + 1 proposers
+    warmed by 8 ticks, and B scenarios of T ticks with delay <= 2, drops,
+    drift, extends, restarts and stale/equiv corruption (rarely where
+    ``quiet``). Returns ``batched_kernel_args``' (args, kw) in owners mode
+    with every optional plane given."""
+    import numpy as np
+
+    from repro_torch.lease_array import LeaseArrayEngine, Scenario, random_trace
+    from repro_torch.lease_array import kernel as K
+
+    rate = 0.002 if quiet else 0.05
+    mix = dict(n_cells=N, n_acceptors=A, n_proposers=A + 1, lease_ticks=6,
+               max_delay_ticks=2, p_drop=0.05, asymmetric=True, drift_eps=0.25,
+               round_ticks=3, p_attempt=0.01 if quiet else 0.35,
+               p_release=0.01 if quiet else 0.05, renew=0.05 if quiet else 0.5)
+    eng = LeaseArrayEngine(N, n_acceptors=A, n_proposers=A + 1, lease_ticks=6,
+                           round_ticks=3, drift_eps=0.25, device=dev)
+    eng.run_trace(random_trace(seed, n_ticks=8, **mix).scenario())
+    rng = np.random.default_rng(seed)
+    scs = []
+    for b in range(B):
+        tr = random_trace(1000 * seed + b, n_ticks=T, restarts=rate, **mix)
+        stale, equiv = (rng.random((2, T, A)) < rate).astype(np.int32)
+        if b == B - 1:  # every plane group at least once in the batch, late
+            stale[T - 2, 0] = equiv[T - 2, A - 1] = tr.acc_restarts[T - 3, 1 % A] = 1
+            tr.extends[T - 2, 0] = 0
+        scs.append(Scenario.build(n_cells=N, n_acceptors=A, n_proposers=A + 1, **{
+            **tr.scenario().planes, "acc_stale": stale, "acc_equiv": equiv}))
+    args, kw = batched_kernel_args(eng, Scenario.stack(scs), True, "owners", dev)
+    missing = [k for k in K.DELAYED_OPTIONAL if kw[k] is None]
+    if missing:
+        raise ValueError(f"lane case {(A, N, B, T, quiet)}: no {missing} plane")
+    return args, kw
+
+
+def with_groups(kw, variant):
+    """``lane_case``'s keywords with only the optional plane groups in
+    ``variant`` (of ``kernel.VARIANTS``) kept."""
+    groups = {"extends": ("extends",), "corrupt": ("stale", "equiv"),
+              "restart": ("acc_restart", "acc_deaf", "prop_restart", "prop_rc")}
+    drop = {k for g, keys in groups.items() if g not in variant for k in keys}
+    return {k: None if k in drop else v for k, v in kw.items()}
+
+
 def referee_phase(dev) -> None:
     """Phase 18: owners of the port's event-driven referee against the
     lease kernels (``replay_array(backend="cuda")``), bit-exact."""
@@ -1749,6 +1820,13 @@ def sweep_slice(dev) -> list:
                 rows = want
             equal([x[:BENCH_PLAIN_B] for x in got], want,
                   f"bench sweep delayed={delayed} {collect}", kname)
+            if delayed:  # every lane count the plan can take, on every scenario
+                for g in K.lane_counts(BENCH_SWEEP["n_acceptors"]):
+                    got_g = kfn(*args, lanes=g, **kw)
+                    equal([x[:BENCH_PLAIN_B] for x in got_g], want,
+                          f"bench sweep delayed {collect} G {g} vs plain", kname)
+                    equal(got_g, got, f"bench sweep delayed {collect} G {g} vs the "
+                          f"plan's G", kname)
             # the kernel's own device time (profiler), a call in a CUDA
             # graph of back-to-back calls, and host-paced calls from Python
             call = (lambda a, k: lambda: kfn(*a, **k))(args, kw)
@@ -1830,7 +1908,15 @@ def sweep_slice(dev) -> list:
     plain_chaos = (time.perf_counter() - t0) * 1e3
     equal([x[:CHAOS_PLAIN_B] for x in got], want, "chaos sweep kernel vs plain",
           "lease_window_delayed_batched")
-    del p_args, p_kw, want
+    chaos_lanes_ms = {}
+    for g in K.lane_counts(A):
+        got_g = K.lease_window_delayed_batched(*args, lanes=g, **kw)
+        equal([x[:CHAOS_PLAIN_B] for x in got_g], want, f"chaos sweep G {g} vs plain",
+              "lease_window_delayed_batched")
+        equal(got_g, got, f"chaos sweep G {g} vs the plan's G", "lease_window_delayed_batched")
+        chaos_lanes_ms[g] = time_ms(lambda: K.lease_window_delayed_batched(
+            *args, lanes=g, **kw), 3)
+    del p_args, p_kw, want, got_g
     ticked = torch.zeros(1, dtype=torch.int64, device=dev)
     K.lease_window_delayed_batched(*args, ticked=ticked, **kw)
     sync()
@@ -1879,11 +1965,13 @@ def sweep_slice(dev) -> list:
         ops_db, 4 * (2 * Bb * Tb * Nb + Bb * Tb * (2 * A3 + P4 + P4 * A3) + (8 * A3 + 8) * Nb
                      + 3 * Bb * Nb))
     del args_db, kw_db
+    ops_db_all = ops_ms(Bb * Tb * Nb, tick_db)  # every cell-tick, skipped or not
     # the chaos sweep runs the extend + restart variant
     tick_d = kernel_tick_ops(_build.library_path(A),
                              f"delayed_window_kernelILi{A}ELb1ELb0ELb1ELi0E")
     ops_d = ops_ms(ticked_cells, tick_d)
     B = CHAOS_SWEEP_B
+    ops_d_all = ops_ms(B * T * N, tick_d)
     bound_d, by_d, bytes_d = bound(
         ops_d, 4 * (3 * B * T * N + B * T * (2 * A + 2 * P + P * A + 2 * A + 2 * P)
                     + (8 * A + 8) * N + 3 * B * N))
@@ -1897,19 +1985,53 @@ def sweep_slice(dev) -> list:
     print(f"phase 19 timing: delayed batched {ms_chaos:.3f} ms at the chaos sweep "
           f"(summary; owners {ms_chaos_owners:.3f} ms; {ticked_cells} of "
           f"{B * T * N} cell-ticks ran the tick math), bound {bound_d:.3f} ms "
-          f"({by_d}: ops {ops_d:.3f}, bytes {bytes_d:.3f}), plain {plain_chaos:.1f} ms on "
-          f"its first {CHAOS_PLAIN_B} scenarios; "
+          f"({by_d}: ops {ops_d:.3f}, bytes {bytes_d:.3f}; ops over all cell-ticks "
+          f"{ops_d_all:.3f}), by lanes a cell (CUDA events) " + ", ".join(
+              f"G {g} {v:.3f} ms" for g, v in chaos_lanes_ms.items())
+          + f", plain {plain_chaos:.1f} ms on its first {CHAOS_PLAIN_B} scenarios; "
           f"at the bench sweep (summary; device: the kernel's own time under the "
           f"profiler; graph: a call in a CUDA graph of 20; host-paced: 20 calls from "
           f"Python): sync batched " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in t_s.items())
           + f", bound {bound_s:.5f} ms ({by_s}: ops {ops_s:.5f}, bytes {bytes_s:.5f}); "
           f"delayed batched " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in t_db.items())
           + f", bound {bound_db:.5f} ms ({by_db}: ops {ops_db:.5f}, bytes {bytes_db:.5f}; "
-          f"{int(ticked_b)} of {Bb * Tb * Nb} cell-ticks ran the tick math); the launch "
+          f"{int(ticked_b)} of {Bb * Tb * Nb} cell-ticks ran the tick math; ops over all "
+          f"cell-ticks {ops_db_all:.5f}); the launch "
           f"floor, an empty kernel: " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in floor.items())
           + f"; SASS ops per tick, sync {tick_s}, delayed bench {tick_db}, delayed chaos "
           f"{tick_d}", flush=True)
     print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s (19b)", flush=True)
+
+    # ------------ 19c. every lane count, every plane group, small batches
+    t_phase = time.perf_counter()
+    runs, skipped = 0, 0
+    for case in LANE_CASES[:LANE_CASES_ON_CARD]:
+        a, n, b, ticks, _ = case
+        args, kw = lane_case(dev, *case)
+        for bits in np.ndindex(2, 2, 2):
+            variant = tuple(v for v, on in zip(K.VARIANTS, bits) if on)
+            vkw = with_groups(kw, variant)
+            want = K.lease_window_delayed_batched_torch(*args, **vkw)
+            want = {"owners": want, "summary": K.window_summary(*want)}
+            for g in K.lane_counts(a):
+                for window, skip, collect in (1, True, "owners"), (16, False, "summary"):
+                    ticked = torch.zeros(1, dtype=torch.int64, device=dev)
+                    got = K.lease_window_delayed_batched(
+                        *args, **{**vkw, "collect": collect}, window=window,
+                        skip_stable=skip, lanes=g, ticked=ticked)
+                    equal(got, want[collect], f"lane case {case} {variant} G {g} window "
+                          f"{window} skip {skip} {collect}", "lease_window_delayed_batched")
+                    check(skip or int(ticked) == b * ticks * n,
+                          f"lane case {case}: ticked {int(ticked)} with the skip off")
+                    runs += 1
+                    skipped += int(ticked) < b * ticks * n
+    check(skipped > 0, "no lane case skipped a window")
+    print(f"phase 19c the batched delayed kernel at every lane count: "
+          f"{LANE_CASES_ON_CARD} batches (A, N, B, T, quiet) "
+          f"{LANE_CASES[:LANE_CASES_ON_CARD]}, every plane-group variant, owners "
+          f"(window 1, skip on) and summary (window 16, skip off), {runs} launches bit-exact "
+          f"against plain, {skipped} skipped a window; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     source = "src/repro_torch/lease_array/csrc/lease_window.cu"
     return [
         dict(name="lease_window_delayed_batched", route="cuda", source=source,
@@ -2406,7 +2528,8 @@ def profiled_plans() -> int:
     }
     trace = ROOT / "build" / "leaselint_trace.json"
     trace.parent.mkdir(exist_ok=True)
-    names = ("sync_window_kernel", "delayed_window_kernel", "sync_batched_kernel")
+    names = ("sync_window_kernel", "delayed_window_kernel", "sync_batched_kernel",
+             "delayed_batched_kernel")
     out = {}
     for name, call in calls.items():
         call()
@@ -4795,6 +4918,13 @@ def main() -> int:
     print(f"phase 1 build: {build_s:.1f} s; " + "; ".join(
         f"{lib.name}: {ptxas_summary(lib.with_suffix('.log').read_text())}"
         for lib in libs), flush=True)
+    for lib, a in zip(libs, BUILD_ACCEPTORS):  # the batched delayed kernel spills nothing
+        lanes = {k: v for k, v in ptxas_table(lib.with_suffix(".log").read_text()).items()
+                 if k.startswith("delayed-batched")}
+        check(sorted(lanes) == sorted(f"delayed-batched/G{g}" for g in K.lane_counts(a))
+              and all(s == 0 for _, s in lanes.values()),
+              f"{lib.name}: delayed_batched_kernel by lanes a cell (registers, spill "
+              f"bytes): {lanes}")
     flash_log = flash_lib.with_suffix(".log").read_text()
     serialized = sorted({flash_kind(line) for line in flash_log.splitlines()
                          if "C7512" in line and "wgmma_kernel" in line})

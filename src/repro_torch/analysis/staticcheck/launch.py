@@ -9,11 +9,12 @@ compiled with. The rules are the reference's
 
   - **bounds**: every thread that writes maps inside its outputs; a thread
     whose cell lies past them writes only if the plan states no guard for
-    it (the kernels test ``n < N``, and the batched sync kernel
-    ``tile < B * tiles``; nothing guards ``blockIdx.y``, the scenario);
-  - **write-race**: no two threads own one cell of one scenario, so none
+    it (the kernels test ``n < N``, the batched kernels ``tile < B *
+    tiles``);
+  - **write-race**: no two threads write one cell of one scenario, so none
     writes an element of another's ``(b, t, n)`` or ``(b, n)`` outputs (a
-    thread writes every tick row and state row of its cell);
+    thread writes every tick row and state row of its cell; of a cell's G
+    lanes under ``LANE_MAP`` only lane 0, the guard ``lane == 0``);
   - **coverage**: every cell of every scenario has a thread, so every
     output element is written;
   - **shared memory**: a block's bytes are at most ``MAX_SMEM``; the
@@ -21,7 +22,10 @@ compiled with. The rules are the reference's
     a plan is marked ``smem_optin``;
   - **limits**: at most 1024 threads a block, whole warps, within the
     kernel's own block (kBlock, its ``__launch_bounds__``; 32 · kBatchWarps
-    and kSub ticks for the batched sync kernel), ``grid.y`` at most 65535;
+    and kSub ticks for the batched sync kernel; for the batched delayed
+    kernel kBlock lanes, G of the lane counts built at A, the tiles a block
+    its layout gives and windows of at most kSub ticks), ``grid.y`` at most
+    65535;
   - **plane accounting**: the words a plan stages a tick (the staged planes
     the entry's input checks accept, ``kernel.tick_planes``) equal the
     words its C launcher works out for the kernel's shared-memory columns
@@ -30,9 +34,9 @@ compiled with. The rules are the reference's
     plan's A, P and plane groups); a plane that drops out of either side is
     found. This is the counterpart of the reference's roofline
     cross-check;
-  - **layout constants**: kBlock, kBatchWarps, kSub and kMaxBatch in the
-    kernels' source equal the constants the plans are made from
-    (:func:`check_kernel_constants`).
+  - **layout constants**: kBlock, kBatchWarps, kSub, kMaxBatch and
+    kMaxLanes in the kernels' source equal the constants the plans are made
+    from (:func:`check_kernel_constants`).
 
 Threads are enumerated (numpy, up to ``_MAX_THREADS``); the index maps are
 the kernels' own, written out in :func:`thread_cells`.
@@ -56,10 +60,11 @@ MAX_GRID_X, MAX_GRID_Y = 2**31 - 1, 65535
 #: compile-time constants of the kernels -> the kernel.py constants the
 #: plans are made from
 _CU_CONSTANTS = {"kBlock": "BLOCK_THREADS", "kBatchWarps": "SYNC_BATCH_WARPS",
-                 "kSub": "SYNC_BATCH_SUB", "kMaxBatch": "MAX_BATCH"}
+                 "kSub": "BATCH_SUB", "kMaxBatch": "MAX_BATCH",
+                 "kMaxLanes": "MAX_LANES"}
 #: the C launcher of each entry
 LAUNCHERS = {"lease_window_delayed": "launch_delayed",
-             "lease_window_delayed_batched": "launch_delayed",
+             "lease_window_delayed_batched": "launch_delayed_batched",
              "lease_window_sync": "launch_sync",
              "lease_window_sync_batched": "launch_sync_batched"}
 #: the node types a launcher's words expression may hold, once its C
@@ -159,6 +164,16 @@ def thread_cells(plan) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         b, n = tile // tiles, (tile % tiles) * 32 + tx % 32
         if "tile < B * tiles" in plan.guards:
             writes &= tile < plan.batch * tiles
+    elif plan.index_map == K.LANE_MAP:
+        tile_lanes = plan.threads // plan.stage_copies
+        cells = tile_lanes // plan.lanes
+        tiles = -(-plan.n_cells // cells)
+        tile, lane = bx * plan.stage_copies + tx // tile_lanes, tx % tile_lanes
+        b, n = tile // tiles, (tile % tiles) * cells + lane // plan.lanes
+        if "tile < B * tiles" in plan.guards:
+            writes &= tile < plan.batch * tiles
+        if "lane == 0" in plan.guards:
+            writes &= lane % plan.lanes == 0
     else:
         raise ValueError(f"unknown index map {plan.index_map!r}")
     if "n < N" in plan.guards:
@@ -189,12 +204,25 @@ def check_launch_plan(plan, *, what: str | None = None,
              f"kernel's __launch_bounds__ of {K.BLOCK_THREADS} (kBlock)")
     if plan.index_map == K.WARP_TILE_MAP and (
             plan.threads != 32 * K.SYNC_BATCH_WARPS
-            or plan.tw != K.SYNC_BATCH_SUB
+            or plan.tw != K.BATCH_SUB
             or plan.stage_copies != K.SYNC_BATCH_WARPS):
         find("thread-limit", f"{plan.threads} threads, {plan.stage_copies} "
              f"staging areas of {plan.tw} ticks; the batched sync kernel is "
              f"compiled for {K.SYNC_BATCH_WARPS} warps (kBatchWarps) of "
-             f"{K.SYNC_BATCH_SUB} ticks (kSub)")
+             f"{K.BATCH_SUB} ticks (kSub)")
+    if plan.index_map == K.LANE_MAP:
+        counts = K.lane_counts(plan.n_acceptors)
+        copies = (K.lane_tile_copies(N, plan.lanes) if plan.lanes in counts
+                  else None)
+        if (plan.threads != K.BLOCK_THREADS or plan.lanes not in counts
+                or plan.stage_copies != copies or plan.tw > K.BATCH_SUB):
+            find("thread-limit", f"{plan.threads} threads, {plan.lanes} lanes "
+                 f"a cell, {plan.stage_copies} tiles of {plan.tw} ticks a "
+                 f"block; the batched delayed kernel is compiled for blocks "
+                 f"of {K.BLOCK_THREADS} (kBlock), {counts} lanes a cell at "
+                 f"{plan.n_acceptors} acceptors, {copies} tiles a block at "
+                 f"that G and N {N}, windows of at most {K.BATCH_SUB} ticks "
+                 f"(kSub)")
     if not (1 <= gx <= MAX_GRID_X and 1 <= gy <= MAX_GRID_Y):
         find("grid-limit", f"grid {plan.grid}: grid.x must lie in "
              f"1..{MAX_GRID_X}, grid.y in 1..{MAX_GRID_Y}")

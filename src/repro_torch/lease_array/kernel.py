@@ -10,7 +10,8 @@ Two pairs of functions, one pair per kernel:
 
 The first of each pair takes CUDA tensors only and launches the hand-written
 kernel of ``csrc/lease_window.cu`` (one thread per cell, the cell's state in
-registers for all T ticks; see the note at the top of that file) or raises.
+registers for all T ticks; the batched delayed kernel spreads a cell over G
+lanes; see the note at the top of that file) or raises.
 The ``_torch`` plain version is a Python loop over ticks of the same tick
 math, on any device — the CPU path and the yardstick the kernel is held
 bit-exact against. It runs every tick: the kernel's window staging and
@@ -21,7 +22,7 @@ the four functions counts its calls in its ``launches`` attribute.
 Each kernel also has a batched entry, the counterpart of the Pallas kernels
 under ``jax.vmap`` in the reference's sweep: ``lease_window_delayed_batched``
 / ``lease_window_sync_batched`` replay B scenarios ([B, T, ...] planes) from
-one shared start state in ONE launch (one grid row per scenario), write no
+one shared start state in ONE launch (tiles of one scenario's cells), write no
 final state, and either return the [B, T, N] owner/count rows
 (``collect="owners"``) or reduce them inside the kernel to three [B, N]
 planes (``collect="summary"``: max owner count, owned ticks, final owner;
@@ -61,21 +62,34 @@ MAX_SMEM = 232448
 MAX_ACCEPTORS = PACK_SHIFT
 #: most scenarios one batched launch takes
 MAX_BATCH = 65535
-#: the batched sync kernel's warps a block and ticks a warp stages at once
-#: (csrc/lease_window.cu kBatchWarps, kSub)
-SYNC_BATCH_WARPS, SYNC_BATCH_SUB = 4, 16
+#: the batched sync kernel's warps a block; the most ticks a batched kernel
+#: stages at once (csrc kBatchWarps, kSub)
+SYNC_BATCH_WARPS, BATCH_SUB = 4, 16
 #: most threads a block of the one-cell-a-thread kernels (csrc kBlock, their
-#: __launch_bounds__)
+#: __launch_bounds__), and the block of the batched delayed kernel
 BLOCK_THREADS = 128
+#: most lanes a cell of the batched delayed kernel (csrc kMaxLanes); it is
+#: built for the powers of two up to it (:func:`lane_counts`)
+MAX_LANES = 8
 #: dynamic shared memory a block may take without the opt-in attribute
 SMEM_NO_OPTIN = 48 * 1024
+#: lanes an SM (four warps) the batched delayed plan fills before it
+#: spreads cells no further (:func:`delayed_batched_launch_plan`). Timed on
+#: an H100 at every G (``tools/lease_batched_time.py --lanes``): one lane a
+#: cell ran fastest from 32,768 cells (the bench and chaos sweeps), two at
+#: 16,384 (A 3 and 5), the most there are from the shrinker's 4 cells up to
+#: 8,192 (G 4 at A 3, G 8 at A 5); every value above 124 and at most 248
+#: picks those, and 128 is the least power of two among them
+FILL_LANES_PER_SM = 128
 #: the index maps of the kernels, from (block, thread) to the cell they own:
-#: CELL_MAP, cell blockIdx.x * blockDim.x + threadIdx.x of scenario
-#: blockIdx.y (the delayed kernel, both entries, and the unbatched sync
-#: kernel); WARP_TILE_MAP, 32-cell tile blockIdx.x * kBatchWarps + warp of
+#: CELL_MAP, cell blockIdx.x * blockDim.x + threadIdx.x (the unbatched
+#: kernels); WARP_TILE_MAP, 32-cell tile blockIdx.x * kBatchWarps + warp of
 #: the B · ceil(N / 32) tiles, a scenario's tiles in a row (the batched sync
-#: kernel)
-CELL_MAP, WARP_TILE_MAP = "cell", "warp_tile"
+#: kernel); LANE_MAP, G lanes a cell: tile blockIdx.x * copies + threadIdx.x
+#: // (threads / copies) of the B · ceil(N / cells) tiles holds ``cells``
+#: = threads / copies / G cells of one scenario, lane l of a tile cell l //
+#: G, and a cell's lane 0 writes (the batched delayed kernel)
+CELL_MAP, WARP_TILE_MAP, LANE_MAP = "cell", "warp_tile", "lane_group"
 #: the optional plane groups a delayed launch may carry (the kernel's EXT,
 #: CORRUPT and RESTART template flags)
 VARIANTS = ("extends", "corrupt", "restart")
@@ -97,7 +111,8 @@ class LaunchPlan(NamedTuple):
     planes of :func:`tick_planes`); a block holds ``stage_copies`` areas of
     ``tw`` ticks. ``guards`` are the conditions under which a thread writes
     nothing (the kernel tests them). ``collect`` is a batched entry's
-    collect mode, None for an unbatched one."""
+    collect mode, None for an unbatched one. ``lanes`` is the threads a
+    cell (G of ``LANE_MAP``; 1 for the other maps)."""
 
     entry: str
     n_acceptors: int
@@ -114,6 +129,7 @@ class LaunchPlan(NamedTuple):
     stage_copies: int
     index_map: str
     guards: tuple[str, ...]
+    lanes: int = 1
 
     @property
     def stage_words(self) -> int:
@@ -176,27 +192,46 @@ def tick_planes(A: int, N: int, P: int, *, delayed: bool,
 
 
 def _plan(entry, A, N, P, T, batch, variant, collect, *, delayed, threads,
-          grid_x, tw, copies, index_map, guards) -> LaunchPlan:
+          grid_x, tw, copies, index_map, guards, lanes=1) -> LaunchPlan:
     if bad := set(variant) - set(VARIANTS):
         raise ValueError(f"unknown plane groups {sorted(bad)}; of {VARIANTS}")
     variant = tuple(v for v in VARIANTS if v in variant)
     staged = tuple((name, math.prod(shape)) for name, shape, on in tick_planes(
         A, N, P, delayed=delayed, variant=variant) if on)
     return LaunchPlan(
-        entry, A, P, N, T, batch, variant, collect,
-        (grid_x, batch if index_map == CELL_MAP else 1), threads, tw, staged,
-        copies, index_map, guards)
+        entry, A, P, N, T, batch, variant, collect, (grid_x, 1), threads, tw,
+        staged, copies, index_map, guards, lanes)
 
 
-def _cell_plan(entry, A, N, P, T, batch, window, delayed, variant, collect):
-    """A one-cell-a-thread launch: blocks of min(kBlock, N rounded up to a
-    warp) threads, ceil(N / threads) of them a scenario, a window of
+def _cell_plan(entry, A, N, P, T, window, delayed, variant):
+    """A one-cell-a-thread launch of one scenario: blocks of min(kBlock, N
+    rounded up to a warp) threads, ceil(N / threads) of them, a window of
     min(window, T) ticks (at least 1)."""
     threads = min(BLOCK_THREADS, max(32, -(-N // 32) * 32))
-    return _plan(entry, A, N, P, T, batch, variant, collect, delayed=delayed,
+    return _plan(entry, A, N, P, T, 1, variant, None, delayed=delayed,
                  threads=threads, grid_x=-(-N // threads),
                  tw=max(1, min(int(window), T)), copies=1,
                  index_map=CELL_MAP, guards=("n < N",))
+
+
+def lane_counts(n_acceptors: int) -> tuple[int, ...]:
+    """The lanes a cell the batched delayed kernel is built for at
+    ``n_acceptors``: the powers of two up to the first at or above A, at
+    most MAX_LANES (csrc ``lane_cap``; a lane with no acceptor would only
+    repeat the cell's scalars)."""
+    counts = [1]
+    while counts[-1] < min(n_acceptors, MAX_LANES):
+        counts.append(2 * counts[-1])
+    return tuple(counts)
+
+
+def lane_tile_copies(n_cells: int, lanes: int) -> int:
+    """Tiles a block of the batched delayed kernel (csrc ``lane_tile_warps``):
+    a tile is a warp where a scenario's N · G lanes, rounded up to a warp,
+    fill less than a block (BLOCK_THREADS // 32 tiles of any scenarios a
+    block), else the whole block."""
+    return (BLOCK_THREADS // 32 if -(-n_cells * lanes // 32) < BLOCK_THREADS // 32
+            else 1)
 
 
 # The plan functions are memoized: one geometry gives one plan, so a launch
@@ -210,7 +245,7 @@ def sync_launch_plan(n_acceptors: int, n_cells: int, n_proposers: int,
     final lease state ([A, N] x 2, [1, N] x 2) and the [T, N] owner and
     count rows."""
     return _cell_plan("lease_window_sync", n_acceptors, n_cells, n_proposers,
-                      n_ticks, 1, window, False, (), None)
+                      n_ticks, window, False, ())
 
 
 @functools.lru_cache(maxsize=256)
@@ -224,20 +259,42 @@ def delayed_launch_plan(n_acceptors: int, n_cells: int, n_proposers: int,
     row, not staged); it writes the final lease and net state (8 [A, N]
     columns, 8 [1, N] rows) and the [T, N] rows."""
     return _cell_plan("lease_window_delayed", n_acceptors, n_cells,
-                      n_proposers, n_ticks, 1, window, True, variant, None)
+                      n_proposers, n_ticks, window, True, variant)
 
 
 @functools.lru_cache(maxsize=256)
 def delayed_batched_launch_plan(n_acceptors: int, n_cells: int,
                                 n_proposers: int, n_ticks: int, batch: int,
                                 *, window: int = 16, variant: tuple = (),
-                                collect: str = "summary") -> LaunchPlan:
-    """Launch geometry of :func:`lease_window_delayed_batched`: the delayed
-    kernel's, with scenario blockIdx.y of ``batch``; it writes the [B, T, N]
-    rows or the three [B, N] summary planes."""
-    return _cell_plan("lease_window_delayed_batched", n_acceptors, n_cells,
-                      n_proposers, n_ticks, batch, window, True, variant,
-                      collect)
+                                collect: str = "summary", lanes: int = None,
+                                sms: int = 132) -> LaunchPlan:
+    """Launch geometry of :func:`lease_window_delayed_batched`
+    (``delayed_batched_kernel``): G lanes a cell (``LANE_MAP``), blocks of
+    BLOCK_THREADS lanes holding :func:`lane_tile_copies` tiles, each tile
+    staging its own window of min(window, T, BATCH_SUB) ticks of the
+    delayed kernel's columns; it writes the [B, T, N] rows or the three
+    [B, N] summary planes. G is ``lanes`` where given (the tests and the
+    timing runs hold every G against plain), else the fewest lanes of
+    :func:`lane_counts` that give the card's ``sms`` SMs FILL_LANES_PER_SM
+    lanes each, else the most there are."""
+    counts = lane_counts(n_acceptors)
+    if lanes is None:
+        lanes = next((g for g in counts
+                      if batch * n_cells * g >= sms * FILL_LANES_PER_SM),
+                     counts[-1])
+    elif lanes not in counts:
+        raise ValueError(f"the batched delayed kernel takes {counts} lanes a "
+                         f"cell at {n_acceptors} acceptors; got {lanes}")
+    copies = lane_tile_copies(n_cells, lanes)
+    cells = BLOCK_THREADS // copies // lanes
+    tiles = batch * -(-n_cells // cells)
+    return _plan("lease_window_delayed_batched", n_acceptors, n_cells,
+                 n_proposers, n_ticks, batch, variant, collect, delayed=True,
+                 threads=BLOCK_THREADS, grid_x=-(-tiles // copies),
+                 tw=max(1, min(int(window), n_ticks, BATCH_SUB)),
+                 copies=copies, index_map=LANE_MAP,
+                 guards=("tile < B * tiles", "n < N", "lane == 0"),
+                 lanes=lanes)
 
 
 @functools.lru_cache(maxsize=256)
@@ -247,13 +304,13 @@ def sync_batched_launch_plan(n_acceptors: int, n_cells: int,
     """Launch geometry of :func:`lease_window_sync_batched`
     (``sync_batched_kernel``): a warp a 32-cell tile of one scenario,
     SYNC_BATCH_WARPS tiles a block, ceil(B · ceil(N / 32) / warps) blocks;
-    each warp stages its own SYNC_BATCH_SUB ticks of acc_up, pclk and aclk
-    whatever the window (``tw`` is SYNC_BATCH_SUB)."""
+    each warp stages its own BATCH_SUB ticks of acc_up, pclk and aclk
+    whatever the window (``tw`` is BATCH_SUB)."""
     tiles = batch * -(-n_cells // 32)
     return _plan("lease_window_sync_batched", n_acceptors, n_cells,
                  n_proposers, n_ticks, batch, (), collect, delayed=False,
                  threads=32 * SYNC_BATCH_WARPS,
-                 grid_x=-(-tiles // SYNC_BATCH_WARPS), tw=SYNC_BATCH_SUB,
+                 grid_x=-(-tiles // SYNC_BATCH_WARPS), tw=BATCH_SUB,
                  copies=SYNC_BATCH_WARPS, index_map=WARP_TILE_MAP,
                  guards=("tile < B * tiles", "n < N"))
 
@@ -516,9 +573,9 @@ def _ptr(x) -> int:
 
 def _launch(plan: LaunchPlan, ptrs: list, ints: list, device) -> None:
     """Calls the C entry ``plan.entry`` with the plan's geometry (grid.x,
-    grid.y, threads, shared bytes) after ``ints``."""
+    grid.y, threads, shared bytes, lanes a cell) after ``ints``."""
     name = plan.entry
-    ints = [*ints, *plan.grid, plan.threads, plan.smem_bytes]
+    ints = [*ints, *plan.grid, plan.threads, plan.smem_bytes, plan.lanes]
     lib = _build.load(ints[2])
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_int * len(ints))(*ints)
@@ -573,20 +630,28 @@ def plane_groups(opt: dict) -> tuple[str, ...]:
     )) if present)
 
 
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    """The SMs of a CUDA device (the batched delayed plan fills them)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _check_delayed_inputs(packed, net, cols, link, opt: dict, lead: tuple,
-                          P: int, window: int, ticked, collect="summary"):
+                          P: int, window: int, ticked, collect="summary",
+                          lanes=None):
     """Checks a delayed launch's state, net and [*lead, T, ...] planes
     (cols as for sync, then the link plane and the ``DELAYED_OPTIONAL``
     planes in ``opt``), fills the absent columns of a present group
     (corruption, restart) with zeros, in place in ``opt``, and plans the
-    launch (the batched entry where ``lead`` is (B,)). Returns
-    (device, N, T, plan)."""
+    launch (the batched entry, ``lanes`` a cell, where ``lead`` is (B,)).
+    Returns (device, N, T, plan)."""
     dev = _cuda_device(packed.promised)
     A, N = packed.promised.shape
     T = cols[0].shape[len(lead)]
     variant = plane_groups(opt)
-    plan = (delayed_batched_launch_plan(A, N, P, T, lead[0], window=window,
-                                        variant=variant, collect=collect)
+    plan = (delayed_batched_launch_plan(
+        A, N, P, T, lead[0], window=window, variant=variant, collect=collect,
+        lanes=lanes, sms=_sm_count(dev))
             if lead else
             delayed_launch_plan(A, N, P, T, window=window, variant=variant))
     _check_geometry(plan)
@@ -733,7 +798,7 @@ def lease_window_sync_batched(
 ):
     """Replay B scenarios of T synchronous ticks from one start state in
     ONE launch of the CUDA batched sync kernel (no final state; it stages
-    SYNC_BATCH_SUB ticks at a time, so ``window`` changes no result and no
+    BATCH_SUB ticks at a time, so ``window`` changes no result and no
     launch). Returns (owners, counts) [B, T, N] with ``collect="owners"``,
     else the :func:`window_summary` planes [B, N]."""
     B = attempts.shape[0]
@@ -785,12 +850,15 @@ def lease_window_delayed_batched(
     prop_restart=None,
     prop_rc=None,
     ticked: torch.Tensor = None,  # [1] int64: cell-ticks that ran the tick math, all scenarios
+    lanes: int = None,
 ):
     """Replay B scenarios of T delayed-model ticks from one start state
-    ``(packed, net)`` in ONE launch of the CUDA delayed window kernel (no
+    ``(packed, net)`` in ONE launch of the CUDA batched delayed kernel (no
     final state). Optional planes are [B, T, ...] or None, as in
-    :func:`lease_window_delayed`. Returns (owners, counts) [B, T, N] with
-    ``collect="owners"``, else the :func:`window_summary` planes [B, N]."""
+    :func:`lease_window_delayed`. ``lanes`` (threads a cell, of
+    :func:`lane_counts`) overrides the plan's choice; no result depends on
+    it. Returns (owners, counts) [B, T, N] with ``collect="owners"``, else
+    the :func:`window_summary` planes [B, N]."""
     B = attempts.shape[0]
     _check_batch(B, collect)
     cols = (attempts, releases, acc_up, pclk, aclk)
@@ -799,7 +867,7 @@ def lease_window_delayed_batched(
                prop_restart=prop_restart, prop_rc=prop_rc)
     dev, N, T, plan = _check_delayed_inputs(packed, net, cols, link, opt,
                                             (B,), n_proposers, window, ticked,
-                                            collect)
+                                            collect, lanes)
     out, out_ptrs = _batch_outputs(plan, dev)
     if N == 0 or T == 0:
         return out

@@ -96,9 +96,20 @@ def test_plan_geometry_equals_the_old_launchers(A, P, N):
                 assert plan.threads == 32 * K.SYNC_BATCH_WARPS
                 assert plan.grid == (-(-5 * -(-N // 32) // K.SYNC_BATCH_WARPS), 1)
                 assert plan.smem_bytes == (K.SYNC_BATCH_WARPS * (2 * A + P)
-                                           * K.SYNC_BATCH_SUB * 4), what
+                                           * K.BATCH_SUB * 4), what
                 continue
             delayed = plan.entry.startswith("lease_window_delayed")
+            if plan.index_map == K.LANE_MAP:
+                # G lanes a cell; a warp a tile (four a block) while a
+                # scenario's lanes fill less than a block, else the block
+                G = plan.lanes
+                tile = 32 if (N * G + 31) // 32 < 4 else 128
+                assert plan.threads == 128, what
+                assert plan.grid == (-(-5 * -(-N // (tile // G)) // (128 // tile)), 1), what
+                assert plan.tw == min(tw, K.BATCH_SUB)
+                assert plan.smem_bytes == (128 // tile * _old_words(
+                    A, P, plan.variant, True) * plan.tw * 4), what
+                continue
             assert plan.threads == threads, what
             assert plan.grid == (-(-N // threads), plan.batch), what
             assert plan.tw == tw
@@ -119,9 +130,79 @@ def test_a_plan_without_its_guard_is_out_of_bounds():
     plan = K.delayed_launch_plan(5, 1000, 8, 16)
     assert {f.rule for f in check_launch_plan(plan._replace(guards=()))} == {
         "out-of-bounds"}
-    batched = K.delayed_batched_launch_plan(5, 1000, 8, 16, 4)
-    rules = {f.rule for f in check_launch_plan(batched._replace(grid=(8, 5)))}
-    assert rules == {"out-of-bounds"}  # nothing guards blockIdx.y
+    # the batched delayed kernel's lane groups: five one-warp tiles (N 20,
+    # G 1) in two blocks of four leave three warps past the batch, which
+    # write out of bounds unguarded; a cell's G lanes all write without
+    # the lane-0 guard
+    batched = K.delayed_batched_launch_plan(5, 20, 8, 16, 5, lanes=1)
+    assert batched.grid == (2, 1) and check_launch_plan(batched) == []
+    unguarded = batched._replace(guards=("n < N", "lane == 0"))
+    assert {f.rule for f in check_launch_plan(unguarded)} == {"out-of-bounds"}
+    for lanes in (2, 4, 8):
+        group = K.delayed_batched_launch_plan(5, 20, 8, 16, 5, lanes=lanes)
+        assert check_launch_plan(group) == []
+        every_lane = group._replace(guards=("tile < B * tiles", "n < N"))
+        assert {f.rule for f in check_launch_plan(every_lane)} == {"write-race"}
+
+
+@pytest.mark.parametrize("A", [1, 3, 5, 15])
+@pytest.mark.parametrize("N", [1, 4, 31, 37, 300])
+def test_one_writer_a_cell_at_every_lane_count(A, N):
+    """At every lane count the batched delayed kernel is built for, each
+    (b, n) cell has exactly one writing lane, and the plan is clean."""
+    assert K.lane_counts(A) == {1: (1,), 3: (1, 2, 4), 5: (1, 2, 4, 8),
+                                15: (1, 2, 4, 8)}[A]
+    for lanes in K.lane_counts(A):
+        plan = K.delayed_batched_launch_plan(A, N, A + 1, 20, 3, lanes=lanes)
+        assert plan.lanes == lanes and check_launch_plan(plan) == []
+        b, n, writes = thread_cells(plan)
+        cells = sorted(zip(b[writes].tolist(), n[writes].tolist()))
+        assert cells == [(i, j) for i in range(3) for j in range(N)], lanes
+
+
+#: (A, scenarios, cells a scenario, the lanes a cell that ran fastest) on an
+#: NVIDIA H100 (132 SMs), every G timed in turns by ``python3
+#: tools/lease_batched_time.py --lanes``: the falsifier's shrinker, the
+#: bench sweep and its first scenarios, the chaos sweep, its first
+#: scenarios and its first scenario cut to fewer cells
+MEASURED_FASTEST_LANES = [
+    (3, 1, 4, 4),
+    (3, 1, 32, 4), (3, 8, 32, 4), (3, 32, 32, 4), (3, 128, 32, 4),
+    (3, 256, 32, 4), (3, 512, 32, 2), (3, 1024, 32, 1),
+    (5, 1, 4, 8), (5, 1, 256, 8), (5, 1, 1024, 8), (5, 1, 4096, 8),
+    (5, 1, 16384, 2), (5, 4, 16384, 1), (5, 64, 16384, 1),
+]
+
+
+@pytest.mark.parametrize("A, B, N, fastest", MEASURED_FASTEST_LANES)
+def test_the_plan_takes_the_lanes_that_ran_fastest(A, B, N, fastest):
+    """On an H100's 132 SMs the plan's G is the one that ran fastest at
+    each timed shape (the rule's FILL_LANES_PER_SM is taken from these)."""
+    plan = K.delayed_batched_launch_plan(A, N, A + 1, 16, B, sms=132)
+    assert plan.lanes == fastest
+
+
+@pytest.mark.parametrize("how", ["unbuilt", "too-many", "tiling"])
+def test_a_plan_with_a_wrong_lane_count(how):
+    """A lane count the kernel is not built for at A, or a tiling that
+    is not the one its layout gives at that G and N, is refused by the plan
+    function or found by the audit."""
+    if how == "unbuilt":  # 3 is no power of two
+        with pytest.raises(ValueError, match="lanes a cell"):
+            K.delayed_batched_launch_plan(5, 100, 8, 16, 4, lanes=3)
+        return
+    if how == "too-many":  # 8 lanes at A 3: past the first power of two >= A
+        with pytest.raises(ValueError, match="lanes a cell"):
+            K.delayed_batched_launch_plan(3, 100, 4, 16, 4, lanes=8)
+        plan = K.delayed_batched_launch_plan(5, 100, 8, 16, 4, lanes=8)
+        bad = plan._replace(n_acceptors=3, n_proposers=4,
+                            staged=K.delayed_batched_launch_plan(
+                                3, 100, 4, 16, 4, lanes=4).staged)
+    else:  # G 8 at N 20 takes whole blocks, G 4 one-warp tiles
+        plan = K.delayed_batched_launch_plan(5, 20, 8, 16, 4, lanes=8)
+        assert plan.stage_copies == 1
+        bad = plan._replace(lanes=4)
+    assert "thread-limit" in {f.rule for f in check_launch_plan(bad)}
 
 
 def test_smem_optin_is_marked_above_48_kib():
@@ -164,6 +245,12 @@ def test_thread_and_grid_limits():
         assert rule in {f.rule for f in check_launch_plan(bad)}
     big = K.delayed_batched_launch_plan(5, 4, 8, 4, 70000)
     assert "grid-limit" in {f.rule for f in check_launch_plan(big)}
+    # the batched delayed kernel: blocks of kBlock lanes, windows of at most
+    # kSub ticks
+    lanes = K.delayed_batched_launch_plan(5, 1000, 8, 16, 4)
+    for bad in (lanes._replace(threads=2 * K.BLOCK_THREADS),
+                lanes._replace(tw=K.BATCH_SUB + 1)):
+        assert "thread-limit" in {f.rule for f in check_launch_plan(bad)}
 
 
 def test_plane_table_equals_the_reference_and_the_docs():

@@ -6,10 +6,13 @@ Tests marked ``cuda`` build ``csrc/lease_window.cu`` and hold
 ``lease_window_*_batched_torch`` (the plain window loop scenario by
 scenario) in both collect modes: one scenario against the unbatched
 kernel, ragged and small cell counts, every template variant (extends,
-corruption, restarts). They also check that ``sweep`` on the card launches
-the batched kernels and that ``replay_array(backend="cuda")`` equals the
-event-driven referee. Without a CUDA device they skip. This file imports no
-JAX, so it runs on the machine with the card:
+corruption, restarts), and the batched delayed kernel at every lane count
+its plan can take (``kernel.lane_counts``), at the reference bench's sweep
+and in summary mode at the chaos sweep (64 x 2^14 cells x 128 ticks, equal
+to one ``run_trace`` a scenario). They also check that ``sweep`` on the
+card launches the batched kernels and that ``replay_array(backend="cuda")``
+equals the event-driven referee. Without a CUDA device they skip. This file
+imports no JAX, so it runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_sweep_kernel.py
 
@@ -28,9 +31,9 @@ from repro_torch.lease_array import (
     replay_event_sim,
 )
 from repro_torch.lease_array import kernel as K
-from repro_torch.lease_array.netplane import init_netplane
+from repro_torch.lease_array.netplane import NetPlaneState, init_netplane
 from repro_torch.lease_array.ops import _device_planes, strip_default_planes
-from repro_torch.lease_array.state import init_state, pack_state
+from repro_torch.lease_array.state import PackedLeaseState, init_state, pack_state
 
 
 @pytest.fixture
@@ -81,6 +84,49 @@ CASES = {
                      max_delay_ticks=2, p_drop=0.05, restarts=0.01,
                      round_ticks=3), s)),
 }
+
+
+def _every_group(device, n_cells, n_acceptors, B=3, n_ticks=40, seed=5):
+    """B scenarios that carry every optional plane group (extends, stale/
+    equiv corruption, restarts; each planted once where the draw left it
+    out), and an engine of their geometry."""
+    A, P = n_acceptors, n_acceptors + 1
+    mix = dict(n_ticks=n_ticks, n_cells=n_cells, n_acceptors=A, n_proposers=P,
+               lease_ticks=6, max_delay_ticks=2, p_drop=0.05, asymmetric=True,
+               drift_eps=0.25, restarts=0.02, renew=0.5, round_ticks=3)
+    rng = np.random.default_rng(seed)
+    scs = []
+    for b in range(B):
+        tr = random_trace(seed + b, **mix)
+        stale, equiv = (rng.random((2, n_ticks, A)) < 0.05).astype(np.int32)
+        stale[-2, 0] = equiv[-2, -1] = tr.acc_restarts[-3, 0] = 1
+        tr.extends[-2, 0] = 0
+        scs.append(Scenario.build(n_cells=n_cells, n_acceptors=A, n_proposers=P, **{
+            **tr.scenario().planes, "acc_stale": stale, "acc_equiv": equiv}))
+    eng = LeaseArrayEngine(n_cells, n_acceptors=A, n_proposers=P, lease_ticks=6,
+                           round_ticks=3, drift_eps=0.25, device=device)
+    return eng, Scenario.stack(scs)
+
+
+def _delayed_args(eng, stacked, collect="owners"):
+    """The batched delayed kernel's arguments for a sweep of ``stacked``
+    from ``eng``, as ``ops._sweep_scan_impl`` builds them."""
+    d = _device_planes(strip_default_planes(stacked.planes), eng.device, eng._clk0(),
+                       eng._rst0(), eng.t, n_proposers=eng.n_proposers,
+                       n_acceptors=eng.n_acceptors, lease_q4=eng.lease_q4,
+                       restart_guard=eng.restart_guard, sync=False)
+    cols = [d[k] for k in ("attempts", "releases", "acc_up", "pclk", "aclk")]
+    args = (PackedLeaseState(*(x.contiguous() for x in pack_state(eng.state))),
+            NetPlaneState(*(x.contiguous() for x in eng.net)), eng.t, *cols, d["link"])
+    kw = dict(majority=eng.majority, lease_q4=eng.lease_q4, round_q4=eng.round_q4,
+              n_proposers=eng.n_proposers, guard_q4=eng.guard_q4, collect=collect,
+              **{k: d.get(k) for k in K.DELAYED_OPTIONAL})
+    return args, kw
+
+
+#: the optional planes of each plane group of kernel.VARIANTS
+GROUP_PLANES = {"extends": ("extends",), "corrupt": ("stale", "equiv"),
+                "restart": ("acc_restart", "acc_deaf", "prop_restart", "prop_rc")}
 
 
 def _engine(case, device, **kw):
@@ -231,6 +277,90 @@ def test_referee_equals_the_kernels(cuda_device):
         ow, cn = replay_array(tr, backend="cuda", device=cuda_device)
         assert int(cn.max()) <= 1
         np.testing.assert_array_equal(replay_event_sim(tr), ow.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cells,n_acceptors", [(37, 3), (300, 5), (4, 3), (32, 5)])
+def test_every_lane_count_in_every_variant_equals_plain(cuda_device, n_cells, n_acceptors):
+    """At every lane count the plan can take, in each of the eight plane-group
+    variants, both collect modes, windows 1 and 16 and the skip on and off,
+    the batched delayed kernel equals the plain batched version, at ragged
+    and small cell counts and past a block."""
+    eng, stacked = _every_group(cuda_device, n_cells, n_acceptors)
+    args, kw = _delayed_args(eng, stacked)
+    assert all(kw[k] is not None for k in K.DELAYED_OPTIONAL)
+    for bits in np.ndindex(2, 2, 2):
+        variant = {v for v, on in zip(K.VARIANTS, bits) if on}
+        vkw = {k: None if any(k in GROUP_PLANES[g] for g in K.VARIANTS if g not in variant)
+               else x for k, x in kw.items()}
+        rows = K.lease_window_delayed_batched_torch(*args, **vkw)
+        want = {"owners": rows, "summary": K.window_summary(*rows)}
+        for lanes in K.lane_counts(n_acceptors):
+            for window in (1, 16):
+                for skip in (True, False):
+                    for collect in ("owners", "summary"):
+                        got = K.lease_window_delayed_batched(
+                            *args, **{**vkw, "collect": collect}, window=window,
+                            skip_stable=skip, lanes=lanes)
+                        assert all(torch.equal(a, b) for a, b in zip(got, want[collect])), (
+                            variant, lanes, window, skip, collect)
+
+
+def _bench_sweep(device, n_scenarios):
+    """The reference bench's sweep geometry (32 cells x 16 ticks, A 3, P 4)
+    with delay <= 2 and drops, as chip_smoke.py phase 19a runs it."""
+    traces = [random_trace(s, n_ticks=16, n_cells=32, n_acceptors=3, n_proposers=4,
+                           lease_ticks=3, p_attempt=0.5, p_release=0.05, p_down_flip=0.05,
+                           max_delay_ticks=2, p_drop=0.05) for s in range(n_scenarios)]
+    eng = LeaseArrayEngine(32, n_acceptors=3, n_proposers=4, lease_ticks=3,
+                           round_ticks=traces[0].round_ticks, device=device)
+    return eng, Scenario.stack([t.scenario() for t in traces])
+
+
+@pytest.mark.cuda
+def test_bench_sweep_at_every_lane_count(cuda_device):
+    """The bench sweep's 1024 scenarios at every lane count equal the
+    plan's own choice, and on the first 16 the plain batched version."""
+    eng, stacked = _bench_sweep(cuda_device, 1024)
+    for collect in ("owners", "summary"):
+        args, kw = _delayed_args(eng, stacked, collect)
+        mine = K.lease_window_delayed_batched(*args, **kw)
+        head = (*args[:3], *(x[:16] for x in args[3:]))
+        want = K.lease_window_delayed_batched_torch(*head, **{
+            k: x[:16] if isinstance(x, torch.Tensor) else x for k, x in kw.items()})
+        for lanes in K.lane_counts(3):
+            got = K.lease_window_delayed_batched(*args, lanes=lanes, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, mine)), (collect, lanes)
+            assert all(torch.equal(a[:16], b) for a, b in zip(got, want)), (collect, lanes)
+
+
+@pytest.mark.cuda
+def test_chaos_sweep_summary_equals_its_run_traces(cuda_device):
+    """chip_smoke.py phase 19b's chaos sweep (64 scenarios of 2^14 cells x
+    128 ticks at DEFAULT_CELL from a warmed engine) in summary mode, at
+    every lane count: each scenario's max owner count, owned count and
+    final owners equal one ``run_trace`` of it from the same state."""
+    from repro_torch.lease_array import engine_from_reference, engine_to_arrays
+
+    mix = dict(n_cells=1 << 14, n_acceptors=5, n_proposers=8, lease_ticks=24,
+               max_delay_ticks=4, p_drop=0.05, asymmetric=True, drift_eps=0.25,
+               restarts=0.002, renew=0.5, round_ticks=17)
+    cfg = dict(lease_ticks=24, round_ticks=17, drift_eps=0.25, device=cuda_device)
+    eng = LeaseArrayEngine(1 << 14, n_acceptors=5, n_proposers=8, **cfg)
+    warm = random_trace(70, n_ticks=16, **mix)
+    warm.prop_restarts[:] = 0
+    eng.run_trace(warm.scenario())
+    before = engine_to_arrays(eng)
+    scs = [random_trace(700 + b, n_ticks=128, **mix).scenario() for b in range(64)]
+    args, kw = _delayed_args(eng, Scenario.stack(scs), "summary")
+    max_count, owned, final = zip(*(
+        (int(cn.max()), int((ow >= 0).sum()), ow[-1])
+        for ow, cn in (engine_from_reference(before, **cfg).run_trace(sc) for sc in scs)))
+    for lanes in K.lane_counts(5):
+        got = K.lease_window_delayed_batched(*args, lanes=lanes, **kw)
+        assert got[0].amax(-1).tolist() == list(max_count), lanes
+        assert got[1].sum(-1).tolist() == list(owned), lanes
+        assert torch.equal(got[2], torch.stack(final)), lanes
 
 
 def test_batched_wrappers_refuse_cpu_tensors():

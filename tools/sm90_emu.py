@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""The flash kernels (forward and backward) and the WKV6 backward on host
-threads, without a card.
+"""The flash kernels (forward and backward), the WKV6 backward and the
+batched delayed lease kernel on host threads, without a card.
 
-    python3 tools/sm90_emu.py [--csrc DIR] [--fp32 | --wkv6] [CASE ...]
+    python3 tools/sm90_emu.py [--csrc DIR] [--fp32 | --wkv6 | --lease] [CASE ...]
 
 Builds ``csrc/flash_attention_wgmma.cu`` and ``csrc/flash_attention_bwd_wgmma.cu``
 with g++ into ``build/sm90_emu/libemu.so``: ``sm90.cuh``'s block between its
@@ -52,12 +52,28 @@ ragged about its 64-token chunks (32 at N 128), both dtypes, the states
 given or not, the decay_base spread and decays down to -33) against
 ``ref.wkv6_bwd_ref``: below 1e-4 per gradient, bf16's dr, dk, dv within
 twice their bf16 rounding (phase 46's limits).
+
+``--lease`` builds ``lease_array/csrc/lease_window.cu`` (or the one in
+``--csrc``) with g++ for A 3 and 5 (``-DLEASE_ACCEPTORS``; a library per A,
+named by a hash of the source, under ``build/sm90_emu/``) and runs the
+port's own wrapper ``lease_window_delayed_batched`` on CPU tensors with
+the host library in place of ``_build.load`` (the wrapper's device check
+and stream lookups stubbed). Each case of ``chip_smoke.LANE_CASES`` (a
+batch of small scenarios with every optional plane group; cell counts
+ragged about the tiles, 4, 32 and 300) runs every plane-group variant at
+every lane count of the case's A, owners and summary, windows 1 and 16,
+the quiescence skip on and off, against ``lease_window_delayed_batched_
+torch``, bit-exact; ``ticked`` must count every cell-tick with the skip
+off, and a quiet case must skip some.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import hashlib
 import math
+import os
 import re
 import subprocess
 import sys
@@ -344,6 +360,111 @@ def run_case_wkv6(lib, bh, s, n, dtype, with_state, with_dstate, decay, seed=0) 
     return ok
 
 
+def build_lease(csrc: Path, n_acceptors: int) -> Path:
+    """The host build of ``lease_window.cu`` in ``csrc`` for
+    ``n_acceptors`` (g++ -O1: the emulation's time is its threads', not its
+    code's), unless a build of the same source exists."""
+    t = (csrc / "lease_window.cu").read_text()
+    t = t.replace("#include <cuda_runtime.h>", '#include "emu_cuda.h"')
+    t = t.replace("extern __shared__ int smem[];", "int* smem = (int*)emu_smem();")
+    t = re.sub(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", t, flags=re.S)
+    digest = hashlib.sha256((t + (EMU / "emu_cuda.h").read_text()).encode()).hexdigest()[:16]
+    lib = OUT / f"liblease_emu_a{n_acceptors}_{digest}.so"
+    if lib.exists():
+        return lib
+    OUT.mkdir(parents=True, exist_ok=True)
+    src = OUT / f"lease_window_emu_{digest}.cpp"
+    src.write_text(t)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                    f"-DLEASE_ACCEPTORS={n_acceptors}", "-I", str(EMU), "-o", str(tmp),
+                    str(src)], check=True)
+    os.replace(tmp, lib)  # atomic: concurrent builders race harmlessly
+    return lib
+
+
+def load_lease(csrc: Path, n_acceptors: int) -> ctypes.CDLL:
+    """``build_lease``'s library with the entry points' signatures declared
+    (as ``lease_array._build.load`` declares them)."""
+    from repro_torch.lease_array import _build
+
+    lib = ctypes.CDLL(str(build_lease(csrc, n_acceptors)))
+    for name in _build.ENTRY_POINTS:
+        getattr(lib, name).argtypes = [ctypes.c_void_p] * 3
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+@contextlib.contextmanager
+def lease_on_host(libs: dict):
+    """The port's lease wrappers, inside, launch the host libraries ``libs``
+    ({A: CDLL}) on CPU tensors: ``_build.load`` returns them, the wrappers'
+    CUDA-device check passes any device, and the stream and device lookups
+    give stream 0 on a card of 132 SMs."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.lease_array import _build
+    from repro_torch.lease_array import kernel as K
+
+    class Stream:
+        cuda_stream = 0
+
+    with contextlib.ExitStack() as stack:
+        for target, name, value in (
+                (_build, "load", lambda a: libs[a]),
+                (K, "_cuda_device", lambda t: t.device),
+                (K, "_sm_count", lambda dev: 132),
+                (torch.cuda, "current_stream", lambda dev=None: Stream),
+                (torch.cuda, "device", lambda dev: contextlib.nullcontext())):
+            stack.enter_context(mock.patch.object(target, name, value))
+        yield
+
+
+#: (window, skip_stable, collect) of each batched run in a lease case
+LEASE_RUNS = ((16, True, "owners"), (1, False, "owners"), (16, False, "summary"),
+              (1, True, "summary"))
+
+
+def run_case_lease(libs, A, N, B, T, quiet, seed=1) -> bool:
+    import itertools
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as CS
+
+    from repro_torch.lease_array import kernel as K
+
+    args, kw = CS.lane_case(torch.device("cpu"), A, N, B, T, quiet, seed)
+    bad, runs, skipped = [], 0, 0
+    with lease_on_host(libs):
+        for bits in itertools.product((False, True), repeat=len(K.VARIANTS)):
+            variant = tuple(v for v, on in zip(K.VARIANTS, bits) if on)
+            vkw = CS.with_groups(kw, variant)
+            want = K.lease_window_delayed_batched_torch(*args, **vkw)
+            want = {"owners": want, "summary": K.window_summary(*want)}
+            for lanes in K.lane_counts(A):
+                for window, skip, collect in LEASE_RUNS:
+                    ticked = torch.zeros(1, dtype=torch.int64)
+                    got = K.lease_window_delayed_batched(
+                        *args, **{**vkw, "collect": collect}, window=window,
+                        skip_stable=skip, lanes=lanes, ticked=ticked)
+                    runs += 1
+                    skipped += int(ticked) < B * T * N
+                    if not (all(torch.equal(x, y) for x, y in zip(got, want[collect]))
+                            and (skip or int(ticked) == B * T * N)):
+                        bad.append(f"{'+'.join(variant) or 'plain'} G {lanes} window "
+                                   f"{window} skip {skip} {collect} ticked {int(ticked)}")
+    ok = not bad and (skipped > 0 or not quiet)
+    print(f"{'ok ' if ok else 'BAD'} lease A {A} N {N} B {B} T {T}{' quiet' if quiet else ''}: "
+          f"{runs} runs (8 variants x G {K.lane_counts(A)} x {len(LEASE_RUNS)}), "
+          f"{len(bad)} differ from plain or miscount ticked, {skipped} skipped a window"
+          + (f"; first: {bad[0]}" if bad else ""), flush=True)
+    return ok
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.flash_attention import _build
@@ -354,8 +475,22 @@ def main(argv) -> int:
                     help="the fp32 kernels (sm80_tf32.cuh) instead of the bf16 ones")
     ap.add_argument("--wkv6", action="store_true",
                     help="the WKV6 backward (kernels/rwkv6/csrc/wkv6_bwd.cu) instead")
+    ap.add_argument("--lease", action="store_true",
+                    help="the batched delayed lease kernel (lease_array/csrc/lease_window.cu)")
     ap.add_argument("cases", type=int, nargs="*")
     args = ap.parse_args(argv)
+    if args.lease:
+        sys.path.insert(0, str(ROOT))
+        import chip_smoke as CS
+
+        from repro_torch.lease_array import _build as lease_build
+
+        csrc = lease_build.CSRC if args.csrc == _build.CSRC else args.csrc
+        cases = [CS.LANE_CASES[i] for i in (args.cases or range(len(CS.LANE_CASES)))]
+        libs = {a: load_lease(csrc, a) for a in sorted({c[0] for c in cases})}
+        ok = all([run_case_lease(libs, *case) for case in cases])
+        print("every case passed" if ok else "FAILED")
+        return 0 if ok else 1
     if args.wkv6:
         from repro_torch.kernels.rwkv6 import _build as wkv_build
 

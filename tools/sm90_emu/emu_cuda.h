@@ -1,7 +1,8 @@
-// Host-thread emulation of the CUDA surface the flash kernels use
-// (tools/sm90_emu.py): the keywords, bf16, the vector types, the runtime and
-// driver types, blocks of std::threads with their barriers, shuffles and
-// launches.
+// Host-thread emulation of the CUDA surface the flash, WKV6 and lease
+// kernels use (tools/sm90_emu.py): the keywords, bf16, the vector types, the
+// runtime and driver types, blocks of std::threads with their barriers,
+// votes, shuffles, atomics and launches. Warp-level calls take whole warps
+// (their masks are not read).
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -143,13 +144,17 @@ struct EmuBlock {
   // per warpgroup: the rs A fragments and a barrier
   uint32_t a_slots[8][128][4];
   std::vector<std::unique_ptr<std::barrier<>>> wg_sync;
-  // per warp: shuffle slots, and two sets (by the parity of the exchange)
-  // of 8 words a lane for ldmatrix and mma.sync (emu_tf32.h)
+  // per warp: shuffle slots (float and int), and two sets (by the parity of
+  // the exchange) of 8 words a lane for ldmatrix and mma.sync (emu_tf32.h)
   float shfl[64][32];
+  int ishfl[64][32];
   std::vector<uint32_t> xchg;
   std::vector<std::unique_ptr<std::barrier<>>> warp_sync;
+  // per thread: its predicate for __syncthreads_and
+  std::vector<int> preds;
   EmuBlock(size_t bytes, int threads)
-      : smem_bytes(bytes), sync(threads), xchg((threads + 31) / 32 * 2 * 32 * 8) {
+      : smem_bytes(bytes), sync(threads), xchg((threads + 31) / 32 * 2 * 32 * 8),
+        preds(threads) {
     smem = (uint8_t*)aligned_alloc(1024, (bytes + 1023) / 1024 * 1024 + 1024);
     memset(smem, 0xA5, bytes);  // garbage, as on the card
     for (int w = 0; w < (threads + 127) / 128; ++w) wg_sync.emplace_back(new std::barrier<>(128));
@@ -167,6 +172,46 @@ inline thread_local EmuBlock* emu_block = nullptr;
 inline uint8_t* emu_smem() { return emu_block->smem; }
 
 inline void __syncthreads() { emu_block->sync.arrive_and_wait(); }
+
+inline int __syncthreads_and(int pred) {
+  emu_block->preds[threadIdx.x] = pred;
+  emu_block->sync.arrive_and_wait();
+  int all = 1;
+  for (int v : emu_block->preds) all = all && v;
+  emu_block->sync.arrive_and_wait();
+  return all;
+}
+
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_block->warp_sync[threadIdx.x / 32]->arrive_and_wait();
+}
+
+template <typename T> inline T __ldg(const T* p) { return *p; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
+
+inline int __shfl_xor_sync(unsigned, int v, int mask) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_block->ishfl[w][l] = v;
+  emu_block->warp_sync[w]->arrive_and_wait();
+  const int r = emu_block->ishfl[w][l ^ mask];
+  emu_block->warp_sync[w]->arrive_and_wait();
+  return r;
+}
+
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_block->ishfl[w][l] = pred != 0;
+  emu_block->warp_sync[w]->arrive_and_wait();
+  unsigned bits = 0;
+  for (int i = 0; i < 32; ++i) bits |= (unsigned)emu_block->ishfl[w][i] << i;
+  emu_block->warp_sync[w]->arrive_and_wait();
+  return bits;
+}
+
+inline int __all_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred) == 0xffffffffu; }
 
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
